@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drives the PyTorch/CUDA port's main path on one CUDA card and holds its
-kernel against the plain PyTorch version.
+"""Drives the PyTorch/CUDA port's main paths on one CUDA card and holds
+each kernel against its plain PyTorch version.
 
 Run from the repository root, with one card visible:
 
@@ -8,18 +8,36 @@ Run from the repository root, with one card visible:
 
 Phases, in order; any failure ends the run with a non-zero exit code:
 
-1. device  — a CUDA card is present; prints its name and power limit.
-2. build   — builds ``src/repro_torch/kernels/csrc/minplus.cu`` with nvcc.
-3. kernel  — ``minplus_cuda_batch`` against ``minplus_step_ref_batch`` on
-             the card over a grid of shapes: bit-identical float32 values
-             and identical int32 argmins.
-4. main    — solves 16 random instances (n = 100 clients, T = 10,000 tasks,
-             W <= 1,001) through ``solve_schedule_dp_batch``: exactly n
-             kernel launches, bit-identical to the plain path on the card,
-             feasible, within rtol 1e-5 of the float64 host DP; then the
-             paper's worked example.
-5. times   — kernel and plain-version time per class step, the bound, and
-             the warm end-to-end solve time.
+1. device     — a CUDA card is present; prints its name and power limit.
+2. build      — loads both kernels, which builds every
+                ``src/repro_torch/kernels/csrc/*.cu`` (one nvcc each, all
+                started together), and prints ptxas's registers and spills.
+3. kernel     — ``minplus_cuda_batch`` against ``minplus_step_ref_batch`` on
+                the card over a grid of shapes: bit-identical float32 values
+                and identical int32 argmins.
+4. main       — solves 16 random instances (n = 100 clients, T = 10,000
+                tasks, W <= 1,001) through ``solve_schedule_dp_batch``:
+                exactly n kernel launches, bit-identical to the plain path
+                on the card, feasible, within rtol 1e-5 of the float64 host
+                DP; then the paper's worked example.
+5. times      — kernel and plain-version time per class step, the bound, and
+                the warm end-to-end solve time.
+6. flash      — ``flash_attention`` against ``flash_attention_ref`` on the
+                card over mask kinds, softcaps, GQA ratios, head dims and
+                lengths (ragged ones included), and at the main path's
+                causal and sliding shapes: float32 at rtol = atol = 2e-5;
+                bfloat16 I/O within 2e-2 of the plain output and within half
+                a bfloat16 ulp (+2e-5) of its float32 value, lse within 2e-5.
+7. prefill    — gemma2-2b at full width and depth (26 layers, bfloat16,
+                random weights from ``torch.Generator`` seed 0) prefills
+                B = 2 prompts of S = 8,192 tokens through
+                ``build_prefill_step``: exactly one kernel launch per layer,
+                finite logits, the last position's logits close to the
+                plain attention route's; then 2 layers in float32 against
+                the plain route at 1e-4.
+8. flash times — the kernel at the causal and sliding shapes beside the
+                plain version, the bound and ``scaled_dot_product_attention``;
+                the warm prefill in ms and tokens/s, and the kernel's share.
 
 The line before the last is a JSON object of every kernel with its launch
 count and times; the last line is ``{"ok": true, "device": {...}}``.
@@ -38,9 +56,34 @@ import torch
 SEED = 0
 # Main-path shape: the production shape of the JAX package's design notes.
 B_MAIN, N_MAIN, T_MAIN, U_MAIN = 16, 100, 10_000, 1_000
-# H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores, HBM3.
+# Prefill: gemma2-2b FULL, B prompts of S tokens (S > window, so the sliding
+# layers cut); the float32 check runs F32_LAYERS layers of it.
+ARCH, B_PREFILL, S_PREFILL, F32_LAYERS = "gemma2-2b", 2, 8192, 2
+FLASH_GRID_S = (128, 200, 640, 1024)
+FLASH_GRID_D = (64, 128, 256)
+# H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores,
+# bfloat16 on the tensor cores (dense), HBM3.
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
+# The last position's logits of the kernel route against the plain route,
+# bfloat16 over 26 layers: relative L2 distance. The routes round the
+# attention probabilities differently (plain: to bfloat16 before the value
+# product; kernel: float32 until the output), about 2^-8 relative per
+# sublayer; a random walk over 52 sublayers gives ~0.03. A masking or routing
+# fault moves the logits by O(1).
+PREFILL_REL_L2 = 0.1
+# The flash kernel against its plain version. float32: the reference's
+# forward tolerance. bfloat16 I/O: both compute in float32 from the same
+# (exactly widened) inputs and round o to bfloat16 once, so the kernel's o
+# lies within half a bfloat16 ulp (2^-8 relative) of the plain version's
+# float32 o, plus float32 summation-order noise (F32_TOL); lse is float32 in
+# both. A K/V tile skipped or visited wrongly moves lse by ~1e-2 at the main
+# shape. BF16_GRID_TOL is the looser limit that the grid's cases are also held
+# to against the plain version's bfloat16 output.
+F32_TOL = 2e-5
+BF16_O_RTOL = 2.0 ** -8
+BF16_GRID_TOL = 2e-2
 OPS_PER_CANDIDATE = 3  # add, saturating min, compare
 
 
@@ -139,6 +182,249 @@ def paper_problem(T, Problem):
     return Problem(T=T, lower=[1, 0, 0], upper=[6, 6, 5], cost_tables=(c1, c2, c3))
 
 
+def attn_pairs(B, H, S, kind, window) -> int:
+    """Unmasked (q, k) pairs of one attention layer at Sq = Sk = S."""
+    q = np.arange(S, dtype=np.int64)
+    if kind == "causal":
+        per_row = q + 1
+    elif kind == "sliding":
+        per_row = np.minimum(q + 1, window)
+    else:
+        per_row = np.full(S, S, dtype=np.int64)
+    return int(B * H * per_row.sum())
+
+
+def flash_bound_ms(B, H, Hkv, S, D, kind, window, itemsize):
+    """Least time for one flash-attention forward: the larger of its bytes
+    (q, k, v read once, o and lse written once) over HBM bandwidth and its
+    4·D flops per unmasked pair over the peak of the input type (bfloat16 on
+    the tensor cores, float32 outside them). Returns (ms, 'bytes'|'operations')."""
+    flops = 4 * D * attn_pairs(B, H, S, kind, window)
+    t_ops = flops / (PEAK_BF16_FLOPS if itemsize == 2 else PEAK_F32_FLOPS)
+    nbytes = itemsize * (2 * B * H * S * D + 2 * B * Hkv * S * D) + 4 * B * H * S
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def flash_inputs(gen, B, H, Hkv, S, D, dtype, dev):
+    """q (B, H, S, D), k and v (B, Hkv, S, D), entries N(0, 0.25) as in the
+    reference's flash tests, in ``dtype`` on ``dev``."""
+    return tuple((torch.randn((B, h, S, D), generator=gen, device=dev) * 0.5).to(dtype) for h in (H, Hkv, Hkv))
+
+
+def flash_err(fa, got, q, k, v, kind, window, softcap):
+    """Holds the kernel's ``(o, lse)`` against the plain version on the same
+    inputs. Returns (ok, max |o - o_plain|, max |o - o_plain32|, max |lse -
+    lse_plain|), where o_plain is the plain version's output in q's dtype and
+    o_plain32 the float32 value it rounds from.
+
+    float32: o and lse within rtol = atol = F32_TOL. bfloat16 I/O: o within
+    BF16_GRID_TOL of o_plain, and, sized to what is compared, o within
+    BF16_O_RTOL (plus F32_TOL) of o_plain32 and lse within F32_TOL.
+    """
+    o, lse = got
+    # the plain version widens its inputs to float32 first, so on the widened
+    # inputs it gives o_plain32 and the same lse
+    o32, lse32 = fa.flash_attention_ref(q.float(), k.float(), v.float(), kind, window, softcap)
+    o, o_plain = o.float(), o32.to(q.dtype).float()
+    close_lse = bool(torch.allclose(lse, lse32, rtol=F32_TOL, atol=F32_TOL))
+    if q.dtype == torch.float32:
+        ok = close_lse and bool(torch.allclose(o, o32, rtol=F32_TOL, atol=F32_TOL))
+    else:
+        ok = (close_lse and bool(torch.allclose(o, o_plain, rtol=BF16_GRID_TOL, atol=BF16_GRID_TOL))
+              and bool(torch.allclose(o, o32, rtol=BF16_O_RTOL, atol=F32_TOL)))
+    return ok, float((o - o_plain).abs().max()), float((o - o32).abs().max()), float((lse - lse32).abs().max())
+
+
+def flash_phase(fa, dev):
+    """Phase 6: the flash kernel against its plain version on the card.
+    Returns the main path's causal and sliding inputs and the largest
+    |o - o_ref| at those shapes."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    cases = []
+    for di, D in enumerate(FLASH_GRID_D):
+        for kind, window in (("causal", 0), ("sliding", 37), ("bidirectional", 0)):
+            for softcap in (0.0, 50.0):
+                for si, S in enumerate(FLASH_GRID_S):
+                    G = (1, 2, 4, 8)[(si + di) % 4]  # 8 = MQA at H = 8
+                    for dtype in (torch.float32, torch.bfloat16):
+                        cases.append((2 if S <= 640 else 1, 8, 8 // G, S, D, kind, window, softcap, dtype))
+    for dtype in (torch.float32, torch.bfloat16):
+        cases += [(1, 2, 1, 8192, 256, "causal", 0, 50.0, dtype), (1, 2, 1, 8192, 256, "sliding", 4096, 50.0, dtype),
+                  (1, 2, 2, 8192, 128, "bidirectional", 0, 0.0, dtype)]
+    worst = {torch.float32: [0.0] * 3, torch.bfloat16: [0.0] * 3}
+    for B, H, Hkv, S, D, kind, window, softcap, dtype in cases:
+        q, k, v = flash_inputs(gen, B, H, Hkv, S, D, dtype, dev)
+        got = fa.flash_attention(q, k, v, kind, window, softcap)
+        torch.cuda.synchronize()
+        ok, *errs = flash_err(fa, got, q, k, v, kind, window, softcap)
+        check(ok, f"flash kernel != plain at B={B} H={H} Hkv={Hkv} S={S} D={D} {kind} w={window} "
+                  f"softcap={softcap} {dtype} (max |do|, |do32|, |dlse| {errs})")
+        worst[dtype] = [max(a, b) for a, b in zip(worst[dtype], errs)]
+    f32, b16 = worst[torch.float32], worst[torch.bfloat16]
+    log(f"[flash] {len(cases)} cases within tolerance of the plain version: float32 rtol=atol={F32_TOL} on o and "
+        f"lse (largest |do| {f32[1]:.3e}, |dlse| {f32[2]:.3e}); bfloat16 I/O o within {BF16_GRID_TOL} of the plain "
+        f"output (largest {b16[0]:.3e}) and within rtol={BF16_O_RTOL:.3e}, atol={F32_TOL} of its float32 value "
+        f"(largest {b16[1]:.3e}), lse within {F32_TOL} (largest {b16[2]:.3e})")
+
+    cfg_shape = (B_PREFILL, 8, 4, S_PREFILL, 256)
+    main = {}
+    worst = [0.0] * 3
+    for kind, window in (("causal", 0), ("sliding", 4096)):
+        q, k, v = flash_inputs(gen, *cfg_shape, torch.bfloat16, dev)
+        got = fa.flash_attention(q, k, v, kind, window, 50.0)
+        torch.cuda.synchronize()
+        ok, *errs = flash_err(fa, got, q, k, v, kind, window, 50.0)
+        check(ok, f"flash kernel != plain at the main path's {kind} shape (max |do|, |do32|, |dlse| {errs})")
+        worst = [max(a, b) for a, b in zip(worst, errs)]
+        main[kind] = (q, k, v, window)
+        torch.cuda.empty_cache()
+    log(f"[flash] main-path shapes B={cfg_shape[0]} H=8 Hkv=4 S={S_PREFILL} D=256 bfloat16 softcap 50, causal "
+        f"and sliding(4096): o within rtol={BF16_O_RTOL:.3e}, atol={F32_TOL} of the plain version's float32 value "
+        f"(largest |do32| {worst[1]:.3e}), lse within rtol=atol={F32_TOL} (largest |dlse| {worst[2]:.3e}); "
+        f"max_abs_err against its bfloat16 output {worst[0]:.3e}")
+    return main, worst[0]
+
+
+def prefill_phase(fa, mp, dev):
+    """Phase 7: gemma2-2b FULL prefill through the kernel route, checked
+    against the plain route. Returns (cfg, params, batch, step, launches)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import build_prefill_step
+    from repro_torch.models import init_params, make_dummy_batch, param_count, prefill_fn
+
+    cfg = get_config(ARCH).replace(attn_impl="flash")
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batch = make_dummy_batch(cfg, B_PREFILL, S_PREFILL, "prefill", np.random.default_rng(SEED), device=dev)
+    step = build_prefill_step(cfg)
+    log(f"[prefill] {cfg.arch}: {cfg.num_layers} layers, d={cfg.d_model}, H={cfg.num_heads}, Hkv={cfg.num_kv_heads}, "
+        f"hd={cfg.hd}, V={cfg.vocab_size}, {cfg.param_dtype}; {param_count(params)} parameters initialised on the "
+        f"card in {init_s:.2f} s; tokens {tuple(batch['tokens'].shape)}")
+
+    torch.cuda.reset_peak_memory_stats()
+    mp.launches = fa.launches = 0
+    t0 = time.perf_counter()
+    logits = step(params, batch)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    launches = fa.launches
+    check(launches == cfg.num_layers, f"{launches} flash launches in one prefill, expected {cfg.num_layers}")
+    check(mp.launches == 0, f"the prefill launched the min-plus kernel {mp.launches} times")
+    check(tuple(logits.shape) == (B_PREFILL, S_PREFILL, cfg.vocab_size) and logits.dtype == torch.float32,
+          f"logits {tuple(logits.shape)} {logits.dtype}")
+    check(bool(torch.isfinite(logits).all()), "non-finite logits")
+    last = logits[:, -1].clone()
+    del logits
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[prefill] kernel route: {launches} flash launches (one per layer), first call {cold_s:.3f} s, logits "
+        f"finite, peak device memory {peak_gb:.2f} GB")
+
+    plain = prefill_fn(params, cfg.replace(attn_impl="plain"), batch)
+    last_p = plain[:, -1].clone()
+    del plain
+    torch.cuda.empty_cache()
+    check(bool(torch.isfinite(last_p).all()), "non-finite logits on the plain route")
+    rel = float((last - last_p).norm() / last_p.norm())
+    max_abs = float((last - last_p).abs().max())
+    log(f"[prefill] last position vs the plain route (block_q={cfg.attn_block_q}): relative L2 {rel:.3e} (limit "
+        f"{PREFILL_REL_L2}), max |dlogit| {max_abs:.3e} (logit std {float(last_p.std()):.3f}); greedy next token "
+        f"kernel {last.argmax(-1).tolist()} plain {last_p.argmax(-1).tolist()}")
+    check(rel <= PREFILL_REL_L2, f"kernel route's logits differ from the plain route's: relative L2 {rel}")
+
+    cfg32 = cfg.replace(num_layers=F32_LAYERS, param_dtype="float32", compute_dtype="float32")
+    p32 = init_params(cfg32, torch.Generator(device=dev).manual_seed(SEED))
+    b32 = {"tokens": batch["tokens"][:1]}
+    rows = [0, cfg.window - 1, cfg.window, S_PREFILL - 1]  # both sides of the sliding cut
+    n0 = fa.launches
+    l32 = prefill_fn(p32, cfg32, b32)[:, rows].clone()
+    check(fa.launches == n0 + F32_LAYERS, "float32 prefill did not launch the kernel once per layer")
+    l32p = prefill_fn(p32, cfg32.replace(attn_impl="plain"), b32)[:, rows].clone()
+    err32 = float((l32 - l32p).abs().max())
+    check(bool(torch.allclose(l32, l32p, rtol=1e-4, atol=1e-4)), f"float32 prefill: max |dlogit| {err32}")
+    del p32, l32, l32p
+    torch.cuda.empty_cache()
+    log(f"[prefill] float32, {F32_LAYERS} layers at full width, B=1 S={S_PREFILL}: positions {rows} within "
+        f"rtol=atol=1e-4 of the plain route (max |dlogit| {err32:.3e})")
+    return cfg, params, batch, step, launches
+
+
+def device_time_table(step, params, batch, top=8):
+    """Device time by kernel over one prefill, from torch.profiler: the
+    events that ran on the card (not the CPU-side operators, which carry
+    their kernels' time too, and not CUPTI's "Command Buffer Full" marker
+    for a full launch queue). Returns (total ms, [(ms, count, name)])."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(params, batch)
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.key.startswith("Command Buffer"):
+            continue
+        t = getattr(e, "self_device_time_total", None)
+        t = getattr(e, "self_cuda_time_total", 0) if t is None else t
+        if t > 0:
+            rows.append((t / 1e3, e.count, e.key))
+    rows.sort(reverse=True)
+    return sum(r[0] for r in rows), rows[:top]
+
+
+def flash_times(fa, main, cfg, params, batch, step, card):
+    """Phase 8: kernel, plain version, bound and library call at the main
+    path's shapes; the warm prefill. Returns the flash kernel's JSON fields."""
+    import torch.nn.functional as F
+
+    from repro_torch.models.dense import attn_pattern
+
+    res = {}
+    for kind, (q, k, v, window) in main.items():
+        B, H, S, D = q.shape
+        ms = median_event_ms(lambda: fa.flash_attention(q, k, v, kind, window, 50.0), reps=5, per_rep=3)
+        clocks = gpu_line("clocks.sm,power.draw")
+        plain_ms = median_event_ms(lambda: fa.flash_attention_ref(q, k, v, kind, window, 50.0), reps=3, warmup=1)
+        torch.cuda.empty_cache()
+        b_ms, b_by = flash_bound_ms(B, H, k.shape[1], S, D, kind, window, q.element_size())
+        if kind == "causal":
+            lib_ms = median_event_ms(
+                lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True), reps=5, per_rep=3)
+        else:
+            lib_ms = None
+        res[kind] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+        lib = f"{lib_ms:.4f} ms (scaled_dot_product_attention, same shape, no softcap)" if lib_ms else "not timed"
+        log(f"[times] flash_attention {kind}{f'({window})' if kind == 'sliding' else ''} B={B} H={H} "
+            f"Hkv={k.shape[1]} S={S} D={D} bfloat16 softcap 50: {ms:.4f} ms per launch (median of 5 runs of 3 "
+            f"launches; clocks.sm, power.draw after: {clocks}); plain version {plain_ms:.4f} ms; bound {b_ms:.4f} "
+            f"ms ({b_by}, {attn_pairs(B, H, S, kind, window)} unmasked pairs), kernel at {ms / b_ms:.1f}x the "
+            f"bound; on float32 CUDA cores (67 TFLOP/s) its floor is {b_ms * PEAK_BF16_FLOPS / PEAK_F32_FLOPS:.3f} "
+            f"ms; library {lib}")
+
+    pattern = attn_pattern(cfg)
+    per_kind = {kd: sum(pattern[i % len(pattern)] == kd for i in range(cfg.num_layers)) for kd in res}
+    n0 = fa.launches
+    prefill_ms = median_wall_ms(lambda: step(params, batch), reps=3)
+    check(fa.launches - n0 == 3 * cfg.num_layers, f"{fa.launches - n0} flash launches in 3 prefills")
+    kernel_ms = sum(per_kind[kd] * res[kd]["ms"] for kd in res)
+    tokens = B_PREFILL * S_PREFILL
+    log(f"[times] {card}")
+    log(f"[times] warm prefill {ARCH} B={B_PREFILL} S={S_PREFILL}: {prefill_ms:.3f} ms (host clock, median of 3) = "
+        f"{tokens / prefill_ms * 1e3:.1f} tokens/s; flash kernel {per_kind} x ms per launch = {kernel_ms:.3f} ms = "
+        f"{kernel_ms / prefill_ms:.3f} of the prefill")
+    total, rows = device_time_table(step, params, batch)
+    if total == 0:
+        log("[times] torch.profiler recorded no device time")
+    else:
+        log(f"[times] torch.profiler, one prefill: {total:.3f} ms of kernel time on the card ({total / prefill_ms:.3f} "
+            f"of the warm prefill); top kernels by device time:")
+        for t, n, name in rows:
+            log(f"[times]   {t:10.3f} ms  {t / total:.3f}  x{n:<5d} {name[:90]}")
+    return res["causal"]
+
+
 def main() -> int:
     # -- phase 1: device ---------------------------------------------------
     if not torch.cuda.is_available():
@@ -164,21 +450,28 @@ def main() -> int:
     )
     from repro_torch.core.torch_dp import pack_problem
     from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import minplus as mp
     from repro_torch.kernels.ref import BIG, minplus_step_ref_batch
 
     dev = torch.device("cuda")
+    # float32 products in full float32 for the plain versions and the model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     card = gpu_line()
     kind = torch.cuda.get_device_name(0)
     log(f"[device] {card} | torch {torch.__version__} cuda {torch.version.cuda} | count {torch.cuda.device_count()}")
 
     # -- phase 2: build ----------------------------------------------------
     t0 = time.perf_counter()
-    mp._launch_fn()
-    log(f"[build] minplus.cu built and loaded in {time.perf_counter() - t0:.2f} s ({build.build_dir()})")
-    for line in (build.build_dir() / "minplus.log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build] ptxas: {line.strip()}")
+    mp._launch_fn()  # the first load builds every source, all together
+    fa._launch_fn()
+    log(f"[build] minplus.cu, flash_fwd.cu built and loaded in {time.perf_counter() - t0:.2f} s "
+        f"({build.build_dir()})")
+    for name in ("minplus", "flash_fwd"):
+        for line in (build.build_dir() / f"{name}.log").read_text().splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                log(f"[build] {name} ptxas: {line.strip()}")
 
     # -- phase 3: kernel vs plain version on the card ----------------------
     rng = np.random.default_rng(SEED)
@@ -221,12 +514,13 @@ def main() -> int:
     batch = ProblemBatch.from_problems(probs)
     b0 = remove_lower_limits(batch)
     log(f"[main] batch B={batch.B} n={batch.n} T={T_MAIN} W'={b0.W} (after lower-limit removal)")
-    mp.launches = 0
+    mp.launches = fa.launches = 0
     t0 = time.perf_counter()
     X = solve_schedule_dp_batch(batch, device="cuda")
     cold_s = time.perf_counter() - t0
     launches_main = mp.launches
     check(launches_main == batch.n, f"{launches_main} kernel launches in the main solve, expected n={batch.n}")
+    check(fa.launches == 0, f"the solve launched the flash kernel {fa.launches} times")
     validate_schedule_batch(batch, X)
     log(f"[main] solve_schedule_dp_batch: {launches_main} launches (n={batch.n}), first call {cold_s:.3f} s, "
         f"every schedule sums to T and lies in [L, U]")
@@ -287,6 +581,11 @@ def main() -> int:
         f"(CUDA events) + rest; {launches_main} kernel launches per solve; kernel time "
         f"{launches_main * kernel_ms:.3f} ms = {launches_main * kernel_ms / e2e_ms:.3f} of the solve")
 
+    # -- phases 6-8: the flash kernel and the gemma2-2b prefill -------------
+    flash_main, flash_err_max = flash_phase(fa, dev)
+    cfg, params, batch, step, launches_prefill = prefill_phase(fa, mp, dev)
+    ft = flash_times(fa, flash_main, cfg, params, batch, step, card)
+
     kernels = [{
         "name": "minplus_cuda",
         "route": "cuda",
@@ -299,6 +598,14 @@ def main() -> int:
         "bound_ms": b_ms,
         "bound_by": b_by,
         "library_ms": None,
+    }, {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_fwd.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:53",
+        "launches": launches_prefill,
+        "max_abs_err": flash_err_max,
+        **ft,
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)

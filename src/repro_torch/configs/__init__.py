@@ -1,0 +1,37 @@
+"""Architecture registry. One module per ported architecture; importing
+them registers (full, smoke) config pairs. The port holds the dense models
+``gemma2-2b`` and ``deepseek-7b``; the others wait for later slices
+(ROADMAP.md, Queue 1)."""
+
+from .base import (
+    ATTN_IMPL_FROM_JAX,
+    INPUT_SHAPES,
+    InputShape,
+    ModelConfig,
+    get_config,
+    list_archs,
+    register,
+    torch_dtype,
+)
+
+_LOADED = False
+
+
+def _load_all():
+    global _LOADED
+    if _LOADED:
+        return
+    _LOADED = True
+    from . import deepseek_7b, gemma2_2b  # noqa: F401
+
+
+__all__ = [
+    "ATTN_IMPL_FROM_JAX",
+    "INPUT_SHAPES",
+    "InputShape",
+    "ModelConfig",
+    "get_config",
+    "list_archs",
+    "register",
+    "torch_dtype",
+]

@@ -24,15 +24,21 @@ def _port_modules():
 
 def test_importing_every_port_module_pulls_in_no_jax():
     mods = _port_modules()
-    assert {"repro_torch.core.torch_dp", "repro_torch.kernels.minplus", "repro_torch.kernels.build"} <= set(mods)
+    assert {
+        "repro_torch.core.torch_dp", "repro_torch.kernels.minplus", "repro_torch.kernels.build",
+        "repro_torch.kernels.flash_attention", "repro_torch.configs", "repro_torch.models.dense",
+        "repro_torch.models.layers", "repro_torch.models.model", "repro_torch.models.convert",
+        "repro_torch.launch.steps",
+    } <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'triton'))\n"
-        "from repro_torch.kernels import build, minplus\n"
+        "from repro_torch.kernels import build, minplus, flash_attention\n"
         "assert not build._loaded and minplus._launch is None, 'import built or loaded a kernel'\n"
+        "assert flash_attention._launch is None, 'import loaded the flash kernel'\n"
         "print(','.join(bad))\n"
     )
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
