@@ -36,14 +36,36 @@ Phases, in order; any failure ends the run with a non-zero exit code:
                 plain attention route's; then 2 layers in float32 against
                 the plain route at 1e-4.
 8. flash times — the kernel at the causal and sliding shapes beside the
-                plain version, the bound and ``scaled_dot_product_attention``;
-                the warm prefill in ms and tokens/s, and the kernel's share.
+                plain version, the bound and ``scaled_dot_product_attention``
+                (causal; sliding with a boolean band mask); the warm prefill
+                in ms and tokens/s, and the kernel's share.
+9. flash bwd  — ``flash_attention_bwd`` (the dQ and dK/dV kernels) against
+                ``flash_attention_bwd_ref`` on the card over mask kinds,
+                softcaps, GQA ratios, head dims and lengths, and at the
+                training shapes (causal and sliding(4096)): float32 at rtol
+                3e-4, atol 3e-5; bfloat16 I/O within 2^-8 relative of the
+                plain version's float32 gradients plus 1e-5 of their largest
+                entry, beside the error one wrongly visited tile would make.
+10. train     — gemma2-2b at full width and depth (26 layers, bfloat16,
+                remat "full", AdamW, random weights from ``torch.Generator``
+                seed 0) takes one cold and three warm steps on one batch of
+                B = 1, S = 8,192 tokens through ``build_train_step``: per step
+                exactly 52 forward, 26 dQ and 26 dK/dV launches, finite losses
+                that fall, the peak device memory; then 2 layers in float32 at
+                full width, kernel route against plain route (loss within
+                2e-5, gradients within rtol 2e-3, atol 2e-5).
+11. train times — warm step and tokens/s, the profiler's device time by
+                kernel and the card's busy share; dQ and dK/dV per launch at
+                the causal and sliding shapes beside the plain backward,
+                their bounds and the backward of
+                ``scaled_dot_product_attention``.
 
 The line before the last is a JSON object of every kernel with its launch
 count and times; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -61,6 +83,10 @@ B_MAIN, N_MAIN, T_MAIN, U_MAIN = 16, 100, 10_000, 1_000
 ARCH, B_PREFILL, S_PREFILL, F32_LAYERS = "gemma2-2b", 2, 8192, 2
 FLASH_GRID_S = (128, 200, 640, 1024)
 FLASH_GRID_D = (64, 128, 256)
+# Training: gemma2-2b FULL (remat "full", AdamW), one batch of B_TRAIN prompts
+# of S_TRAIN tokens (S > window, so the sliding layers cut), one cold and
+# TRAIN_STEPS - 1 warm steps; the float32 check runs F32_LAYERS layers of it.
+B_TRAIN, S_TRAIN, TRAIN_STEPS = 1, 8192, 4
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores,
 # bfloat16 on the tensor cores (dense), HBM3.
 PEAK_F32_FLOPS = 67e12
@@ -85,6 +111,20 @@ F32_TOL = 2e-5
 BF16_O_RTOL = 2.0 ** -8
 BF16_GRID_TOL = 2e-2
 OPS_PER_CANDIDATE = 3  # add, saturating min, compare
+# The flash backward kernels against their plain version. float32: the
+# reference's gradient tolerance. bfloat16 I/O: both compute in float32 from
+# the same widened inputs and the kernels round once, so their gradients lie
+# within half a bfloat16 ulp (2^-8 relative) of the plain version's float32
+# gradients, plus float32 summation-order noise over up to S terms, held to
+# BWD_BF16_ATOL_REL times the gradient's largest entry.
+GRAD_RTOL, GRAD_ATOL = 3e-4, 3e-5
+BWD_BF16_RTOL, BWD_BF16_ATOL_REL = 2.0 ** -8, 1e-5
+# A tile visited wrongly must move some gradient entry by at least this many
+# times the largest deviation the check allows on that tile's rows.
+TILE_MARGIN_MIN = 2.0
+# The dense model's loss and gradients, kernel route against plain route: the
+# reference's test_dense_model_with_pallas_attention_matches_xla.
+LOSS_ATOL, MODEL_GRAD_RTOL, MODEL_GRAD_ATOL = 2e-5, 2e-3, 2e-5
 
 
 def check(cond, msg):
@@ -305,7 +345,7 @@ def prefill_phase(fa, mp, dev):
         f"card in {init_s:.2f} s; tokens {tuple(batch['tokens'].shape)}")
 
     torch.cuda.reset_peak_memory_stats()
-    mp.launches = fa.launches = 0
+    mp.launches = fa.launches = fa.launches_dq = fa.launches_dkv = 0
     t0 = time.perf_counter()
     logits = step(params, batch)
     torch.cuda.synchronize()
@@ -313,6 +353,7 @@ def prefill_phase(fa, mp, dev):
     launches = fa.launches
     check(launches == cfg.num_layers, f"{launches} flash launches in one prefill, expected {cfg.num_layers}")
     check(mp.launches == 0, f"the prefill launched the min-plus kernel {mp.launches} times")
+    check(fa.launches_dq == fa.launches_dkv == 0, "the prefill launched a backward kernel")
     check(tuple(logits.shape) == (B_PREFILL, S_PREFILL, cfg.vocab_size) and logits.dtype == torch.float32,
           f"logits {tuple(logits.shape)} {logits.dtype}")
     check(bool(torch.isfinite(logits).all()), "non-finite logits")
@@ -374,6 +415,19 @@ def device_time_table(step, params, batch, top=8):
     return sum(r[0] for r in rows), rows[:top]
 
 
+LIBRARY_MASK = {"causal": "", "sliding": ", boolean band mask"}
+
+
+def library_attention(fa, F, q, k, v, kind, window):
+    """``scaled_dot_product_attention`` on the same inputs, the yardstick of
+    the flash kernels (no softcap: it has none): ``is_causal`` for a causal
+    mask, a boolean ``(S, S)`` band for a sliding one."""
+    if kind == "causal":
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+    mask = fa.flash_mask(q.shape[2], k.shape[2], kind, window, q.device)
+    return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
+
+
 def flash_times(fa, main, cfg, params, batch, step, card):
     """Phase 8: kernel, plain version, bound and library call at the main
     path's shapes; the warm prefill. Returns the flash kernel's JSON fields."""
@@ -389,13 +443,10 @@ def flash_times(fa, main, cfg, params, batch, step, card):
         plain_ms = median_event_ms(lambda: fa.flash_attention_ref(q, k, v, kind, window, 50.0), reps=3, warmup=1)
         torch.cuda.empty_cache()
         b_ms, b_by = flash_bound_ms(B, H, k.shape[1], S, D, kind, window, q.element_size())
-        if kind == "causal":
-            lib_ms = median_event_ms(
-                lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True), reps=5, per_rep=3)
-        else:
-            lib_ms = None
+        lib_ms = median_event_ms(lambda: library_attention(fa, F, q, k, v, kind, window), reps=5, per_rep=3)
+        torch.cuda.empty_cache()
         res[kind] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
-        lib = f"{lib_ms:.4f} ms (scaled_dot_product_attention, same shape, no softcap)" if lib_ms else "not timed"
+        lib = f"{lib_ms:.4f} ms (scaled_dot_product_attention, same shape, no softcap{LIBRARY_MASK[kind]})"
         log(f"[times] flash_attention {kind}{f'({window})' if kind == 'sliding' else ''} B={B} H={H} "
             f"Hkv={k.shape[1]} S={S} D={D} bfloat16 softcap 50: {ms:.4f} ms per launch (median of 5 runs of 3 "
             f"launches; clocks.sm, power.draw after: {clocks}); plain version {plain_ms:.4f} ms; bound {b_ms:.4f} "
@@ -423,6 +474,292 @@ def flash_times(fa, main, cfg, params, batch, step, card):
         for t, n, name in rows:
             log(f"[times]   {t:10.3f} ms  {t / total:.3f}  x{n:<5d} {name[:90]}")
     return res["causal"]
+
+
+def bwd_inputs(fa, gen, B, H, Hkv, S, D, dtype, dev, kind, window, softcap):
+    """``flash_inputs`` plus the forward kernel's ``o`` and ``lse`` and a
+    cotangent ``do`` with entries N(0, 1)."""
+    q, k, v = flash_inputs(gen, B, H, Hkv, S, D, dtype, dev)
+    o, lse = fa.flash_attention(q, k, v, kind, window, softcap)
+    return q, k, v, o, lse, torch.randn((B, H, S, D), generator=gen, device=dev).to(dtype)
+
+
+def bwd_limits(want, dtype):
+    """``(rtol, atol)`` of a backward kernel's gradient against the plain
+    version's float32 gradient ``want``."""
+    if dtype == torch.float32:
+        return GRAD_RTOL, GRAD_ATOL
+    return BWD_BF16_RTOL, BWD_BF16_ATOL_REL * float(want.abs().max())
+
+
+def bwd_err(fa, got, args, kind, window, softcap):
+    """Holds the kernels' ``(dq, dk, dv)`` against the plain backward on the
+    widened inputs. Returns (ok, [max |g - want|], want)."""
+    q, k, v, o, lse, do = args
+    want = fa.flash_attention_bwd_ref(q.float(), k.float(), v.float(), o.float(), lse, do.float(), kind, window,
+                                      softcap)
+    ok, errs = True, []
+    for g, w in zip(got, want):
+        rtol, atol = bwd_limits(w, q.dtype)
+        d = (g.float() - w).abs()
+        ok = ok and g.dtype == q.dtype and g.shape == w.shape and bool((d <= atol + rtol * w.abs()).all())
+        errs.append(float(d.max()))
+    return ok, errs, want
+
+
+def tile_margins(fa, args, want, kind, window, softcap):
+    """What one tile visited wrongly would do at this shape, beside the limit.
+
+    For every q tile, the contribution to dq of its diagonal K/V tile (the
+    last one the dQ kernel visits); for every K/V tile, the contributions to
+    dk and dv of its diagonal q tile (the first one the dK/dV kernel
+    visits). Skipping, repeating or mis-masking such a tile moves the
+    gradient by that contribution. Returns, for dq, dk and dv, the smallest
+    over the tiles of (its contribution's largest entry, that entry over the
+    largest deviation the check allows on the tile's rows)."""
+    q, k, v, o, lse, do = args
+    B, H, S, D = q.shape
+    Hkv = k.shape[1]
+    G, scale, BQ, BK = H // Hkv, D ** -0.5, fa.BWD_BLOCK_Q, fa.BWD_BLOCK_K
+    qf = (q.float() * scale).reshape(B, Hkv, G, S, D)
+    kf, vf = k.float()[:, :, None], v.float()[:, :, None]
+    dof = do.float().reshape(B, Hkv, G, S, D)
+    delta = (dof * o.float().reshape(B, Hkv, G, S, D)).sum(-1, keepdim=True)
+    lse5 = lse.reshape(B, Hkv, G, S, 1)
+    mask = fa.flash_mask(S, S, kind, window, q.device)
+    limits = [bwd_limits(w, q.dtype) for w in want]
+    dq_w = want[0].reshape(B, Hkv, G, S, D)
+
+    def tile(r0, c0):  # p and dS on rows [r0, r0 + BQ) x keys [c0, c0 + BK)
+        r1, c1 = min(r0 + BQ, S), min(c0 + BK, S)
+        s = qf[..., r0:r1, :] @ kf[..., c0:c1, :].transpose(-1, -2)
+        t = torch.tanh(s / softcap) if softcap else None
+        m = mask[r0:r1, c0:c1]
+        p = torch.exp(torch.where(m, softcap * t if softcap else s, fa.NEG_INF) - lse5[..., r0:r1, :])
+        ds = p * (dof[..., r0:r1, :] @ vf[..., c0:c1, :].transpose(-1, -2) - delta[..., r0:r1, :])
+        if softcap:
+            ds = ds * (1 - t * t)
+        return r1, c1, p, torch.where(m, ds, 0.0)
+
+    def margin(contrib, w, i):
+        rtol, atol = limits[i]
+        c = float(contrib.abs().max())
+        return c, c / (atol + rtol * float(w.abs().max()))
+
+    out = {"dq": [], "dk": [], "dv": []}
+    for r0 in range(0, S, BQ):
+        c0 = (min(r0 + BQ, S) - 1) // BK * BK
+        r1, c1, _, ds = tile(r0, c0)
+        out["dq"].append(margin(ds @ kf[..., c0:c1, :] * scale, dq_w[..., r0:r1, :], 0))
+    for c0 in range(0, S, BK):
+        r0 = c0 // BQ * BQ
+        r1, c1, p, ds = tile(r0, c0)
+        out["dk"].append(margin((ds.transpose(-1, -2) @ qf[..., r0:r1, :]).sum(2), want[1][:, :, c0:c1], 1))
+        out["dv"].append(margin((p.transpose(-1, -2) @ dof[..., r0:r1, :]).sum(2), want[2][:, :, c0:c1], 2))
+    return {name: (min(c for c, _ in vals), min(m for _, m in vals)) for name, vals in out.items()}
+
+
+def flash_bwd_phase(fa, dev):
+    """Phase 9: the dQ and dK/dV kernels against the plain backward on the
+    card. Returns the training shape's causal and sliding inputs and the
+    largest |dq - dq_plain| and |dk, dv - plain| there."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    cases = []
+    for di, D in enumerate(FLASH_GRID_D):
+        for kind, window in (("causal", 0), ("sliding", 37), ("bidirectional", 0)):
+            for softcap in (0.0, 50.0):
+                for si, S in enumerate(FLASH_GRID_S):
+                    G = (1, 2, 4)[(si + di) % 3]
+                    for dtype in (torch.float32, torch.bfloat16):
+                        cases.append((2 if S <= 640 else 1, 8, 8 // G, S, D, kind, window, softcap, dtype))
+    worst = {torch.float32: [0.0] * 3, torch.bfloat16: [0.0] * 3}
+    for B, H, Hkv, S, D, kind, window, softcap, dtype in cases:
+        args = bwd_inputs(fa, gen, B, H, Hkv, S, D, dtype, dev, kind, window, softcap)
+        got = fa.flash_attention_bwd(*args, kind, window, softcap)
+        torch.cuda.synchronize()
+        ok, errs, _ = bwd_err(fa, got, args, kind, window, softcap)
+        check(ok, f"flash backward != plain at B={B} H={H} Hkv={Hkv} S={S} D={D} {kind} w={window} "
+                  f"softcap={softcap} {dtype} (max |d dq|, |d dk|, |d dv| {errs})")
+        worst[dtype] = [max(a, b) for a, b in zip(worst[dtype], errs)]
+    f32, b16 = worst[torch.float32], worst[torch.bfloat16]
+    log(f"[flash bwd] {len(cases)} cases within tolerance of the plain backward: float32 rtol={GRAD_RTOL} "
+        f"atol={GRAD_ATOL} (largest |d dq|, |d dk|, |d dv| {f32[0]:.3e}, {f32[1]:.3e}, {f32[2]:.3e}); bfloat16 I/O "
+        f"within rtol={BWD_BF16_RTOL:.3e} of the float32 gradients + {BWD_BF16_ATOL_REL} of their largest entry "
+        f"(largest {b16[0]:.3e}, {b16[1]:.3e}, {b16[2]:.3e})")
+
+    shape = (B_TRAIN, 8, 4, S_TRAIN, 256)
+    main, worst = {}, [0.0] * 3
+    for kind, window in (("causal", 0), ("sliding", 4096)):
+        args = bwd_inputs(fa, gen, *shape, torch.bfloat16, dev, kind, window, 50.0)
+        got = fa.flash_attention_bwd(*args, kind, window, 50.0)
+        torch.cuda.synchronize()
+        ok, errs, want = bwd_err(fa, got, args, kind, window, 50.0)
+        del got
+        check(ok, f"flash backward != plain at the training {kind} shape (max |d dq|, |d dk|, |d dv| {errs})")
+        margins = tile_margins(fa, args, want, kind, window, 50.0)
+        scales = [float(w.abs().max()) for w in want]
+        del want
+        torch.cuda.empty_cache()
+        for i, name in enumerate(("dq", "dk", "dv")):
+            c, m = margins[name]
+            log(f"[flash bwd] training shape {kind}: {name} largest |g| {scales[i]:.4e}, limit rtol="
+                f"{BWD_BF16_RTOL:.3e} + atol {BWD_BF16_ATOL_REL * scales[i]:.3e}, largest error {errs[i]:.4e}; one "
+                f"wrongly visited tile would move it by at least {c:.4e}, {m:.1f}x the limit on that tile")
+            check(m >= TILE_MARGIN_MIN, f"{kind} {name}: a one-tile error would be only {m:.2f}x the limit")
+        worst = [max(a, b) for a, b in zip(worst, errs)]
+        main[kind] = (args, window)
+    log(f"[flash bwd] training shapes B={shape[0]} H=8 Hkv=4 S={S_TRAIN} D=256 bfloat16 softcap 50, causal and "
+        f"sliding(4096): within the limits (largest |d dq| {worst[0]:.3e}, |d dk| {worst[1]:.3e}, |d dv| "
+        f"{worst[2]:.3e})")
+    return main, worst[0], max(worst[1:])
+
+
+def train_phase(fa, mp, dev, card):
+    """Phase 10 (and the step's part of 11): gemma2-2b FULL training steps
+    through the kernel route, then one profiled step. Frees the model and
+    returns (cfg, tokens, launches over the run, step figures)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import build_train_step
+    from repro_torch.models import init_params, make_dummy_batch, param_count
+
+    cfg = get_config(ARCH).replace(attn_impl="flash")
+    check(cfg.remat == "full" and cfg.optimizer == "adamw", f"{ARCH} FULL trains with {cfg.remat}, {cfg.optimizer}")
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED))
+    batch = make_dummy_batch(cfg, B_TRAIN, S_TRAIN, "train", np.random.default_rng(SEED), device=dev)
+    step, opt = build_train_step(cfg)
+    state = opt.init(params)
+    torch.cuda.synchronize()
+    log(f"[train] {cfg.arch}: {cfg.num_layers} layers, {param_count(params)} parameters ({cfg.param_dtype}), remat "
+        f"{cfg.remat}, {cfg.optimizer} lr {cfg.learning_rate}; parameters and optimizer state "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB, made in {time.perf_counter() - t0:.2f} s; tokens "
+        f"{tuple(batch['tokens'].shape)}")
+
+    L = cfg.num_layers
+    torch.cuda.reset_peak_memory_stats()
+    mp.launches = fa.launches = fa.launches_dq = fa.launches_dkv = 0
+    losses, secs = [], []
+    for i in range(TRAIN_STEPS):
+        n0 = (fa.launches, fa.launches_dq, fa.launches_dkv)
+        t0 = time.perf_counter()
+        params, state, loss = step(params, state, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        per = (fa.launches - n0[0], fa.launches_dq - n0[1], fa.launches_dkv - n0[2])
+        check(per == (2 * L, L, L), f"step {i + 1}: (forward, dQ, dK/dV) launches {per}, expected {(2 * L, L, L)}")
+        losses.append(float(loss))
+        check(math.isfinite(losses[-1]), f"step {i + 1}: loss {losses[-1]}")
+    launches = {"flash_attention": fa.launches, "flash_dq": fa.launches_dq, "flash_dkv": fa.launches_dkv}
+    check(mp.launches == 0, f"training launched the min-plus kernel {mp.launches} times")
+    check(losses[-1] < losses[0], f"the loss did not fall over {TRAIN_STEPS} steps on one batch: {losses}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    warm_ms = 1e3 * statistics.median(secs[1:])
+    log(f"[train] {TRAIN_STEPS} steps, per step exactly {2 * L} forward (with the remat recompute), {L} dQ and {L} "
+        f"dK/dV launches, min-plus 0; losses {', '.join(f'{x:.5f}' for x in losses)}; peak device memory "
+        f"{peak_gb:.2f} GB; first step {secs[0]:.3f} s")
+
+    total, rows = device_time_table(lambda p, b: step(p, state, b), params, batch)
+    tokens = B_TRAIN * S_TRAIN
+    log(f"[times] {card}")
+    log(f"[times] warm train step {ARCH} B={B_TRAIN} S={S_TRAIN}: {warm_ms:.3f} ms (host clock, median of "
+        f"{TRAIN_STEPS - 1}; steps {', '.join(f'{1e3 * x:.3f}' for x in secs[1:])}) = {tokens / warm_ms * 1e3:.1f} "
+        f"tokens/s")
+    if total == 0:
+        log("[times] torch.profiler recorded no device time")
+    else:
+        log(f"[times] torch.profiler, one step: {total:.3f} ms of kernel time on the card, busy {total / warm_ms:.3f} "
+            f"of the warm step; top kernels by device time:")
+        for t, n, name in rows:
+            log(f"[times]   {t:10.3f} ms  {t / total:.3f}  x{n:<5d} {name[:90]}")
+    tok = batch["tokens"]
+    del params, state, batch, step, opt
+    torch.cuda.empty_cache()
+    return cfg, tok, launches, dict(losses=losses, warm_ms=warm_ms, peak_gb=peak_gb, device_ms=total)
+
+
+def train_f32_check(fa, dev, cfg, tokens):
+    """Phase 10, float32 part: F32_LAYERS layers at full width on the same
+    tokens, loss and gradients of the kernel route against the plain
+    route."""
+    from repro_torch.launch import value_and_grad
+    from repro_torch.models import init_params
+    from repro_torch.optim import tree_leaves
+
+    check(not torch.backends.cuda.matmul.allow_tf32 and torch.get_float32_matmul_precision() == "highest",
+          "float32 products must run in full float32, not TF32")
+    cfg32 = cfg.replace(num_layers=F32_LAYERS, param_dtype="float32", compute_dtype="float32")
+    p32 = init_params(cfg32, torch.Generator(device=dev).manual_seed(SEED))
+    b32 = {"tokens": tokens}
+    n0 = (fa.launches, fa.launches_dq, fa.launches_dkv)
+    loss_k, g_k = value_and_grad(p32, cfg32, b32)
+    per = (fa.launches - n0[0], fa.launches_dq - n0[1], fa.launches_dkv - n0[2])
+    check(per == (2 * F32_LAYERS, F32_LAYERS, F32_LAYERS), f"float32 step launches {per}")
+    loss_p, g_p = value_and_grad(p32, cfg32.replace(attn_impl="plain"), b32)
+    dloss = abs(float(loss_k) - float(loss_p))
+    worst, ok = 0.0, True
+    for a, b in zip(tree_leaves(g_k), tree_leaves(g_p)):
+        d = (a - b).abs()
+        ok = ok and bool((d <= MODEL_GRAD_ATOL + MODEL_GRAD_RTOL * b.abs()).all())
+        worst = max(worst, float(d.max()))
+    del p32, g_k, g_p
+    torch.cuda.empty_cache()
+    log(f"[train] float32, {F32_LAYERS} layers at full width, B={tokens.shape[0]} S={tokens.shape[1] - 1}: loss "
+        f"{float(loss_k):.6f} vs plain route {float(loss_p):.6f} (|d| {dloss:.3e}, limit {LOSS_ATOL}); gradients "
+        f"within rtol={MODEL_GRAD_RTOL}, atol={MODEL_GRAD_ATOL} of the plain route (largest |d| {worst:.3e})")
+    check(dloss < LOSS_ATOL and ok, f"float32 training: loss |d| {dloss}, gradients within limits: {ok}")
+
+
+def flash_bwd_bound_ms(B, H, Hkv, S, D, kind, window, itemsize, which):
+    """Least time for one dQ or dK/dV launch: the larger of its bytes (q, k,
+    v, dO read once, lse and delta read once, its outputs written once) over
+    HBM bandwidth and its flops per unmasked pair (dQ 6·D, dK/dV 8·D) over the
+    peak of the input type. Returns (ms, 'bytes'|'operations')."""
+    flops = (6 if which == "dq" else 8) * D * attn_pairs(B, H, S, kind, window)
+    t_ops = flops / (PEAK_BF16_FLOPS if itemsize == 2 else PEAK_F32_FLOPS)
+    outs = B * H * S * D if which == "dq" else 2 * B * Hkv * S * D
+    nbytes = itemsize * (2 * B * H * S * D + 2 * B * Hkv * S * D + outs) + 8 * B * H * S
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def flash_bwd_times(fa, main, card):
+    """Phase 11, kernels: dQ and dK/dV per launch at the training shapes
+    beside the plain backward, the bounds and the backward of
+    ``scaled_dot_product_attention``. Returns each kernel's JSON fields at
+    the causal shape."""
+    import torch.nn.functional as F
+
+    res = {}
+    for kind, (args, window) in main.items():
+        q, k, v, o, lse, do = args
+        B, H, S, D = q.shape
+        Hkv, scale = k.shape[1], D ** -0.5
+        do_c, delta = fa._bwd_rows(o, do)
+        ms = {which: median_event_ms(
+            lambda which=which: fa._launch_bwd(which, q, k, v, do_c, lse, delta, kind, window, 50.0, scale),
+            reps=5, per_rep=3) for which in ("dq", "dkv")}
+        clocks = gpu_line("clocks.sm,power.draw")
+        plain_ms = median_event_ms(lambda: fa.flash_attention_bwd_ref(q, k, v, o, lse, do, kind, window, 50.0),
+                                   reps=3, warmup=1)
+        torch.cuda.empty_cache()
+        qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+        out = library_attention(fa, F, qg, kg, vg, kind, window)  # the forward, outside the timed window
+        lib_ms = median_event_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), do, retain_graph=True),
+                                 reps=5, per_rep=3)
+        del out, qg, kg, vg
+        torch.cuda.empty_cache()
+        for which in ("dq", "dkv"):
+            b_ms, b_by = flash_bwd_bound_ms(B, H, Hkv, S, D, kind, window, q.element_size(), which)
+            res[(which, kind)] = dict(ms=ms[which], plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                                      library_ms=lib_ms)
+            log(f"[times] flash_{which} {kind}{f'({window})' if kind == 'sliding' else ''} B={B} H={H} Hkv={Hkv} "
+                f"S={S} D={D} bfloat16 softcap 50: {ms[which]:.4f} ms per launch (median of 5 runs of 3 launches; "
+                f"clocks.sm, power.draw after: {clocks}); plain backward (dq, dk and dv) {plain_ms:.4f} ms; bound "
+                f"{b_ms:.4f} ms ({b_by}), kernel at {ms[which] / b_ms:.1f}x the bound; on float32 CUDA cores its "
+                f"floor is {b_ms * PEAK_BF16_FLOPS / PEAK_F32_FLOPS:.3f} ms; library {lib_ms:.4f} ms (backward of "
+                f"scaled_dot_product_attention, dq, dk and dv, same shape, no softcap{LIBRARY_MASK[kind]})")
+    log(f"[times] {card}")
+    return res[("dq", "causal")], res[("dkv", "causal")]
 
 
 def main() -> int:
@@ -466,9 +803,10 @@ def main() -> int:
     t0 = time.perf_counter()
     mp._launch_fn()  # the first load builds every source, all together
     fa._launch_fn()
-    log(f"[build] minplus.cu, flash_fwd.cu built and loaded in {time.perf_counter() - t0:.2f} s "
+    fa._bwd_launch_fns()
+    log(f"[build] minplus.cu, flash_fwd.cu, flash_bwd.cu built and loaded in {time.perf_counter() - t0:.2f} s "
         f"({build.build_dir()})")
-    for name in ("minplus", "flash_fwd"):
+    for name in ("minplus", "flash_fwd", "flash_bwd"):
         for line in (build.build_dir() / f"{name}.log").read_text().splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"[build] {name} ptxas: {line.strip()}")
@@ -585,6 +923,14 @@ def main() -> int:
     flash_main, flash_err_max = flash_phase(fa, dev)
     cfg, params, batch, step, launches_prefill = prefill_phase(fa, mp, dev)
     ft = flash_times(fa, flash_main, cfg, params, batch, step, card)
+    del flash_main, params, batch, step
+    torch.cuda.empty_cache()
+
+    # -- phases 9-11: the flash backward kernels and gemma2-2b training -----
+    bwd_main, dq_err, dkv_err = flash_bwd_phase(fa, dev)
+    cfg, tokens, launches_train, _ = train_phase(fa, mp, dev, card)
+    train_f32_check(fa, dev, cfg, tokens)
+    dq_t, dkv_t = flash_bwd_times(fa, bwd_main, card)
 
     kernels = [{
         "name": "minplus_cuda",
@@ -606,6 +952,22 @@ def main() -> int:
         "launches": launches_prefill,
         "max_abs_err": flash_err_max,
         **ft,
+    }, {
+        "name": "flash_dq",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:96",
+        "launches": launches_train["flash_dq"],
+        "max_abs_err": dq_err,
+        **dq_t,
+    }, {
+        "name": "flash_dkv",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:127",
+        "launches": launches_train["flash_dkv"],
+        "max_abs_err": dkv_err,
+        **dkv_t,
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,8 +1,8 @@
 """Model/run configuration dataclasses + the architecture registry.
 
 The fields are those of the JAX package's ``configs/base.py`` that the dense
-prefill reads; each later slice (training, MoE, SSM, serving) adds its own
-fields with the code that reads them. Dtypes stay strings and
+prefill and training steps read; each later slice (MoE, SSM, serving) adds
+its own fields with the code that reads them. Dtypes stay strings and
 :meth:`ModelConfig.pdtype`/:meth:`ModelConfig.cdtype` map them to torch
 dtypes. One field takes port names:
 
@@ -69,9 +69,12 @@ class ModelConfig:
     attn_block_q: int = 0  # 0 = full attention matrix; >0 = query-blocked loop (plain route)
     attn_impl: str = "plain"  # plain | flash (see the module docstring)
 
-    # numerics
+    # numerics / training
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
+    remat: str = "none"  # none | full | dots (dots is not ported: no config uses it)
+    optimizer: str = "adamw"
+    learning_rate: float = 3e-4
 
     def __post_init__(self):
         if self.attn_impl not in ATTN_IMPL_FROM_JAX.values():
@@ -79,6 +82,8 @@ class ModelConfig:
                 f"attn_impl must be one of {sorted(ATTN_IMPL_FROM_JAX.values())}, got {self.attn_impl!r} "
                 f"(the JAX names map as {ATTN_IMPL_FROM_JAX})"
             )
+        if self.remat not in ("none", "full", "dots"):
+            raise ValueError(f"remat must be 'none', 'full' or 'dots', got {self.remat!r}")
 
     def pdtype(self) -> torch.dtype:
         return torch_dtype(self.param_dtype)

@@ -8,13 +8,13 @@ FULL = ModelConfig(
     d_ff=11008, vocab_size=102400,
     mlp_kind="gated_silu", rope_base=10000.0,
     param_dtype="bfloat16", compute_dtype="bfloat16",
-    attn_block_q=512,
+    remat="full", attn_block_q=512, optimizer="adamw",
 )
 
 SMOKE = FULL.replace(
     num_layers=2, d_model=256, num_heads=4, num_kv_heads=4, d_ff=512,
     vocab_size=512, param_dtype="float32", compute_dtype="float32",
-    attn_block_q=0,
+    remat="none", attn_block_q=0,
 )
 
 register(FULL, SMOKE)

@@ -11,14 +11,14 @@ FULL = ModelConfig(
     attn_softcap=50.0, logit_softcap=30.0,
     tie_embeddings=True, scale_embedding=True,
     param_dtype="bfloat16", compute_dtype="bfloat16",
-    attn_block_q=512,
+    remat="full", attn_block_q=512, optimizer="adamw",
 )
 
 SMOKE = FULL.replace(
     num_layers=2, d_model=256, num_heads=4, num_kv_heads=2, head_dim=64,
     d_ff=512, vocab_size=512, window=32,
     param_dtype="float32", compute_dtype="float32",
-    attn_block_q=0,
+    remat="none", attn_block_q=0,
 )
 
 register(FULL, SMOKE)

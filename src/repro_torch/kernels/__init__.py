@@ -7,10 +7,13 @@ CPU backend. ``ref``: the dense PyTorch oracle, the kernel's plain version.
 ``ops`` exposes the dispatching wrappers — ``backend="auto"`` selects by the
 tensor's device.
 
-``flash_attention``: the flash-attention forward of the LM prefill
-(``csrc/flash_fwd.cu``) behind ``flash_attention.flash_attention``, with its
-plain version ``flash_attention_ref``. Import it as a module; it is not
-re-exported here, so ``kernels.flash_attention`` stays the module.
+``flash_attention``: flash attention for the LM prefill and training, the
+forward (``csrc/flash_fwd.cu``) behind ``flash_attention.flash_attention``
+and the dQ and dK/dV backward (``csrc/flash_bwd.cu``) behind
+``flash_attention.flash_attention_bwd`` and its autograd Function, with
+their plain versions ``flash_attention_ref`` and ``flash_attention_bwd_ref``.
+Import it as a module; it is not re-exported here, so
+``kernels.flash_attention`` stays the module.
 """
 
 from .blocked import auto_block_sizes, minplus_blocked_batch

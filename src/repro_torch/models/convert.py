@@ -45,7 +45,8 @@ def _map(tree, fn):
 
 
 def params_from_jax(cfg: ModelConfig, tree, device="cuda"):
-    """The port's parameters from a JAX ``init_params`` tree of numpy arrays.
+    """The port's parameters from a JAX ``init_params`` tree of numpy arrays
+    (or a gradient tree of the same shape).
 
     The JAX layer stack carries leading ``(n_groups, period)`` axes on every
     leaf; entry ``[g, sub]`` becomes port layer ``g * period + sub``. Dtypes

@@ -1,30 +1,36 @@
 """Dense decoder LMs (llama family: deepseek-7b; gemma2-2b with its
-local/global alternation, softcaps and post-norms): the forward half of the
-JAX package's ``models/dense.py``.
+local/global alternation, softcaps and post-norms): the forward and the loss
+of the JAX package's ``models/dense.py``.
 
 Parameters are a dict ``{"emb", "layers", "ln_f"[, "lm_head"]}`` whose
 ``"layers"`` is a list with one dict per layer, in order; the JAX package's
 ``(n_groups, period, ...)`` stack maps onto it as layer ``g * period + sub``
-(:func:`repro_torch.models.convert.params_from_jax`). The layer loop is a
-Python loop with ``kind = pattern[i % period]``. The reference's ``shard``
-calls are the identity on one device and are dropped; the KV cache, decode
-step and loss wait for later slices (ROADMAP.md, Queue 1).
+(:func:`repro_torch.models.convert.params_from_jax`). The stack is a Python
+loop over groups of ``period`` layers with ``kind = pattern[sub]``; under
+``cfg.remat == "full"`` each group is checkpointed, as the reference
+checkpoints its scan body. The reference's ``shard`` calls are the identity
+on one device and are dropped; the KV cache and decode step wait for a later
+slice (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
-from .layers import apply_rope, attention, gelu, make_rope, mlp_act, mlp_gated, rms_norm, squared_relu
+from .layers import apply_rope, attention, gelu, make_rope, mlp_act, mlp_gated, rms_norm, softcap, squared_relu
 
 __all__ = [
     "attn_pattern",
+    "cross_entropy",
     "dense_forward",
     "dense_init",
+    "dense_loss",
     "init_dense",
     "layer_apply",
     "stack_forward",
@@ -154,15 +160,40 @@ def layer_apply(cfg: ModelConfig, p, h, kind: str, rope_sincos, *, q_pos, kv_pos
     return h + mlp_out
 
 
+def _maybe_remat(cfg: ModelConfig, fn):
+    """``remat="full"``: ``fn`` under ``torch.utils.checkpoint``, which keeps
+    only its inputs and runs it again in the backward pass (the reference's
+    ``jax.checkpoint`` with ``nothing_saveable``); only when grad mode is on,
+    since without a backward pass there is nothing to recompute. The layers
+    draw no random numbers, so no RNG state is stashed."""
+    if cfg.remat == "dots":
+        raise NotImplementedError(
+            "remat='dots' (checkpoint_dots_with_no_batch_dims) is not ported: no config uses it "
+            "(ROADMAP.md, Queue 1)"
+        )
+    if cfg.remat == "full" and torch.is_grad_enabled():
+        return functools.partial(checkpoint, fn, use_reentrant=False, preserve_rng_state=False)
+    return fn
+
+
 def stack_forward(cfg: ModelConfig, layers, h):
-    """The layer stack over the full sequence; layer ``i`` has attention kind
-    ``attn_pattern(cfg)[i % period]``. Returns ``h``."""
+    """The layer stack over the full sequence, in groups of
+    ``period = len(attn_pattern(cfg))`` layers (the reference's scan body);
+    sublayer ``sub`` of a group has attention kind ``attn_pattern(cfg)[sub]``.
+    Returns ``h``."""
     S = h.shape[1]
     pattern = attn_pattern(cfg)
     pos = torch.arange(S, device=h.device)
     rope = make_rope(pos, cfg.hd, cfg.rope_base)
-    for i, p in enumerate(layers):
-        h = layer_apply(cfg, p, h, pattern[i % len(pattern)], rope, q_pos=pos, kv_pos=pos)
+
+    def group_body(h, group):
+        for kind, p in zip(pattern, group):
+            h = layer_apply(cfg, p, h, kind, rope, q_pos=pos, kv_pos=pos)
+        return h
+
+    body = _maybe_remat(cfg, group_body)
+    for g in range(0, len(layers), len(pattern)):
+        h = body(h, layers[g:g + len(pattern)])
     return h
 
 
@@ -179,15 +210,19 @@ def _embed(cfg: ModelConfig, params, tokens):
 
 
 def _logits(cfg: ModelConfig, params, h):
-    """Float32 logits ``(B, S, V)``. The softcap runs in place on the float32
-    copy, so at most one compute-dtype and one float32 logit tensor are alive
-    (the values are those of ``softcap(logits, cap)``)."""
+    """Float32 logits ``(B, S, V)``. Without grad mode the softcap runs in
+    place on the float32 copy, so at most one compute-dtype and one float32
+    logit tensor are alive (the values are those of ``softcap(logits, cap)``);
+    with grad mode it runs out of place, since autograd keeps tanh's output
+    for the backward pass and an in-place multiply would overwrite it."""
     h = rms_norm(h, params["ln_f"])
     head = params["emb"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = (h @ head.to(h.dtype)).float()
-    if cfg.logit_softcap:
-        logits.div_(cfg.logit_softcap).tanh_().mul_(cfg.logit_softcap)
-    return logits
+    logits = h @ head.to(h.dtype)
+    if not cfg.logit_softcap:
+        return logits.float()
+    if torch.is_grad_enabled():
+        return softcap(logits, cfg.logit_softcap)
+    return logits.float().div_(cfg.logit_softcap).tanh_().mul_(cfg.logit_softcap)
 
 
 def dense_forward(params, cfg: ModelConfig, tokens):
@@ -195,3 +230,50 @@ def dense_forward(params, cfg: ModelConfig, tokens):
     h = _embed(cfg, params, tokens)
     h = stack_forward(cfg, params["layers"], h)
     return _logits(cfg, params, h)
+
+
+class _NLL(torch.autograd.Function):
+    """Per-position negative log-likelihood ``logsumexp(x - m) - (x - m)[t]``
+    of float32 logits ``x (B, S, V)`` with ``m`` the row maximum, as the
+    reference forms it, with its gradient ``(softmax(x) - onehot(t)) * g``
+    written out. Autograd through the same expression would keep ``x - m``
+    for the logsumexp and, in the backward pass, build the gather's
+    zero-filled gradient and the logsumexp's exponentials as further
+    ``(B, S, V)`` float32 tensors (at gemma2-2b's vocabulary and S = 8,192
+    each is 8.4 GB). This keeps ``x`` and the row terms, and each pass builds
+    one such tensor."""
+
+    @staticmethod
+    def forward(ctx, x, targets):
+        m = x.amax(dim=-1, keepdim=True)
+        shifted = x - m
+        at_target = shifted.gather(-1, targets[..., None]).squeeze(-1)
+        lse = shifted.exp_().sum(dim=-1).log_()
+        ctx.save_for_backward(x, targets, m, lse)
+        return lse - at_target
+
+    @staticmethod
+    def backward(ctx, g):
+        x, targets, m, lse = ctx.saved_tensors
+        grad = (x - m).sub_(lse[..., None]).exp_().mul_(g[..., None])
+        return grad.scatter_add_(-1, targets[..., None], -g[..., None]), None
+
+
+def cross_entropy(logits, targets, valid=None):
+    """Mean next-token negative log-likelihood in float32, over all
+    positions or, with ``valid``, over the valid ones. The reference takes
+    ``(x - m)[target]`` as a one-hot product so that a vocab-sharded ``x``
+    stays sharded; on one device a gather gives the same value (the
+    product's sum has one nonzero term)."""
+    nll = _NLL.apply(logits.float(), targets)
+    if valid is None:
+        return nll.mean()
+    w = valid.float()
+    return (nll * w).sum() / w.sum().clamp_min(1.0)
+
+
+def dense_loss(params, cfg: ModelConfig, batch):
+    """``batch["tokens"] (B, S + 1)``: the mean loss of predicting
+    ``tokens[:, 1:]`` from ``tokens[:, :-1]``."""
+    tokens = batch["tokens"]
+    return cross_entropy(dense_forward(params, cfg, tokens[:, :-1]), tokens[:, 1:])

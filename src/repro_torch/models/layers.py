@@ -124,9 +124,10 @@ def attention(
     ``impl="flash"`` routes full self-attention (causal / sliding /
     bidirectional, no prefix, no cache mask, ``Sq == Sk`` of any length,
     ``D == Dv``) through the flash-attention kernel
-    (:func:`repro_torch.kernels.flash_attention.flash_attention`); everything
-    else takes the plain route. ``block_q`` does not apply to the kernel,
-    whose q tile is fixed.
+    (:func:`repro_torch.kernels.flash_attention.flash_attention`), whose
+    output carries a gradient through the backward kernels; everything else
+    takes the plain route. ``block_q`` does not apply to the kernel, whose q
+    tile is fixed.
 
     Plain route: ``block_q > 0`` loops over query blocks so the score tensor
     is bounded at ``(B, H, block_q, Sk)`` (exact: each block sees the full

@@ -1,8 +1,8 @@
 """Model API of the port: family dispatch, dummy batches and parameter/FLOPs
 accounting, after the JAX package's ``models/model.py``.
 
-The port holds the ``dense`` family's forward (prefill). Every other family,
-and the decode and training entry points, come with later slices
+The port holds the ``dense`` family's forward (prefill) and loss (training).
+Every other family, and the decode entry points, come with later slices
 (ROADMAP.md, Queue 1) and raise ``NotImplementedError`` until then.
 
 Entry points run on the card (``device="cuda"``) unless the caller passes
@@ -18,10 +18,12 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..core.torch_dp import resolve_device
+from ..optim.optimizers import tree_leaves
 from . import dense
 
 __all__ = [
     "init_params",
+    "loss_fn",
     "make_dummy_batch",
     "model_flops_per_token",
     "param_count",
@@ -46,6 +48,14 @@ def init_params(cfg: ModelConfig, gen=0, device="cuda"):
     return dense.init_dense(cfg, gen)
 
 
+def loss_fn(params, cfg: ModelConfig, batch):
+    """The training objective: ``batch["tokens"] (B, S + 1)`` -> the mean
+    next-token cross-entropy, a float32 scalar that carries a gradient when
+    grad mode is on and a parameter requires one."""
+    _dense_only(cfg)
+    return dense.dense_loss(params, cfg, batch)
+
+
 def prefill_fn(params, cfg: ModelConfig, batch):
     """Forward over the full sequence: ``batch["tokens"] (B, S)`` -> float32
     logits ``(B, S, V)``, on the device of the parameters. Runs under
@@ -65,19 +75,8 @@ def make_dummy_batch(cfg: ModelConfig, B: int, S: int, mode: str, rng: np.random
     return {"tokens": torch.from_numpy(tokens).long().to(resolve_device(device))}
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for x in tree.values():
-            yield from _leaves(x)
-    elif isinstance(tree, (list, tuple)):
-        for x in tree:
-            yield from _leaves(x)
-    else:
-        yield tree
-
-
 def param_count(params) -> int:
-    return int(sum(x.numel() for x in _leaves(params)))
+    return int(sum(x.numel() for x in tree_leaves(params)))
 
 
 def model_flops_per_token(params, cfg: ModelConfig, seq_len: int, mode: str = "train") -> float:

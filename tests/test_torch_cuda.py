@@ -1,8 +1,11 @@
 """The port's hand-written CUDA kernels on the card, against their plain
 PyTorch versions: the min-plus kernel bit for bit (float32 values, int32
 argmins); the flash-attention forward at rtol = atol = 2e-5 for float32 and
-2e-2 for bfloat16 I/O (the reference's forward tolerances), and the prefill
-of a SMOKE model on its kernel route against its plain route.
+2e-2 for bfloat16 I/O (the reference's forward tolerances); the dQ and dK/dV
+kernels at the reference's gradient tolerance (rtol 3e-4, atol 3e-5) for
+float32 and within 2^-8 relative of the plain version's float32 gradients
+for bfloat16 I/O; the prefill and a training step of a SMOKE model on the
+kernel route against the plain route, and the launches of a step.
 
 Every test here needs a CUDA card and ``nvcc`` (the kernel has no CPU mode),
 is marked ``cuda`` and skips without them. The file imports no JAX, so it
@@ -146,3 +149,92 @@ def test_cuda_ragged_prefill_launches_the_kernel_once_per_layer(cuda):
     assert fa.launches == before + cfg.num_layers
     want = prefill_fn(params, cfg.replace(attn_impl="plain"), batch)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def _bwd_inputs(rng, B, H, Hkv, S, D, dtype, device, kind, window, softcap):
+    q, k, v = ((torch.from_numpy(rng.normal(size=(B, h, S, D)).astype(np.float32)) * 0.5).to(device, dtype)
+               for h in (H, Hkv, Hkv))
+    o, lse = fa.flash_attention(q, k, v, kind, window, softcap)
+    do = torch.from_numpy(rng.normal(size=(B, H, S, D)).astype(np.float32)).to(device, dtype)
+    return q, k, v, o, lse, do
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,D,kind,window,softcap,dtype", [
+    (2, 4, 4, 128, 64, "causal", 0, 0.0, torch.float32),
+    (1, 4, 2, 200, 128, "sliding", 37, 50.0, torch.float32),
+    (1, 8, 2, 640, 256, "causal", 0, 50.0, torch.float32),
+    (2, 4, 1, 200, 64, "bidirectional", 0, 0.0, torch.float32),
+    (1, 4, 1, 150, 16, "sliding", 16, 20.0, torch.float32),
+    (1, 8, 4, 1024, 256, "sliding", 300, 50.0, torch.bfloat16),
+    (1, 4, 4, 640, 128, "causal", 0, 0.0, torch.bfloat16),
+])
+def test_cuda_flash_bwd_matches_plain(cuda, B, H, Hkv, S, D, kind, window, softcap, dtype):
+    rng = np.random.default_rng(S + D + 1)
+    q, k, v, o, lse, do = _bwd_inputs(rng, B, H, Hkv, S, D, dtype, cuda, kind, window, softcap)
+    before = (fa.launches_dq, fa.launches_dkv)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, kind, window, softcap)
+    torch.cuda.synchronize()
+    assert (fa.launches_dq, fa.launches_dkv) == (before[0] + 1, before[1] + 1)
+    want = fa.flash_attention_bwd_ref(*(x.float() for x in (q, k, v, o)), lse, do.float(), kind, window, softcap)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        if dtype == torch.float32:
+            torch.testing.assert_close(g, w, rtol=3e-4, atol=3e-5)
+        else:
+            torch.testing.assert_close(g.float(), w, rtol=2.0 ** -8, atol=1e-5 * w.abs().max().item())
+
+
+def test_cuda_flash_bwd_takes_strided_views_and_ragged_kv(cuda):
+    """(B, S, H, D) views as attention() passes them, a cotangent without a
+    contiguous last axis, Sq != Sk and rows with no key in their window."""
+    rng = np.random.default_rng(6)
+    q = torch.from_numpy(rng.normal(size=(2, 150, 4, 64)).astype(np.float32)).to(cuda).transpose(1, 2)
+    k = torch.from_numpy(rng.normal(size=(2, 70, 2, 64)).astype(np.float32)).to(cuda).transpose(1, 2)
+    v = torch.from_numpy(rng.normal(size=(2, 70, 2, 64)).astype(np.float32)).to(cuda).transpose(1, 2)
+    o, lse = fa.flash_attention(q, k, v, "sliding", 16, 0.0)
+    do = torch.from_numpy(rng.normal(size=(2, 4, 64, 150)).astype(np.float32)).to(cuda).transpose(2, 3)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, "sliding", 16, 0.0)
+    want = fa.flash_attention_bwd_ref(q, k, v, o, lse, do, "sliding", 16, 0.0)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=3e-4, atol=3e-5)
+
+
+def _smoke_train(cuda, attn_impl, remat="none"):
+    from repro_torch.configs import get_config
+    from repro_torch.launch import build_train_step
+    from repro_torch.models import init_params, make_dummy_batch
+
+    cfg = get_config("gemma2-2b", smoke=True).replace(attn_impl=attn_impl, remat=remat)
+    params = init_params(cfg, 0, device="cuda")
+    batch = make_dummy_batch(cfg, 2, 200, "train", np.random.default_rng(2), device="cuda")
+    step, opt = build_train_step(cfg)
+    return cfg, params, opt.init(params), batch, step
+
+
+def test_cuda_smoke_train_step_kernel_route_matches_plain_route(cuda):
+    """The loss and gradients a gemma2-2b SMOKE training step takes
+    (float32, S = 200, ragged), kernel route against plain route, at the
+    reference's dense-model tolerance (loss 2e-5; gradients rtol 2e-3, atol
+    2e-5). The updated parameters are not compared: Adam's first step is
+    lr * sign(g), which a gradient near 0 can flip."""
+    from repro_torch.launch import value_and_grad
+    from repro_torch.optim import tree_leaves
+
+    cfg, params, _, batch, _ = _smoke_train(cuda, "flash")
+    loss, grads = value_and_grad(params, cfg, batch)
+    loss_p, grads_p = value_and_grad(params, cfg.replace(attn_impl="plain"), batch)
+    assert abs(loss.item() - loss_p.item()) < 2e-5
+    for g, w in zip(tree_leaves(grads), tree_leaves(grads_p)):
+        torch.testing.assert_close(g, w, rtol=2e-3, atol=2e-5)
+
+
+def test_cuda_train_step_launches_with_remat(cuda):
+    """With remat="full" a step runs each layer's forward kernel twice (the
+    forward and its recompute) and each backward kernel once."""
+    cfg, params, state, batch, step = _smoke_train(cuda, "flash", remat="full")
+    before = (fa.launches, fa.launches_dq, fa.launches_dkv)
+    params, state, loss = step(params, state, batch)
+    torch.cuda.synchronize()
+    L = cfg.num_layers
+    assert (fa.launches, fa.launches_dq, fa.launches_dkv) == (before[0] + 2 * L, before[1] + L, before[2] + L)
+    assert torch.isfinite(loss)

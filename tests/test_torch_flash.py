@@ -224,8 +224,8 @@ def test_library_builds_every_missing_source_together(stand_in_build):
     build, events, monkeypatch = stand_in_build
     monkeypatch.setattr(build, "_nvcc", lambda: "true")
     assert build.library("minplus") == str(build.build_dir() / "libminplus.so")
-    assert events == [("start", "flash_fwd"), ("start", "minplus"), ("wait", None), ("wait", None)]
-    for name in ("flash_fwd", "minplus"):
+    assert events == [("start", "flash_bwd"), ("start", "flash_fwd"), ("start", "minplus")] + [("wait", None)] * 3
+    for name in ("flash_bwd", "flash_fwd", "minplus"):
         assert (build.build_dir() / f"lib{name}.so").is_file()
         assert (build.build_dir() / f"{name}.log").is_file()
     events.clear()
@@ -237,18 +237,19 @@ def test_library_builds_every_missing_source_together(stand_in_build):
 def test_library_raises_when_a_build_fails(stand_in_build):
     build, events, monkeypatch = stand_in_build
     monkeypatch.setattr(build, "_nvcc", lambda: "false")
-    with pytest.raises(RuntimeError, match="nvcc failed building flash_fwd.cu"):
+    with pytest.raises(RuntimeError, match="nvcc failed building flash_bwd.cu"):
         build.library("minplus")
-    assert len(events) == 4  # both builds ran to their end before the raise
-    assert sorted(p.name for p in build.build_dir().iterdir()) == ["flash_fwd.log", "minplus.log"]
+    assert len(events) == 6  # every build ran to its end before the raise
+    assert sorted(p.name for p in build.build_dir().iterdir()) == ["flash_bwd.log", "flash_fwd.log", "minplus.log"]
 
 
 def test_time_builds_times_serial_and_parallel_builds(stand_in_build):
     build, events, monkeypatch = stand_in_build
     monkeypatch.setattr(build, "_nvcc", lambda: "true")
     t = build.time_builds()
-    assert t["sources"] == ["flash_fwd", "minplus"] and t["serial_s"] >= 0 and t["parallel_s"] >= 0
+    assert t["sources"] == ["flash_bwd", "flash_fwd", "minplus"] and t["serial_s"] >= 0 and t["parallel_s"] >= 0
     starts = [e for e in events if e[0] == "start"]
-    assert starts == [("start", "flash_fwd"), ("start", "minplus")] * 2
-    assert events[:4] == [("start", "flash_fwd"), ("wait", None), ("start", "minplus"), ("wait", None)]
+    assert starts == [("start", "flash_bwd"), ("start", "flash_fwd"), ("start", "minplus")] * 2
+    assert events[:6] == [("start", "flash_bwd"), ("wait", None), ("start", "flash_fwd"), ("wait", None),
+                          ("start", "minplus"), ("wait", None)]
     assert not (build._ROOT / "build" / "repro_torch_kernels" / "timing").exists()

@@ -28,7 +28,7 @@ def test_importing_every_port_module_pulls_in_no_jax():
         "repro_torch.core.torch_dp", "repro_torch.kernels.minplus", "repro_torch.kernels.build",
         "repro_torch.kernels.flash_attention", "repro_torch.configs", "repro_torch.models.dense",
         "repro_torch.models.layers", "repro_torch.models.model", "repro_torch.models.convert",
-        "repro_torch.launch.steps",
+        "repro_torch.launch.steps", "repro_torch.optim", "repro_torch.optim.optimizers",
     } <= set(mods)
     code = (
         "import importlib, sys\n"
@@ -39,6 +39,7 @@ def test_importing_every_port_module_pulls_in_no_jax():
         "from repro_torch.kernels import build, minplus, flash_attention\n"
         "assert not build._loaded and minplus._launch is None, 'import built or loaded a kernel'\n"
         "assert flash_attention._launch is None, 'import loaded the flash kernel'\n"
+        "assert flash_attention._bwd_fns is None, 'import loaded the flash backward kernels'\n"
         "print(','.join(bad))\n"
     )
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}

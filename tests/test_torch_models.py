@@ -213,16 +213,6 @@ def test_make_dummy_batch_draws_like_jax():
     np.testing.assert_array_equal(got["tokens"].numpy(), want)
 
 
-def test_flash_attention_refuses_inputs_that_require_grad():
-    q = torch.zeros(1, 2, 8, 16, requires_grad=True)
-    k = v = torch.zeros(1, 2, 8, 16)
-    with pytest.raises(RuntimeError, match="training slice"):
-        fa.flash_attention(q, k, v, "causal")
-    with torch.no_grad():
-        o, _ = fa.flash_attention(q, k, v, "causal")
-    assert not o.requires_grad
-
-
 def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = get_config("gemma2-2b", smoke=True)
