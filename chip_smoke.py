@@ -11,7 +11,11 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 1. device     — a CUDA card is present; prints its name and power limit.
 2. build      — loads both kernels, which builds every
                 ``src/repro_torch/kernels/csrc/*.cu`` (one nvcc each, all
-                started together), and prints ptxas's registers and spills.
+                started together), and prints ptxas's registers and spills;
+                counts the tensor-core instructions (HGMMA, HMMA) in the SASS
+                of every kernel of libflash_fwd.so and libflash_bwd.so
+                (``cuobjdump -sass``) and fails if a bfloat16 tensor-core
+                kernel (forward, dQ; one per head dimension) has none.
 3. kernel     — ``minplus_cuda_batch`` against ``minplus_step_ref_batch`` on
                 the card over a grid of shapes: bit-identical float32 values
                 and identical int32 argmins.
@@ -25,20 +29,26 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 6. flash      — ``flash_attention`` against ``flash_attention_ref`` on the
                 card over mask kinds, softcaps, GQA ratios, head dims and
                 lengths (ragged ones included), and at the main path's
-                causal and sliding shapes: float32 at rtol = atol = 2e-5;
-                bfloat16 I/O within 2e-2 of the plain output and within half
-                a bfloat16 ulp (+2e-5) of its float32 value, lse within 2e-5.
+                causal and sliding shapes: float32 (CUDA cores) at rtol =
+                atol = 2e-5; bfloat16 I/O (tensor cores: wgmma, TMA) within
+                2e-2 of the plain output and within the limit the kernel's
+                roundings give of its float32 value (2^-8 |o32| + 2^-8 P|V|/l
+                + 2e-5: o and P each rounded once), lse within 2e-5.
 7. prefill    — gemma2-2b at full width and depth (26 layers, bfloat16,
                 random weights from ``torch.Generator`` seed 0) prefills
                 B = 2 prompts of S = 8,192 tokens through
                 ``build_prefill_step``: exactly one kernel launch per layer,
-                finite logits, the last position's logits close to the
-                plain attention route's; then 2 layers in float32 against
-                the plain route at 1e-4.
+                each on the tensor-core route, finite logits, the last
+                position's logits close to the plain attention route's; then
+                2 layers in float32 against the plain route at 1e-4.
 8. flash times — the kernel at the causal and sliding shapes beside the
-                plain version, the bound and ``scaled_dot_product_attention``
-                (causal; sliding with a boolean band mask); the warm prefill
-                in ms and tokens/s, and the kernel's share.
+                previous kernel (the float32 CUDA-core route on the same
+                inputs widened to float32, timed in turns with it; the
+                tensor-core kernel must be at least 5x faster at the causal
+                shape), the plain version, the bound and
+                ``scaled_dot_product_attention`` (causal; sliding with a
+                boolean band mask); the warm prefill in ms and tokens/s, and
+                the kernel's share.
 9. flash bwd  — ``flash_attention_bwd`` (the dQ and dK/dV kernels) against
                 ``flash_attention_bwd_ref`` on the card over mask kinds,
                 softcaps, GQA ratios, head dims and lengths, and at the
@@ -50,7 +60,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
                 remat "full", AdamW, random weights from ``torch.Generator``
                 seed 0) takes one cold and three warm steps on one batch of
                 B = 1, S = 8,192 tokens through ``build_train_step``: per step
-                exactly 52 forward, 26 dQ and 26 dK/dV launches, finite losses
+                exactly 52 forward, 26 dQ and 26 dK/dV launches (the forward
+                and dQ ones on the tensor-core route), finite losses
                 that fall, the peak device memory; then 2 layers in float32 at
                 full width, kernel route against plain route (loss within
                 2e-5, gradients within rtol 2e-3, atol 2e-5).
@@ -58,7 +69,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
                 kernel and the card's busy share; dQ and dK/dV per launch at
                 the causal and sliding shapes beside the plain backward,
                 their bounds and the backward of
-                ``scaled_dot_product_attention``.
+                ``scaled_dot_product_attention``, and dQ beside the previous
+                (float32 CUDA-core) kernel on the widened inputs, in turns
+                (at least 5x faster at the causal shape).
 
 The line before the last is a JSON object of every kernel with its launch
 count and times; the last line is ``{"ok": true, "device": {...}}``.
@@ -66,6 +79,7 @@ count and times; the last line is ``{"ok": true, "device": {...}}``.
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -100,15 +114,22 @@ PEAK_BYTES_PER_S = 3.35e12
 # fault moves the logits by O(1).
 PREFILL_REL_L2 = 0.1
 # The flash kernel against its plain version. float32: the reference's
-# forward tolerance. bfloat16 I/O: both compute in float32 from the same
-# (exactly widened) inputs and round o to bfloat16 once, so the kernel's o
-# lies within half a bfloat16 ulp (2^-8 relative) of the plain version's
-# float32 o, plus float32 summation-order noise (F32_TOL); lse is float32 in
-# both. A K/V tile skipped or visited wrongly moves lse by ~1e-2 at the main
-# shape. BF16_GRID_TOL is the looser limit that the grid's cases are also held
-# to against the plain version's bfloat16 output.
+# forward tolerance. bfloat16 I/O (the tensor-core route): the kernel forms
+# the scores, the softmax and every sum in float32 from the same (exactly
+# widened) inputs as the plain version, rounds P to bfloat16 once for P.V and
+# o once on output. So, with o32 the plain version's float32 o and P, l its
+# float32 probabilities and row sums,
+#   |o - o32| <= BF16_O_RTOL |o32| + BF16_P_RTOL (P @ |V|) / l + F32_TOL:
+# the first term is o rounded once (half a bfloat16 ulp, 2^-8 relative); the
+# second is P rounded to bfloat16 (at most 2^-9 relative per entry, with a
+# factor 2 of room), computed as the plain version's o on |v|; F32_TOL is
+# float32 summation-order noise. lse is float32 in both and held to F32_TOL:
+# a K/V tile skipped or visited wrongly moves it by ~1e-2 at the main shape.
+# BF16_GRID_TOL is the looser limit that the grid's cases are also held to
+# against the plain version's bfloat16 output.
 F32_TOL = 2e-5
 BF16_O_RTOL = 2.0 ** -8
+BF16_P_RTOL = 2.0 ** -8
 BF16_GRID_TOL = 2e-2
 OPS_PER_CANDIDATE = 3  # add, saturating min, compare
 # The flash backward kernels against their plain version. float32: the
@@ -122,6 +143,10 @@ BWD_BF16_RTOL, BWD_BF16_ATOL_REL = 2.0 ** -8, 1e-5
 # A tile visited wrongly must move some gradient entry by at least this many
 # times the largest deviation the check allows on that tile's rows.
 TILE_MARGIN_MIN = 2.0
+# The bfloat16 tensor-core kernels (forward, dQ) against the previous,
+# float32 CUDA-core kernels on the same inputs widened to float32, in one run
+# at the causal main shape: at least this many times faster.
+TC_SPEEDUP_MIN = 5.0
 # The dense model's loss and gradients, kernel route against plain route: the
 # reference's test_dense_model_with_pallas_attention_matches_xla.
 LOSS_ATOL, MODEL_GRAD_RTOL, MODEL_GRAD_ATOL = 2e-5, 2e-3, 2e-5
@@ -142,6 +167,23 @@ def gpu_line(fields="name,power.limit") -> str:
         capture_output=True, text=True, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def tensor_core_counts(build, name):
+    """``{kernel function: (HGMMA, HMMA)}``: the tensor-core instructions in
+    the SASS of every kernel of ``lib<name>.so`` (``cuobjdump -sass``)."""
+    cuobjdump = Path(build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(build.build_dir() / f"lib{name}.so")],
+                          capture_output=True, text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            fn = line.split("Function : ")[1].strip()
+            counts[fn] = [0, 0]
+        elif fn is not None:
+            counts[fn][0] += "HGMMA" in line
+            counts[fn][1] += "HMMA" in line
+    return {k: tuple(v) for k, v in counts.items()}
 
 
 def band_inputs(rng, B, Tp, W, dev, ties=False):
@@ -259,8 +301,9 @@ def flash_err(fa, got, q, k, v, kind, window, softcap):
     o_plain32 the float32 value it rounds from.
 
     float32: o and lse within rtol = atol = F32_TOL. bfloat16 I/O: o within
-    BF16_GRID_TOL of o_plain, and, sized to what is compared, o within
-    BF16_O_RTOL (plus F32_TOL) of o_plain32 and lse within F32_TOL.
+    BF16_GRID_TOL of o_plain, and, sized to what is compared, o within the
+    limit derived from the kernel's roundings (BF16_O_RTOL, BF16_P_RTOL,
+    F32_TOL) of o_plain32, and lse within F32_TOL.
     """
     o, lse = got
     # the plain version widens its inputs to float32 first, so on the widened
@@ -271,8 +314,11 @@ def flash_err(fa, got, q, k, v, kind, window, softcap):
     if q.dtype == torch.float32:
         ok = close_lse and bool(torch.allclose(o, o32, rtol=F32_TOL, atol=F32_TOL))
     else:
+        pv_abs = fa.flash_attention_ref(q.float(), k.float(), v.float().abs(), kind, window, softcap)[0]
+        limit = pv_abs.mul_(BF16_P_RTOL).add_(o32.abs(), alpha=BF16_O_RTOL).add_(F32_TOL)
         ok = (close_lse and bool(torch.allclose(o, o_plain, rtol=BF16_GRID_TOL, atol=BF16_GRID_TOL))
-              and bool(torch.allclose(o, o32, rtol=BF16_O_RTOL, atol=F32_TOL)))
+              and bool(((o - o32).abs() <= limit).all()))
+        del pv_abs, limit
     return ok, float((o - o_plain).abs().max()), float((o - o32).abs().max()), float((lse - lse32).abs().max())
 
 
@@ -304,8 +350,8 @@ def flash_phase(fa, dev):
     f32, b16 = worst[torch.float32], worst[torch.bfloat16]
     log(f"[flash] {len(cases)} cases within tolerance of the plain version: float32 rtol=atol={F32_TOL} on o and "
         f"lse (largest |do| {f32[1]:.3e}, |dlse| {f32[2]:.3e}); bfloat16 I/O o within {BF16_GRID_TOL} of the plain "
-        f"output (largest {b16[0]:.3e}) and within rtol={BF16_O_RTOL:.3e}, atol={F32_TOL} of its float32 value "
-        f"(largest {b16[1]:.3e}), lse within {F32_TOL} (largest {b16[2]:.3e})")
+        f"output (largest {b16[0]:.3e}) and within {BF16_O_RTOL:.3e} |o32| + {BF16_P_RTOL:.3e} (P|V|)/l + {F32_TOL} "
+        f"of its float32 value o32 (largest |o - o32| {b16[1]:.3e}), lse within {F32_TOL} (largest {b16[2]:.3e})")
 
     cfg_shape = (B_PREFILL, 8, 4, S_PREFILL, 256)
     main = {}
@@ -320,8 +366,9 @@ def flash_phase(fa, dev):
         main[kind] = (q, k, v, window)
         torch.cuda.empty_cache()
     log(f"[flash] main-path shapes B={cfg_shape[0]} H=8 Hkv=4 S={S_PREFILL} D=256 bfloat16 softcap 50, causal "
-        f"and sliding(4096): o within rtol={BF16_O_RTOL:.3e}, atol={F32_TOL} of the plain version's float32 value "
-        f"(largest |do32| {worst[1]:.3e}), lse within rtol=atol={F32_TOL} (largest |dlse| {worst[2]:.3e}); "
+        f"and sliding(4096): o within {BF16_O_RTOL:.3e} |o32| + {BF16_P_RTOL:.3e} (P|V|)/l + {F32_TOL} of the plain "
+        f"version's float32 value (largest |do32| {worst[1]:.3e}), lse within rtol=atol={F32_TOL} (largest |dlse| "
+        f"{worst[2]:.3e}); "
         f"max_abs_err against its bfloat16 output {worst[0]:.3e}")
     return main, worst[0]
 
@@ -345,13 +392,14 @@ def prefill_phase(fa, mp, dev):
         f"card in {init_s:.2f} s; tokens {tuple(batch['tokens'].shape)}")
 
     torch.cuda.reset_peak_memory_stats()
-    mp.launches = fa.launches = fa.launches_dq = fa.launches_dkv = 0
+    mp.launches = fa.launches = fa.launches_dq = fa.launches_dkv = fa.launches_fwd_tc = fa.launches_dq_tc = 0
     t0 = time.perf_counter()
     logits = step(params, batch)
     torch.cuda.synchronize()
     cold_s = time.perf_counter() - t0
     launches = fa.launches
     check(launches == cfg.num_layers, f"{launches} flash launches in one prefill, expected {cfg.num_layers}")
+    check(fa.launches_fwd_tc == cfg.num_layers, f"{fa.launches_fwd_tc} tensor-core forward launches in one prefill")
     check(mp.launches == 0, f"the prefill launched the min-plus kernel {mp.launches} times")
     check(fa.launches_dq == fa.launches_dkv == 0, "the prefill launched a backward kernel")
     check(tuple(logits.shape) == (B_PREFILL, S_PREFILL, cfg.vocab_size) and logits.dtype == torch.float32,
@@ -360,8 +408,8 @@ def prefill_phase(fa, mp, dev):
     last = logits[:, -1].clone()
     del logits
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    log(f"[prefill] kernel route: {launches} flash launches (one per layer), first call {cold_s:.3f} s, logits "
-        f"finite, peak device memory {peak_gb:.2f} GB")
+    log(f"[prefill] kernel route: {launches} flash launches (one per layer, {fa.launches_fwd_tc} on the tensor "
+        f"cores), first call {cold_s:.3f} s, logits finite, peak device memory {peak_gb:.2f} GB")
 
     plain = prefill_fn(params, cfg.replace(attn_impl="plain"), batch)
     last_p = plain[:, -1].clone()
@@ -379,9 +427,10 @@ def prefill_phase(fa, mp, dev):
     p32 = init_params(cfg32, torch.Generator(device=dev).manual_seed(SEED))
     b32 = {"tokens": batch["tokens"][:1]}
     rows = [0, cfg.window - 1, cfg.window, S_PREFILL - 1]  # both sides of the sliding cut
-    n0 = fa.launches
+    n0, n0_tc = fa.launches, fa.launches_fwd_tc
     l32 = prefill_fn(p32, cfg32, b32)[:, rows].clone()
     check(fa.launches == n0 + F32_LAYERS, "float32 prefill did not launch the kernel once per layer")
+    check(fa.launches_fwd_tc == n0_tc, "float32 prefill launched the tensor-core kernel")
     l32p = prefill_fn(p32, cfg32.replace(attn_impl="plain"), b32)[:, rows].clone()
     err32 = float((l32 - l32p).abs().max())
     check(bool(torch.allclose(l32, l32p, rtol=1e-4, atol=1e-4)), f"float32 prefill: max |dlogit| {err32}")
@@ -428,9 +477,25 @@ def library_attention(fa, F, q, k, v, kind, window):
     return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
 
 
+def in_turns(new, prev, rounds=2):
+    """The tensor-core kernel ``new`` and the previous kernel ``prev`` timed
+    in turns (new, prev, new, prev, ...), each with ``median_event_ms``.
+    Returns the medians of the rounds, (new ms, prev ms)."""
+    t_new, t_prev = [], []
+    for _ in range(rounds):
+        t_new.append(median_event_ms(new, reps=5, per_rep=3))
+        t_prev.append(median_event_ms(prev, reps=2, per_rep=1, warmup=1))
+    return statistics.median(t_new), statistics.median(t_prev)
+
+
+TC_ROUTE = "bfloat16 tensor cores (wgmma, TMA-fed K/V ring)"
+PREV_ROUTE = "float32 CUDA cores, the same inputs widened to float32"
+
+
 def flash_times(fa, main, cfg, params, batch, step, card):
-    """Phase 8: kernel, plain version, bound and library call at the main
-    path's shapes; the warm prefill. Returns the flash kernel's JSON fields."""
+    """Phase 8: kernel, previous kernel, plain version, bound and library
+    call at the main path's shapes; the warm prefill. Returns the flash
+    kernel's JSON fields."""
     import torch.nn.functional as F
 
     from repro_torch.models.dense import attn_pattern
@@ -438,21 +503,26 @@ def flash_times(fa, main, cfg, params, batch, step, card):
     res = {}
     for kind, (q, k, v, window) in main.items():
         B, H, S, D = q.shape
-        ms = median_event_ms(lambda: fa.flash_attention(q, k, v, kind, window, 50.0), reps=5, per_rep=3)
+        q32, k32, v32 = q.float(), k.float(), v.float()
+        ms, prev_ms = in_turns(lambda: fa.flash_attention(q, k, v, kind, window, 50.0),
+                               lambda: fa.flash_attention(q32, k32, v32, kind, window, 50.0))
+        del q32, k32, v32
         clocks = gpu_line("clocks.sm,power.draw")
         plain_ms = median_event_ms(lambda: fa.flash_attention_ref(q, k, v, kind, window, 50.0), reps=3, warmup=1)
         torch.cuda.empty_cache()
         b_ms, b_by = flash_bound_ms(B, H, k.shape[1], S, D, kind, window, q.element_size())
         lib_ms = median_event_ms(lambda: library_attention(fa, F, q, k, v, kind, window), reps=5, per_rep=3)
         torch.cuda.empty_cache()
-        res[kind] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+        res[kind] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, prev_ms=prev_ms)
         lib = f"{lib_ms:.4f} ms (scaled_dot_product_attention, same shape, no softcap{LIBRARY_MASK[kind]})"
         log(f"[times] flash_attention {kind}{f'({window})' if kind == 'sliding' else ''} B={B} H={H} "
-            f"Hkv={k.shape[1]} S={S} D={D} bfloat16 softcap 50: {ms:.4f} ms per launch (median of 5 runs of 3 "
-            f"launches; clocks.sm, power.draw after: {clocks}); plain version {plain_ms:.4f} ms; bound {b_ms:.4f} "
-            f"ms ({b_by}, {attn_pairs(B, H, S, kind, window)} unmasked pairs), kernel at {ms / b_ms:.1f}x the "
-            f"bound; on float32 CUDA cores (67 TFLOP/s) its floor is {b_ms * PEAK_BF16_FLOPS / PEAK_F32_FLOPS:.3f} "
-            f"ms; library {lib}")
+            f"Hkv={k.shape[1]} S={S} D={D} bfloat16 softcap 50, route {TC_ROUTE}: {ms:.4f} ms per launch (median "
+            f"of 2 rounds of 5 runs of 3 launches; clocks.sm, power.draw after: {clocks}); previous kernel "
+            f"({PREV_ROUTE}, in turns) {prev_ms:.4f} ms, {prev_ms / ms:.2f}x slower; plain version {plain_ms:.4f} "
+            f"ms; bound {b_ms:.4f} ms ({b_by}, {attn_pairs(B, H, S, kind, window)} unmasked pairs), kernel at "
+            f"{ms / b_ms:.2f}x the bound ({b_ms / ms:.3f} of the bf16 peak); library {lib}")
+    check(res["causal"]["prev_ms"] >= TC_SPEEDUP_MIN * res["causal"]["ms"],
+          f"the tensor-core forward is not {TC_SPEEDUP_MIN}x faster than the previous kernel at the causal shape")
 
     pattern = attn_pattern(cfg)
     per_kind = {kd: sum(pattern[i % len(pattern)] == kd for i in range(cfg.num_layers)) for kd in res}
@@ -520,7 +590,12 @@ def tile_margins(fa, args, want, kind, window, softcap):
     q, k, v, o, lse, do = args
     B, H, S, D = q.shape
     Hkv = k.shape[1]
-    G, scale, BQ, BK = H // Hkv, D ** -0.5, fa.BWD_BLOCK_Q, fa.BWD_BLOCK_K
+    G, scale = H // Hkv, D ** -0.5
+    # the tiles of the kernels that ran: dQ's tensor-core tile for bfloat16,
+    # the CUDA-core tile otherwise and for dK/dV
+    tc = q.dtype == torch.bfloat16
+    dq_tile = (fa.DQ_TC_BLOCK_Q, fa.DQ_TC_BLOCK_K) if tc else (fa.BWD_BLOCK_Q, fa.BWD_BLOCK_K)
+    dkv_tile = (fa.BWD_BLOCK_Q, fa.BWD_BLOCK_K)
     qf = (q.float() * scale).reshape(B, Hkv, G, S, D)
     kf, vf = k.float()[:, :, None], v.float()[:, :, None]
     dof = do.float().reshape(B, Hkv, G, S, D)
@@ -530,7 +605,7 @@ def tile_margins(fa, args, want, kind, window, softcap):
     limits = [bwd_limits(w, q.dtype) for w in want]
     dq_w = want[0].reshape(B, Hkv, G, S, D)
 
-    def tile(r0, c0):  # p and dS on rows [r0, r0 + BQ) x keys [c0, c0 + BK)
+    def tile(r0, c0, BQ, BK):  # p and dS on rows [r0, r0 + BQ) x keys [c0, c0 + BK)
         r1, c1 = min(r0 + BQ, S), min(c0 + BK, S)
         s = qf[..., r0:r1, :] @ kf[..., c0:c1, :].transpose(-1, -2)
         t = torch.tanh(s / softcap) if softcap else None
@@ -547,13 +622,15 @@ def tile_margins(fa, args, want, kind, window, softcap):
         return c, c / (atol + rtol * float(w.abs().max()))
 
     out = {"dq": [], "dk": [], "dv": []}
+    BQ, BK = dq_tile
     for r0 in range(0, S, BQ):
         c0 = (min(r0 + BQ, S) - 1) // BK * BK
-        r1, c1, _, ds = tile(r0, c0)
+        r1, c1, _, ds = tile(r0, c0, BQ, BK)
         out["dq"].append(margin(ds @ kf[..., c0:c1, :] * scale, dq_w[..., r0:r1, :], 0))
+    BQ, BK = dkv_tile
     for c0 in range(0, S, BK):
         r0 = c0 // BQ * BQ
-        r1, c1, p, ds = tile(r0, c0)
+        r1, c1, p, ds = tile(r0, c0, BQ, BK)
         out["dk"].append(margin((ds.transpose(-1, -2) @ qf[..., r0:r1, :]).sum(2), want[1][:, :, c0:c1], 1))
         out["dv"].append(margin((p.transpose(-1, -2) @ dof[..., r0:r1, :]).sum(2), want[2][:, :, c0:c1], 2))
     return {name: (min(c for c, _ in vals), min(m for _, m in vals)) for name, vals in out.items()}
@@ -637,16 +714,18 @@ def train_phase(fa, mp, dev, card):
 
     L = cfg.num_layers
     torch.cuda.reset_peak_memory_stats()
-    mp.launches = fa.launches = fa.launches_dq = fa.launches_dkv = 0
+    mp.launches = fa.launches = fa.launches_dq = fa.launches_dkv = fa.launches_fwd_tc = fa.launches_dq_tc = 0
     losses, secs = [], []
     for i in range(TRAIN_STEPS):
-        n0 = (fa.launches, fa.launches_dq, fa.launches_dkv)
+        n0 = (fa.launches, fa.launches_dq, fa.launches_dkv, fa.launches_fwd_tc, fa.launches_dq_tc)
         t0 = time.perf_counter()
         params, state, loss = step(params, state, batch)
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
         per = (fa.launches - n0[0], fa.launches_dq - n0[1], fa.launches_dkv - n0[2])
         check(per == (2 * L, L, L), f"step {i + 1}: (forward, dQ, dK/dV) launches {per}, expected {(2 * L, L, L)}")
+        per_tc = (fa.launches_fwd_tc - n0[3], fa.launches_dq_tc - n0[4])
+        check(per_tc == (2 * L, L), f"step {i + 1}: tensor-core (forward, dQ) launches {per_tc}, expected {(2 * L, L)}")
         losses.append(float(loss))
         check(math.isfinite(losses[-1]), f"step {i + 1}: loss {losses[-1]}")
     launches = {"flash_attention": fa.launches, "flash_dq": fa.launches_dq, "flash_dkv": fa.launches_dkv}
@@ -655,8 +734,8 @@ def train_phase(fa, mp, dev, card):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     warm_ms = 1e3 * statistics.median(secs[1:])
     log(f"[train] {TRAIN_STEPS} steps, per step exactly {2 * L} forward (with the remat recompute), {L} dQ and {L} "
-        f"dK/dV launches, min-plus 0; losses {', '.join(f'{x:.5f}' for x in losses)}; peak device memory "
-        f"{peak_gb:.2f} GB; first step {secs[0]:.3f} s")
+        f"dK/dV launches, the forward and dQ ones on the tensor cores, min-plus 0; losses "
+        f"{', '.join(f'{x:.5f}' for x in losses)}; peak device memory {peak_gb:.2f} GB; first step {secs[0]:.3f} s")
 
     total, rows = device_time_table(lambda p, b: step(p, state, b), params, batch)
     tokens = B_TRAIN * S_TRAIN
@@ -690,10 +769,11 @@ def train_f32_check(fa, dev, cfg, tokens):
     cfg32 = cfg.replace(num_layers=F32_LAYERS, param_dtype="float32", compute_dtype="float32")
     p32 = init_params(cfg32, torch.Generator(device=dev).manual_seed(SEED))
     b32 = {"tokens": tokens}
-    n0 = (fa.launches, fa.launches_dq, fa.launches_dkv)
+    n0 = (fa.launches, fa.launches_dq, fa.launches_dkv, fa.launches_fwd_tc, fa.launches_dq_tc)
     loss_k, g_k = value_and_grad(p32, cfg32, b32)
     per = (fa.launches - n0[0], fa.launches_dq - n0[1], fa.launches_dkv - n0[2])
     check(per == (2 * F32_LAYERS, F32_LAYERS, F32_LAYERS), f"float32 step launches {per}")
+    check((fa.launches_fwd_tc, fa.launches_dq_tc) == n0[3:], "the float32 step launched a tensor-core kernel")
     loss_p, g_p = value_and_grad(p32, cfg32.replace(attn_impl="plain"), b32)
     dloss = abs(float(loss_k) - float(loss_p))
     worst, ok = 0.0, True
@@ -735,9 +815,13 @@ def flash_bwd_times(fa, main, card):
         B, H, S, D = q.shape
         Hkv, scale = k.shape[1], D ** -0.5
         do_c, delta = fa._bwd_rows(o, do)
-        ms = {which: median_event_ms(
-            lambda which=which: fa._launch_bwd(which, q, k, v, do_c, lse, delta, kind, window, 50.0, scale),
-            reps=5, per_rep=3) for which in ("dq", "dkv")}
+        ms = {"dkv": median_event_ms(
+            lambda: fa._launch_bwd("dkv", q, k, v, do_c, lse, delta, kind, window, 50.0, scale), reps=5, per_rep=3)}
+        wide = [x.float() for x in (q, k, v, do_c)]
+        ms["dq"], prev_ms = in_turns(
+            lambda: fa._launch_bwd("dq", q, k, v, do_c, lse, delta, kind, window, 50.0, scale),
+            lambda: fa._launch_bwd("dq", *wide, lse, delta, kind, window, 50.0, scale))
+        del wide
         clocks = gpu_line("clocks.sm,power.draw")
         plain_ms = median_event_ms(lambda: fa.flash_attention_bwd_ref(q, k, v, o, lse, do, kind, window, 50.0),
                                    reps=3, warmup=1)
@@ -752,14 +836,23 @@ def flash_bwd_times(fa, main, card):
             b_ms, b_by = flash_bwd_bound_ms(B, H, Hkv, S, D, kind, window, q.element_size(), which)
             res[(which, kind)] = dict(ms=ms[which], plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                                       library_ms=lib_ms)
+            if which == "dq":
+                res[(which, kind)]["prev_ms"] = prev_ms
+                route = (f"route {TC_ROUTE}; previous kernel ({PREV_ROUTE}, in turns) {prev_ms:.4f} ms, "
+                         f"{prev_ms / ms[which]:.2f}x slower")
+            else:
+                route = (f"route float32 CUDA cores; on them its floor is "
+                         f"{b_ms * PEAK_BF16_FLOPS / PEAK_F32_FLOPS:.3f} ms")
             log(f"[times] flash_{which} {kind}{f'({window})' if kind == 'sliding' else ''} B={B} H={H} Hkv={Hkv} "
-                f"S={S} D={D} bfloat16 softcap 50: {ms[which]:.4f} ms per launch (median of 5 runs of 3 launches; "
-                f"clocks.sm, power.draw after: {clocks}); plain backward (dq, dk and dv) {plain_ms:.4f} ms; bound "
-                f"{b_ms:.4f} ms ({b_by}), kernel at {ms[which] / b_ms:.1f}x the bound; on float32 CUDA cores its "
-                f"floor is {b_ms * PEAK_BF16_FLOPS / PEAK_F32_FLOPS:.3f} ms; library {lib_ms:.4f} ms (backward of "
+                f"S={S} D={D} bfloat16 softcap 50: {ms[which]:.4f} ms per launch (clocks.sm, power.draw after: "
+                f"{clocks}); {route}; plain backward (dq, dk and dv) {plain_ms:.4f} ms; bound {b_ms:.4f} ms "
+                f"({b_by}), kernel at {ms[which] / b_ms:.2f}x the bound; library {lib_ms:.4f} ms (backward of "
                 f"scaled_dot_product_attention, dq, dk and dv, same shape, no softcap{LIBRARY_MASK[kind]})")
     log(f"[times] {card}")
-    return res[("dq", "causal")], res[("dkv", "causal")]
+    dq_c = res[("dq", "causal")]
+    check(dq_c["prev_ms"] >= TC_SPEEDUP_MIN * dq_c["ms"],
+          f"the tensor-core dQ kernel is not {TC_SPEEDUP_MIN}x faster than the previous kernel at the causal shape")
+    return dq_c, res[("dkv", "causal")]
 
 
 def main() -> int:
@@ -808,8 +901,17 @@ def main() -> int:
         f"({build.build_dir()})")
     for name in ("minplus", "flash_fwd", "flash_bwd"):
         for line in (build.build_dir() / f"{name}.log").read_text().splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
+            if "registers" in line or "spill" in line or "Compiling entry" in line or "C75" in line:
                 log(f"[build] {name} ptxas: {line.strip()}")
+    for name in ("flash_fwd", "flash_bwd"):
+        counts = tensor_core_counts(build, name)
+        tc = {int(re.search(r"tc_kernelILi(\d+)E", fn).group(1)): c for fn, c in counts.items() if "_tc_kernel" in fn}
+        other = sum(h + m for fn, (h, m) in counts.items() if "_tc_kernel" not in fn)
+        log(f"[build] {name} SASS: tensor-core kernels (head dim: HGMMA, HMMA) "
+            f"{', '.join(f'{d}: {h}, {m}' for d, (h, m) in sorted(tc.items()))}; the {len(counts) - len(tc)} "
+            f"float32 CUDA-core kernels {other} in all")
+        check(sorted(tc) == list(fa.HEAD_DIMS), f"{name}: tensor-core kernels for head dims {sorted(tc)}")
+        check(all(h > 0 for h, _ in tc.values()), f"{name}: a bfloat16 tensor-core kernel has no HGMMA")
 
     # -- phase 3: kernel vs plain version on the card ----------------------
     rng = np.random.default_rng(SEED)
@@ -947,6 +1049,7 @@ def main() -> int:
     }, {
         "name": "flash_attention",
         "route": "cuda",
+        "tc_route": "wgmma",
         "source": "src/repro_torch/kernels/csrc/flash_fwd.cu",
         "replaces": "src/repro/kernels/flash_attention.py:53",
         "launches": launches_prefill,
@@ -955,6 +1058,7 @@ def main() -> int:
     }, {
         "name": "flash_dq",
         "route": "cuda",
+        "tc_route": "wgmma",
         "source": "src/repro_torch/kernels/csrc/flash_bwd.cu",
         "replaces": "src/repro/kernels/flash_attention.py:96",
         "launches": launches_train["flash_dq"],

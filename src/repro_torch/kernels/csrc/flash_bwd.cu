@@ -1,6 +1,8 @@
-// Flash-attention backward (FlashAttention-2 style) for Hopper (sm_90a), on
-// CUDA cores in float32: two kernels, launched one after the other for one
-// attention layer.
+// Flash-attention backward (FlashAttention-2 style) for Hopper (sm_90a): two
+// kernels, launched one after the other for one attention layer. Both run on
+// the CUDA cores in float32; for bfloat16 I/O the dQ kernel has a
+// tensor-core route instead (flash_dq_tc_kernel further down, built from
+// flash_tc.cuh), while dK/dV keeps the CUDA-core kernel.
 //
 //   q and dO (B, H, Sq, D), k and v (B, Hkv, Sk, D), float32 or bfloat16, the
 //   kv head of query head h is h / (H / Hkv); lse (B, H, Sq) is the forward's
@@ -57,10 +59,9 @@
 // 6 * D flops per pair (s, dO.v, dS.k) and dK/dV 8 * D (s, dO.v, P^T dO,
 // dS^T q): 4.1e11 and 5.5e11 flops, 0.42 and 0.56 ms at the bf16 tensor-core
 // peak of 989 TFLOP/s, while the tensors move about 0.1 GB (0.03 ms at 3.35
-// TB/s). So both are bound by operations. They run on the float32 CUDA cores
-// (67 TFLOP/s, a floor of 6.2 and 8.2 ms): this is the simple, exact first
-// port, and the move to bf16 tensor cores (mma.sync / wgmma) with
-// asynchronous tile copies is later work.
+// TB/s). So both are bound by operations. The CUDA-core kernels run on the
+// float32 CUDA cores (67 TFLOP/s, a floor of 6.2 and 8.2 ms); the bfloat16
+// dQ route runs on the tensor cores, and dK/dV's move there is later work.
 //
 // Numerics. Everything is float32 from the widened inputs; expf and tanhf
 // are the IEEE-accurate versions (no --use_fast_math). Sums run in another
@@ -69,6 +70,8 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "flash_tc.cuh"
 
 namespace {
 
@@ -405,6 +408,262 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_kernel(const Args a
   }
 }
 
+// ---- bfloat16 I/O, dQ: the tensor-core route (flash_tc.cuh) -----------------
+//
+// One block per (b, h, 128-row q tile), heaviest causal tiles first; two
+// warpgroups of 64 rows, thread 0 loading Q and dO once and streaming 32-key
+// K/V tiles through the ring (flash_tc.cuh). Per tile a warpgroup forms
+// S = Q.K^T and dP = dO.V^T (wgmma m64n32k16, 16 float32 registers a thread
+// each), then p and dS with pair_grad, exactly as the float32 kernel does,
+// and adds dS.K into its 64 x D float32 dQ (D / 2 registers a thread). dS
+// goes to the tensor cores as two bfloat16 parts, hi = bf16(dS) and lo =
+// bf16(dS - hi), two wgmma into the same accumulator: one rounding of dS
+// alone (2^-9 relative) would not meet the 2^-8 relative + 1e-5 of the
+// largest entry that dQ is held to where sum_k dS K cancels; hi + lo carries
+// dS to about 2^-17. It writes dq * scale once. Key tiles run from the
+// window's first tile to the diagonal, as in the float32 kernel.
+//
+// Shared memory at D = 256: Q and dO 64 KB each + 2 stages x (K 16 KB + V
+// 16 KB) = 192 KB, plus the alignment slack and the barriers: 197,760 B.
+// Keep in step with flash_dq_tc_smem_bytes in kernels/flash_attention.py.
+
+constexpr int kDqTcBQ = 128;  // query rows per block: two consumer warpgroups of 64
+constexpr int kDqTcBK = 32;   // keys per K/V stage
+
+constexpr int dq_tc_smem_bytes(int D) {
+  return flash_tc::kSmemAlign + 2 * flash_tc::tile_bytes(kDqTcBQ, D) +
+         flash_tc::kStages * 2 * flash_tc::tile_bytes(kDqTcBK, D) + flash_tc::kBarrierBytes;
+}
+
+template <int D>
+__global__ void __launch_bounds__(flash_tc::kThreads, 1)
+flash_dq_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                   const float* __restrict__ lse, const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq,
+                   int H, int G, int Sq, int Sk, int kind, int window, float softcap, float scale) {
+  using namespace flash_tc;
+  constexpr int DC = chunks(D);
+  constexpr uint32_t kQBytes = tile_bytes(kDqTcBQ, D);
+  constexpr uint32_t kKVBytes = tile_bytes(kDqTcBK, D);
+  constexpr uint32_t kQChunk = kDqTcBQ * 128;   // bytes of one 64-column chunk of the q (or dO) tile
+  constexpr uint32_t kKVChunk = kDqTcBK * 128;  // of a K or V tile
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sQ = (smem_u32(smem_raw) + kSmemAlign - 1) & ~static_cast<uint32_t>(kSmemAlign - 1);
+  const uint32_t sdO = sQ + kQBytes;
+  const uint32_t sKV = sdO + kQBytes;  // stage s: K at sKV + 2 s kKVBytes, V right after
+  const Barriers bar{sKV + kStages * 2 * kKVBytes};
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  // the tiles with most keys first: for causal masks the last q tile
+  const int qt = gridDim.x - 1 - blockIdx.x;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int q0 = qt * kDqTcBQ;
+  const int q1 = min(q0 + kDqTcBQ, Sq);
+
+  // K/V tiles [lo, hi) that can hold an unmasked key of this q tile; dS is
+  // 0 on every other tile
+  const int nk = (Sk + kDqTcBK - 1) / kDqTcBK;
+  int lo = 0, hi = nk;
+  if (kind != kBidirectional) {
+    hi = min((q1 - 1) / kDqTcBK + 1, nk);
+    if (kind == kSliding) lo = max(0, q0 - window + 1) / kDqTcBK;
+  }
+  const int n = max(hi - lo, 0);
+
+  init_barriers(bar);
+  const int hk = h / G;
+  if (threadIdx.x == 0) {  // the q and dO tiles and the first K/V tile; the loop loads the rest
+    mbar_expect_tx(bar.q_full(), 2 * kQBytes);
+    for (int c = 0; c < DC; ++c) {
+      tma_load_4d(sQ + c * kQChunk, &tq, bar.q_full(), c * kChunkCols, q0, h, b);
+      tma_load_4d(sdO + c * kQChunk, &tdo, bar.q_full(), c * kChunkCols, q0, h, b);
+    }
+    if (n > 0) {
+      load_tile<DC>(&tk, bar.k_full(0), sKV, kDqTcBK, lo * kDqTcBK, hk, b);
+      load_tile<DC>(&tv, bar.v_full(0), sKV + kKVBytes, kDqTcBK, lo * kDqTcBK, hk, b);
+    }
+  }
+
+  // this thread: rows ra and ra + 8 of the q tile; its warpgroup's rows are
+  // r_lo .. r_lo + 63
+  const int wg = warp >> 2;
+  const int r_lo = q0 + 64 * wg;
+  const int ra = r_lo + frag_row(0, warp & 3, lane);
+  const uint32_t sQw = sQ + 64 * wg * 128;  // this warpgroup's 64 rows in each chunk
+  const uint32_t sdOw = sdO + 64 * wg * 128;
+  const size_t row0 = (static_cast<size_t>(b) * H + h) * Sq;
+  float lse_i[2], delta_i[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int qi = ra + 8 * j;
+    lse_i[j] = qi < Sq ? lse[row0 + qi] : 0.f;
+    delta_i[j] = qi < Sq ? delta[row0 + qi] : 0.f;
+  }
+
+  float acc[DC][32];
+#pragma unroll
+  for (int c = 0; c < DC; ++c)
+#pragma unroll
+    for (int r = 0; r < 32; ++r) acc[c][r] = 0.f;
+
+  if (wg == 1) pingpong_pass(wg);
+  mbar_wait(bar.q_full(), 0);
+  for (int i = 0; i < n; ++i) {
+    const int s = i % kStages;
+    const uint32_t phase = (i / kStages) & 1;
+    const uint32_t sK = sKV + 2 * s * kKVBytes;
+    const uint32_t sV = sK + kKVBytes;
+    const int k0 = (lo + i) * kDqTcBK;
+
+    float sc[16], dp[16];
+#pragma unroll
+    for (int r = 0; r < 16; ++r) sc[r] = dp[r] = 0.f;
+    mbar_wait(bar.k_full(s), phase);
+    pingpong_wait(wg);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk & 3) * 32;  // 16 columns further along the chunk's 128-byte rows
+      wgmma_ss_n32(sc, smem_desc(sQw + (kk >> 2) * kQChunk + off, 16, 1024),
+                   smem_desc(sK + (kk >> 2) * kKVChunk + off, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+    mbar_wait(bar.v_full(s), phase);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk & 3) * 32;
+      wgmma_ss_n32(dp, smem_desc(sdOw + (kk >> 2) * kQChunk + off, 16, 1024),
+                   smem_desc(sV + (kk >> 2) * kKVChunk + off, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+    pingpong_pass(wg);
+    // thread 0 loads tile i + 1 into the stage tile i - 1 held: V while S and
+    // dP are formed, K once dS.K is issued
+    const bool next = threadIdx.x == 0 && i + 1 < n;
+    const int sn = (i + 1) % kStages;
+    const uint32_t sKn = sKV + 2 * sn * kKVBytes;
+    if (next)
+      load_stage<DC>(&tv, bar.v_full(sn), bar.v_empty(sn), sKn + kKVBytes, i + 1, kDqTcBK, k0 + kDqTcBK, hk, b);
+    __syncwarp();
+    wgmma_wait_all();
+    fence_regs(sc);
+    fence_regs(dp);
+    mbar_arrive(bar.v_empty(s));
+
+    // dS as pair_grad forms it; a tile whose every pair is in bounds and
+    // unmasked for all 64 rows of the warpgroup skips the mask and bounds
+    const bool whole = k0 + kDqTcBK <= Sk && r_lo + 64 <= Sq &&
+                       (kind == kBidirectional ||
+                        (k0 + kDqTcBK - 1 <= r_lo && (kind == kCausal || k0 > r_lo + 63 - window)));
+    float ds[16];
+    if (whole) {
+#pragma unroll
+      for (int r = 0; r < 16; ++r) {
+        const int j = (r >> 1) & 1;
+        const float s_raw = sc[r] * scale;
+        float x = s_raw, dcap = 1.f;
+        if (softcap != 0.f) {
+          const float t = tanhf(s_raw / softcap);
+          x = softcap * t;
+          dcap = 1.f - t * t;
+        }
+        ds[r] = expf(x - lse_i[j]) * (dp[r] - delta_i[j]) * dcap;
+      }
+    } else {
+#pragma unroll
+      for (int r = 0; r < 16; ++r) {
+        const int j = (r >> 1) & 1;
+        float p;
+        pair_grad(sc[r] * scale, dp[r], lse_i[j], delta_i[j], ra + 8 * j, k0 + frag_col(r, lane), Sq, Sk, kind,
+                  window, softcap, p, ds[r]);
+      }
+    }
+    uint32_t dhi[2][4], dlo[2][4];  // dS in bfloat16, hi and lo, the A operand of k-step t
+#pragma unroll
+    for (int r = 0; r < 16; r += 2) {
+      const __nv_bfloat162 hi2 = __floats2bfloat162_rn(ds[r], ds[r + 1]);
+      const float2 hif = __bfloat1622float2(hi2);
+      dhi[r >> 3][(r >> 1) & 3] = *reinterpret_cast<const uint32_t*>(&hi2);
+      dlo[r >> 3][(r >> 1) & 3] = pack_bf16(ds[r] - hif.x, ds[r + 1] - hif.y);
+    }
+
+    wgmma_fence();
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+      const uint64_t kd = smem_desc(sK + t * 16 * 128, kKVChunk, 1024);
+      wgmma_rs(acc, dhi[t], kd);
+      wgmma_rs(acc, dlo[t], kd);
+    }
+    wgmma_commit();
+    if (next) load_stage<DC>(&tk, bar.k_full(sn), bar.k_empty(sn), sKn, i + 1, kDqTcBK, k0 + kDqTcBK, hk, b);
+    __syncwarp();
+    wgmma_wait_all();
+#pragma unroll
+    for (int c = 0; c < DC; ++c) fence_regs(acc[c]);
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+      fence_regs(dhi[t]);
+      fence_regs(dlo[t]);
+    }
+    mbar_arrive(bar.k_empty(s));
+  }
+  if (wg == 0) pingpong_wait(wg);
+
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int qi = ra + 8 * j;
+    if (qi >= Sq) continue;
+    __nv_bfloat16* row = dq + (row0 + qi) * D;
+#pragma unroll
+    for (int c = 0; c < DC; ++c)
+#pragma unroll
+      for (int r = 2 * j; r < 32; r += 4) {
+        const int col = c * kChunkCols + frag_col(r, lane);
+        if (col < D)
+          *reinterpret_cast<__nv_bfloat162*>(row + col) =
+              __floats2bfloat162_rn(acc[c][r] * scale, acc[c][r + 1] * scale);
+      }
+  }
+}
+
+template <int D>
+int launch_dq_tc(const Args& a, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, tdo;
+  int rc = flash_tc::make_tensor_map(&tq, a.q, D, a.Sq, a.H, a.B, a.qsb, a.qsh, a.qss, kDqTcBQ);
+  if (rc == 0) rc = flash_tc::make_tensor_map(&tdo, a.dout, D, a.Sq, a.H, a.B, a.dsb, a.dsh, a.dss, kDqTcBQ);
+  if (rc == 0) rc = flash_tc::make_tensor_map(&tk, a.k, D, a.Sk, a.Hkv, a.B, a.ksb, a.ksh, a.kss, kDqTcBK);
+  if (rc == 0) rc = flash_tc::make_tensor_map(&tv, a.v, D, a.Sk, a.Hkv, a.B, a.vsb, a.vsh, a.vss, kDqTcBK);
+  if (rc != 0) return rc;
+  const int smem = dq_tc_smem_bytes(D);
+  auto kern = flash_dq_tc_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((a.Sq + kDqTcBQ - 1) / kDqTcBQ, a.H, a.B);
+  kern<<<grid, flash_tc::kThreads, smem, stream>>>(tq, tk, tv, tdo, a.lse, a.delta, static_cast<__nv_bfloat16*>(a.dq),
+                                                   a.H, a.H / a.Hkv, a.Sq, a.Sk, a.kind, a.window, a.softcap,
+                                                   a.scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_dq_tc_dim(int D, const Args& a, cudaStream_t stream) {
+#define FLASH_DQ_TC_CASE(DD) \
+  case DD:                   \
+    return launch_dq_tc<DD>(a, stream);
+  switch (D) {
+    FLASH_DQ_TC_CASE(16)
+    FLASH_DQ_TC_CASE(32)
+    FLASH_DQ_TC_CASE(64)
+    FLASH_DQ_TC_CASE(128)
+    FLASH_DQ_TC_CASE(256)
+    default:
+      return -1;
+  }
+#undef FLASH_DQ_TC_CASE
+}
+
 enum Which { kDq = 0, kDkv = 1 };
 
 template <typename T, int D>
@@ -447,7 +706,7 @@ int launch_dim(int which, int D, const Args& a, cudaStream_t stream) {
 int launch(int which, int dtype, int D, const Args& a, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_dim<float>(which, D, a, st);
-  if (dtype == 1) return launch_dim<__nv_bfloat16>(which, D, a, st);
+  if (dtype == 1) return which == kDq ? launch_dq_tc_dim(D, a, st) : launch_dim<__nv_bfloat16>(which, D, a, st);
   return -1;
 }
 

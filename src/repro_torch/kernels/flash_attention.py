@@ -3,7 +3,11 @@ beside their plain PyTorch versions.
 
 ``flash_attention`` launches ``csrc/flash_fwd.cu`` on CUDA tensors and runs
 the plain version, :func:`flash_attention_ref`, on CPU tensors; it never falls
-back from one to the other. It returns what the JAX package's
+back from one to the other. The CUDA kernels take two routes by the inputs'
+dtype: float32 runs on the CUDA cores in float32; bfloat16 runs the forward
+and dQ on the tensor cores (``wgmma``, with TMA-fed K/V stages;
+``csrc/flash_tc.cuh``), while dK/dV keeps the CUDA-core kernel for both
+dtypes. It returns what the JAX package's
 ``kernels/flash_attention.py::_fwd`` returns, ``(o, lse)``: the TPU kernel
 ``_fwd_kernel`` is what the forward replaces. Layout as there: q
 ``(B, H, Sq, D)``, k and v ``(B, Hkv, Sk, D)``, the kv head of query head
@@ -17,9 +21,11 @@ When an input requires a gradient, ``flash_attention`` goes through a
 CUDA tensors and runs :func:`flash_attention_bwd_ref` on CPU tensors.
 
 ``launches``, ``launches_dq`` and ``launches_dkv`` count the launches of the
-forward, dQ and dK/dV kernels, and only those: a run shows that it went
-through a kernel by reading its count before and after. Every kernel is
-built by :mod:`repro_torch.kernels.build` at its first launch.
+forward, dQ and dK/dV kernels, and only those; ``launches_fwd_tc`` and
+``launches_dq_tc`` count the tensor-core route's share of the first two. A
+run shows that it went through a kernel by reading its count before and
+after. Every kernel is built by :mod:`repro_torch.kernels.build` at its
+first launch.
 """
 
 from __future__ import annotations
@@ -43,12 +49,18 @@ __all__ = [
     "flash_attention_ref",
     "flash_bwd_smem_bytes",
     "flash_bwd_tile_sizes",
+    "flash_dq_tc_smem_bytes",
+    "flash_dq_tc_tile_sizes",
     "flash_mask",
     "flash_smem_bytes",
+    "flash_tc_smem_bytes",
+    "flash_tc_tile_sizes",
     "flash_tile_sizes",
     "launches",
     "launches_dkv",
     "launches_dq",
+    "launches_dq_tc",
+    "launches_fwd_tc",
 ]
 
 NEG_INF = -1e30  # the score of a masked (q, k) pair, as in the reference
@@ -58,6 +70,18 @@ BLOCK_Q = 64  # query rows per block (kBQ in csrc/flash_fwd.cu)
 BLOCK_K = 64  # keys per K/V tile (kBK)
 BWD_BLOCK_Q = 64  # query rows per tile of both backward kernels (kBQ in csrc/flash_bwd.cu)
 BWD_BLOCK_K = 32  # keys per tile of both backward kernels (kBK)
+# The bfloat16 tensor-core route (csrc/flash_tc.cuh): 256 threads, two
+# warpgroups of 64 query rows, thread 0 issuing TMA loads into a ring of
+# TC_STAGES K/V stages; every tile lies in shared memory as 64-column chunks
+# of 128-byte rows.
+TC_BLOCK_Q = 128  # query rows per block of the forward (kTcBQ in csrc/flash_fwd.cu)
+TC_BLOCK_K = 64  # keys per K/V stage of the forward (kTcBK)
+DQ_TC_BLOCK_Q = 128  # query rows per block of dQ (kDqTcBQ in csrc/flash_bwd.cu)
+DQ_TC_BLOCK_K = 32  # keys per K/V stage of dQ (kDqTcBK)
+TC_STAGES = 2  # kStages in csrc/flash_tc.cuh
+TC_SMEM_ALIGN = 1024  # kSmemAlign: the 128-byte swizzle repeats every 1024 bytes
+TC_BARRIER_BYTES = 128  # kBarrierBytes: the q tile's and each stage's mbarriers
+TMA_ALIGN = 16  # TMA reads from a 16-byte-aligned base with strides of a multiple of 16 bytes
 # Dynamic shared memory one block may opt into on an H100 (227 KB).
 SMEM_OPTIN_BYTES = 232_448
 MAX_GRID_YZ = 65535  # H runs on gridDim.y, B on gridDim.z
@@ -67,6 +91,9 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 launches = 0
 launches_dq = 0
 launches_dkv = 0
+# of which on the bfloat16 tensor-core route: forward, dQ
+launches_fwd_tc = 0
+launches_dq_tc = 0
 
 
 def flash_smem_bytes(D: int) -> int:
@@ -113,6 +140,54 @@ def flash_bwd_tile_sizes(D: int, smem_budget: int = SMEM_OPTIN_BYTES):
     if need > smem_budget:
         raise ValueError(f"head dim {D} needs {need} B of shared memory, above the budget {smem_budget}")
     return BWD_BLOCK_Q, BWD_BLOCK_K
+
+
+def _tc_tile_bytes(rows: int, D: int) -> int:
+    """Bytes of a ``rows`` x ``D`` bfloat16 tile in 64-column chunks of
+    128-byte rows (``tile_bytes`` in csrc/flash_tc.cuh)."""
+    return -(-D // 64) * rows * 128
+
+
+def flash_tc_smem_bytes(D: int) -> int:
+    """Shared memory of one block of the tensor-core forward: the q tile and
+    ``TC_STAGES`` stages of K and V tiles, the alignment slack and the
+    barriers (``tc_smem_bytes`` in csrc/flash_fwd.cu)."""
+    return (TC_SMEM_ALIGN + _tc_tile_bytes(TC_BLOCK_Q, D) + TC_STAGES * 2 * _tc_tile_bytes(TC_BLOCK_K, D)
+            + TC_BARRIER_BYTES)
+
+
+def flash_dq_tc_smem_bytes(D: int) -> int:
+    """Shared memory of one block of the tensor-core dQ kernel: the q and dO
+    tiles and ``TC_STAGES`` stages of K and V tiles, the alignment slack and
+    the barriers (``dq_tc_smem_bytes`` in csrc/flash_bwd.cu)."""
+    return (TC_SMEM_ALIGN + 2 * _tc_tile_bytes(DQ_TC_BLOCK_Q, D) + TC_STAGES * 2 * _tc_tile_bytes(DQ_TC_BLOCK_K, D)
+            + TC_BARRIER_BYTES)
+
+
+def _tc_tiles(D, need, tiles, smem_budget, what):
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head dim {D} not supported by the {what} kernel; supported: {HEAD_DIMS}")
+    if need > smem_budget:
+        raise ValueError(f"head dim {D} needs {need} B of shared memory in the {what} kernel, above the budget "
+                         f"{smem_budget}")
+    return tiles
+
+
+def flash_tc_tile_sizes(D: int, smem_budget: int = SMEM_OPTIN_BYTES):
+    """``(Bq, Bk)`` of the tensor-core forward for head dimension ``D``:
+    128 query rows (two warpgroups of 64, wgmma's row count) by 64 keys.
+    Raises for a ``D`` it is not built for or whose tiles would not fit
+    ``smem_budget`` (at D = 256 they take 197,760 bytes)."""
+    return _tc_tiles(D, flash_tc_smem_bytes(D), (TC_BLOCK_Q, TC_BLOCK_K), smem_budget, "tensor-core forward")
+
+
+def flash_dq_tc_tile_sizes(D: int, smem_budget: int = SMEM_OPTIN_BYTES):
+    """``(Bq, Bk)`` of the tensor-core dQ kernel for head dimension ``D``:
+    128 query rows by 32 keys, so that dQ (D / 2), S and dP (16 each) stay in
+    a consumer thread's registers. Raises for a ``D`` it is not built for or
+    whose tiles would not fit ``smem_budget`` (at D = 256 they take 197,760
+    bytes)."""
+    return _tc_tiles(D, flash_dq_tc_smem_bytes(D), (DQ_TC_BLOCK_Q, DQ_TC_BLOCK_K), smem_budget, "tensor-core dQ")
 
 
 def flash_mask(Sq: int, Sk: int, kind: str, window: int, device=None) -> torch.Tensor:
@@ -211,6 +286,39 @@ def _check_inputs(q, k, v, kind):
         raise ValueError(f"kind must be one of {KINDS}, got {kind!r}")
 
 
+def _tma_error(x):
+    """Why TMA cannot read the (B, H, S, D) tensor ``x``, or None: it needs a
+    base aligned to ``TMA_ALIGN`` bytes and, on every axis of more than one
+    entry but the last, a stride of a multiple of ``TMA_ALIGN`` bytes."""
+    if x.data_ptr() % TMA_ALIGN:
+        return f"base address {x.data_ptr() % TMA_ALIGN} bytes past a {TMA_ALIGN}-byte boundary"
+    for ax in range(3):
+        nbytes = x.stride(ax) * x.element_size()
+        if x.shape[ax] > 1 and nbytes % TMA_ALIGN:
+            return f"stride of axis {ax} is {nbytes} bytes, not a multiple of {TMA_ALIGN}"
+    return None
+
+
+def _check_tma(x, name):
+    """Raises where TMA cannot read ``x``: the tensor-core route has no other
+    way in."""
+    err = _tma_error(x)
+    if err is not None:
+        raise ValueError(f"{name}: the bfloat16 tensor-core route reads its inputs with TMA; {err} "
+                         f"(shape {tuple(x.shape)}, strides {x.stride()})")
+
+
+def _strides(x):
+    """The strides of axes 0..2 of ``x``, an axis of one entry given its
+    contiguous stride: the kernels only ever index 0 there, and a tensor
+    map needs every stride to be a multiple of 16 bytes."""
+    out, step = [], x.shape[3]
+    for ax in (2, 1, 0):
+        out.append(x.stride(ax) if x.shape[ax] > 1 else step)
+        step *= x.shape[ax]
+    return out[::-1]
+
+
 def _check_launch(q, k, v, window):
     """What the kernels take beyond :func:`_check_inputs`."""
     if q.device.type != "cuda":
@@ -222,6 +330,9 @@ def _check_launch(q, k, v, window):
         raise ValueError(f"window {window} out of range")
     if any(x.stride(3) != 1 for x in (q, k, v)):
         raise ValueError("q, k and v need a contiguous head dimension (stride 1 on the last axis)")
+    if q.dtype == torch.bfloat16:
+        for name, x in (("q", q), ("k", k), ("v", v)):
+            _check_tma(x, name)
 
 
 def _shapes(q, k):
@@ -252,9 +363,11 @@ def flash_attention(q, k, v, kind="causal", window=0, softcap=0.0, scale=None):
     """Flash attention: ``(o, lse)`` with ``o`` in q's dtype, shape
     ``(B, H, Sq, D)``, and ``lse`` float32 ``(B, H, Sq)``.
 
-    On CUDA tensors it launches the Hopper kernel on the current stream; the
+    On CUDA tensors it launches the Hopper kernel on the current stream: on
+    the float32 CUDA cores for float32, on the tensor cores for bfloat16. The
     head dimension must be contiguous (other strides are free, so
-    ``x.transpose(1, 2)`` views go in without a copy). On CPU tensors it
+    ``x.transpose(1, 2)`` views go in without a copy); bfloat16 inputs also
+    need what TMA needs (:func:`_check_tma`), or it raises. On CPU tensors it
     returns :func:`flash_attention_ref`. ``scale`` defaults to ``D ** -0.5``.
     When grad mode is on and q, k or v requires a gradient, ``o`` carries one:
     its backward is :func:`flash_attention_bwd`.
@@ -267,13 +380,14 @@ def flash_attention(q, k, v, kind="causal", window=0, softcap=0.0, scale=None):
 
 
 def _forward(q, k, v, kind, window, softcap, scale):
-    global launches
+    global launches, launches_fwd_tc
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, kind, window, softcap, scale)
     _check_launch(q, k, v, window)
     B, H, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
-    flash_tile_sizes(D)
+    tc = q.dtype == torch.bfloat16
+    (flash_tc_tile_sizes if tc else flash_tile_sizes)(D)
     o = torch.empty((B, H, Sq, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     launch = _launch_fn()
@@ -282,12 +396,13 @@ def _forward(q, k, v, kind, window, softcap, scale):
         rc = launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
             B, H, Hkv, Sq, Sk, D,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *_strides(q), *_strides(k), *_strides(v),
             KINDS.index(kind), int(window), float(softcap), scale, _DTYPE_CODE[q.dtype], stream,
         )
     if rc != 0:
         raise RuntimeError(f"flash_fwd_launch failed: code {rc} ({_shapes(q, k)}, kind={kind})")
     launches += 1
+    launches_fwd_tc += tc
     return o, lse
 
 
@@ -298,7 +413,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, kind="causal", window=0, softcap=0.
     On CUDA tensors it computes ``delta = rowsum(dO * O)`` in float32 with
     PyTorch (the reference also forms it outside its kernels) and launches
     the dQ kernel and then the dK/dV kernel on the current stream; ``do``
-    without a contiguous last axis is made contiguous first. On CPU tensors
+    without a contiguous last axis (or, in bfloat16, that TMA cannot read) is
+    made contiguous first. bfloat16 dQ runs on the tensor cores. On CPU tensors
     it returns :func:`flash_attention_bwd_ref`. dq comes in q's dtype and
     shape, dk and dv in k's.
     """
@@ -314,6 +430,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, kind="causal", window=0, softcap=0.
         return flash_attention_bwd_ref(q, k, v, o, lse, do, kind, window, softcap, scale)
     _check_launch(q, k, v, window)
     flash_bwd_tile_sizes(D)
+    if q.dtype == torch.bfloat16:
+        flash_dq_tc_tile_sizes(D)
     do, delta = _bwd_rows(o, do)
     (dq,) = _launch_bwd("dq", q, k, v, do, lse, delta, kind, window, softcap, scale)
     dk, dv = _launch_bwd("dkv", q, k, v, do, lse, delta, kind, window, softcap, scale)
@@ -321,9 +439,10 @@ def flash_attention_bwd(q, k, v, o, lse, do, kind="causal", window=0, softcap=0.
 
 
 def _bwd_rows(o, do):
-    """``do`` with a contiguous last axis, and ``delta = rowsum(dO * O)`` in
-    float32, contiguous ``(B, H, Sq)`` (the reference's ``_bwd`` at :206)."""
-    if do.stride(3) != 1:
+    """``do`` with a contiguous last axis (and, in bfloat16, readable by TMA),
+    and ``delta = rowsum(dO * O)`` in float32, contiguous ``(B, H, Sq)`` (the
+    reference's ``_bwd`` at :206)."""
+    if do.stride(3) != 1 or (do.dtype == torch.bfloat16 and _tma_error(do) is not None):
         do = do.contiguous()
     return do, (do.float() * o.float()).sum(dim=-1).contiguous()
 
@@ -331,7 +450,7 @@ def _bwd_rows(o, do):
 def _launch_bwd(which, q, k, v, do, lse, delta, kind, window, softcap, scale):
     """One backward kernel on checked inputs: ``"dq"`` -> ``(dq,)``,
     ``"dkv"`` -> ``(dk, dv)``; counts the launch."""
-    global launches_dq, launches_dkv
+    global launches_dq, launches_dkv, launches_dq_tc
     B, H, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     if which == "dq":
@@ -344,7 +463,7 @@ def _launch_bwd(which, q, k, v, do, lse, delta, kind, window, softcap, scale):
         rc = launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             *(x.data_ptr() for x in outs), B, H, Hkv, Sq, Sk, D,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
+            *_strides(q), *_strides(k), *_strides(v), *_strides(do),
             KINDS.index(kind), int(window), float(softcap), scale, _DTYPE_CODE[q.dtype],
             torch.cuda.current_stream().cuda_stream,
         )
@@ -352,6 +471,7 @@ def _launch_bwd(which, q, k, v, do, lse, delta, kind, window, softcap, scale):
         raise RuntimeError(f"flash_bwd_{which}_launch failed: code {rc} ({_shapes(q, k)}, kind={kind})")
     if which == "dq":
         launches_dq += 1
+        launches_dq_tc += q.dtype == torch.bfloat16
     else:
         launches_dkv += 1
     return outs

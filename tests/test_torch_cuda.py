@@ -1,7 +1,8 @@
 """The port's hand-written CUDA kernels on the card, against their plain
 PyTorch versions: the min-plus kernel bit for bit (float32 values, int32
 argmins); the flash-attention forward at rtol = atol = 2e-5 for float32 and
-2e-2 for bfloat16 I/O (the reference's forward tolerances); the dQ and dK/dV
+2e-2 for bfloat16 I/O (the reference's forward tolerances), and its bfloat16
+tensor-core route within the limit its roundings give; the dQ and dK/dV
 kernels at the reference's gradient tolerance (rtol 3e-4, atol 3e-5) for
 float32 and within 2^-8 relative of the plain version's float32 gradients
 for bfloat16 I/O; the prefill and a training step of a SMOKE model on the
@@ -119,6 +120,78 @@ def test_cuda_flash_takes_strided_views_and_ragged_kv(cuda):
     o_ref, lse_ref = fa.flash_attention_ref(*args)
     torch.testing.assert_close(o, o_ref, rtol=2e-5, atol=2e-5)
     torch.testing.assert_close(lse, lse_ref, rtol=2e-5, atol=2e-5)
+
+
+def _tc_forward_within_limit(q, k, v, o, lse, kind, window, softcap):
+    """bfloat16 I/O on the tensor-core route: o within 2^-8 |o32| + 2^-8
+    (P|V|)/l + 2e-5 of the plain version's float32 o32 (o and P each rounded
+    to bfloat16 once; chip_smoke.py's limit), lse within 2e-5."""
+    o32, lse32 = fa.flash_attention_ref(q.float(), k.float(), v.float(), kind, window, softcap)
+    pv_abs = fa.flash_attention_ref(q.float(), k.float(), v.float().abs(), kind, window, softcap)[0]
+    limit = 2.0 ** -8 * (o32.abs() + pv_abs) + 2e-5
+    assert bool(((o.float() - o32).abs() <= limit).all()), float(((o.float() - o32).abs() / limit).max())
+    torch.testing.assert_close(lse, lse32, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("D", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("S,kind,window,softcap,H,Hkv", [
+    (200, "causal", 0, 50.0, 4, 2), (640, "sliding", 37, 50.0, 4, 1), (333, "bidirectional", 0, 0.0, 2, 2),
+])
+def test_cuda_tc_forward_matches_plain(cuda, D, S, kind, window, softcap, H, Hkv):
+    """The bfloat16 tensor-core forward (wgmma, TMA) at every head dimension
+    it is built for, ragged lengths included."""
+    rng = np.random.default_rng(S + D + 7)
+    q, k, v = ((torch.from_numpy(rng.normal(size=(1, h, S, D)).astype(np.float32)) * 0.5).to(cuda, torch.bfloat16)
+               for h in (H, Hkv, Hkv))
+    before = (fa.launches, fa.launches_fwd_tc)
+    o, lse = fa.flash_attention(q, k, v, kind, window, softcap)
+    torch.cuda.synchronize()
+    assert (fa.launches, fa.launches_fwd_tc) == (before[0] + 1, before[1] + 1)
+    assert o.dtype == torch.bfloat16
+    _tc_forward_within_limit(q, k, v, o, lse, kind, window, softcap)
+
+
+@pytest.mark.parametrize("D", [16, 64, 128, 256])
+@pytest.mark.parametrize("S,kind,window,softcap,H,Hkv", [
+    (200, "causal", 0, 50.0, 4, 2), (640, "sliding", 37, 50.0, 4, 1), (333, "bidirectional", 0, 0.0, 2, 2),
+])
+def test_cuda_tc_dq_matches_plain(cuda, D, S, kind, window, softcap, H, Hkv):
+    """The bfloat16 tensor-core dQ kernel within 2^-8 relative + 1e-5 of the
+    largest entry of the plain version's float32 dq; dK/dV stays on the CUDA
+    cores."""
+    rng = np.random.default_rng(S + D + 8)
+    q, k, v, o, lse, do = _bwd_inputs(rng, 1, H, Hkv, S, D, torch.bfloat16, cuda, kind, window, softcap)
+    before = (fa.launches_dq, fa.launches_dq_tc, fa.launches_dkv)
+    dq, _, _ = fa.flash_attention_bwd(q, k, v, o, lse, do, kind, window, softcap)
+    torch.cuda.synchronize()
+    assert (fa.launches_dq, fa.launches_dq_tc, fa.launches_dkv) == (before[0] + 1, before[1] + 1, before[2] + 1)
+    want = fa.flash_attention_bwd_ref(*(x.float() for x in (q, k, v, o)), lse, do.float(), kind, window, softcap)[0]
+    assert dq.dtype == torch.bfloat16
+    torch.testing.assert_close(dq.float(), want, rtol=2.0 ** -8, atol=1e-5 * want.abs().max().item())
+
+
+def test_cuda_tc_takes_strided_views_and_ragged_kv(cuda):
+    """bfloat16 (B, S, H, D) views seen through transpose(1, 2), as
+    attention() passes them, Sq != Sk and rows with no key in their window,
+    forward and dQ on the tensor cores."""
+    rng = np.random.default_rng(9)
+    q, k, v = (torch.from_numpy(rng.normal(size=(2, S, h, 64)).astype(np.float32)).to(cuda, torch.bfloat16)
+               .transpose(1, 2) for S, h in ((150, 4), (70, 2), (70, 2)))
+    o, lse = fa.flash_attention(q, k, v, "sliding", 16, 0.0)
+    _tc_forward_within_limit(q, k, v, o, lse, "sliding", 16, 0.0)
+    do = torch.from_numpy(rng.normal(size=(2, 4, 64, 150)).astype(np.float32)).to(cuda, torch.bfloat16).transpose(2, 3)
+    dq = fa.flash_attention_bwd(q, k, v, o, lse, do, "sliding", 16, 0.0)[0]
+    want = fa.flash_attention_bwd_ref(*(x.float() for x in (q, k, v, o)), lse, do.float(), "sliding", 16, 0.0)[0]
+    torch.testing.assert_close(dq.float(), want, rtol=2.0 ** -8, atol=1e-5 * want.abs().max().item())
+
+
+def test_cuda_tc_rejects_what_tma_cannot_read(cuda):
+    q = torch.zeros(1, 2, 8, 20, dtype=torch.bfloat16, device=cuda)[..., :16]  # rows 40 bytes apart
+    k = torch.zeros(1, 2, 8, 16, dtype=torch.bfloat16, device=cuda)
+    before = fa.launches
+    with pytest.raises(ValueError, match="TMA"):
+        fa.flash_attention(q, k, k, "causal")
+    assert fa.launches == before
 
 
 def test_cuda_smoke_prefill_kernel_route_matches_plain_route(cuda):
