@@ -11,11 +11,13 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 1. device     — a CUDA card is present; prints its name and power limit.
 2. build      — loads both kernels, which builds every
                 ``src/repro_torch/kernels/csrc/*.cu`` (one nvcc each, all
-                started together), and prints ptxas's registers and spills;
-                counts the tensor-core instructions (HGMMA, HMMA) in the SASS
-                of every kernel of libflash_fwd.so and libflash_bwd.so
-                (``cuobjdump -sass``) and fails if a bfloat16 tensor-core
-                kernel (forward, dQ; one per head dimension) has none.
+                started together), and prints ptxas's registers and spills
+                (the tensor-core kernels' in one line each; it fails if the
+                dK/dV one spills at D = 256); counts the tensor-core
+                instructions (HGMMA, HMMA) in the SASS of every kernel of
+                libflash_fwd.so and libflash_bwd.so (``cuobjdump -sass``) and
+                fails if a bfloat16 tensor-core kernel (forward, dQ, dK/dV;
+                one per head dimension each) has none.
 3. kernel     — ``minplus_cuda_batch`` against ``minplus_step_ref_batch`` on
                 the card over a grid of shapes: bit-identical float32 values
                 and identical int32 argmins.
@@ -60,8 +62,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
                 remat "full", AdamW, random weights from ``torch.Generator``
                 seed 0) takes one cold and three warm steps on one batch of
                 B = 1, S = 8,192 tokens through ``build_train_step``: per step
-                exactly 52 forward, 26 dQ and 26 dK/dV launches (the forward
-                and dQ ones on the tensor-core route), finite losses
+                exactly 52 forward, 26 dQ and 26 dK/dV launches (all on the
+                tensor-core route), finite losses
                 that fall, the peak device memory; then 2 layers in float32 at
                 full width, kernel route against plain route (loss within
                 2e-5, gradients within rtol 2e-3, atol 2e-5).
@@ -69,7 +71,7 @@ Phases, in order; any failure ends the run with a non-zero exit code:
                 kernel and the card's busy share; dQ and dK/dV per launch at
                 the causal and sliding shapes beside the plain backward,
                 their bounds and the backward of
-                ``scaled_dot_product_attention``, and dQ beside the previous
+                ``scaled_dot_product_attention``, and each beside the previous
                 (float32 CUDA-core) kernel on the widened inputs, in turns
                 (at least 5x faster at the causal shape).
 
@@ -143,7 +145,7 @@ BWD_BF16_RTOL, BWD_BF16_ATOL_REL = 2.0 ** -8, 1e-5
 # A tile visited wrongly must move some gradient entry by at least this many
 # times the largest deviation the check allows on that tile's rows.
 TILE_MARGIN_MIN = 2.0
-# The bfloat16 tensor-core kernels (forward, dQ) against the previous,
+# The bfloat16 tensor-core kernels (forward, dQ, dK/dV) against the previous,
 # float32 CUDA-core kernels on the same inputs widened to float32, in one run
 # at the causal main shape: at least this many times faster.
 TC_SPEEDUP_MIN = 5.0
@@ -184,6 +186,36 @@ def tensor_core_counts(build, name):
             counts[fn][0] += "HGMMA" in line
             counts[fn][1] += "HMMA" in line
     return {k: tuple(v) for k, v in counts.items()}
+
+
+def ptxas_usage(log_text):
+    """``{kernel function: (registers, spill stores, spill loads)}`` from an
+    nvcc build log written with ``-Xptxas -v``."""
+    usage, fn = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn = m.group(1)
+            usage[fn] = [0, 0, 0]
+        elif fn is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                usage[fn][1:] = [int(m.group(1)), int(m.group(2))]
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                usage[fn][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in usage.items()}
+
+
+def tc_kernels(per_fn):
+    """``{(tensor-core kernel, head dim): value}`` from ``{mangled kernel
+    function: value}``: the ``flash_*_tc_kernel<D>`` instances only."""
+    out = {}
+    for fn, val in per_fn.items():
+        m = re.search(r"(flash_[a-z]+_tc_kernel)ILi(\d+)E", fn)
+        if m:
+            out[(m.group(1), int(m.group(2)))] = val
+    return out
 
 
 def band_inputs(rng, B, Tp, W, dev, ties=False):
@@ -392,7 +424,8 @@ def prefill_phase(fa, mp, dev):
         f"card in {init_s:.2f} s; tokens {tuple(batch['tokens'].shape)}")
 
     torch.cuda.reset_peak_memory_stats()
-    mp.launches = fa.launches = fa.launches_dq = fa.launches_dkv = fa.launches_fwd_tc = fa.launches_dq_tc = 0
+    mp.launches = fa.launches = fa.launches_dq = fa.launches_dkv = 0
+    fa.launches_fwd_tc = fa.launches_dq_tc = fa.launches_dkv_tc = 0
     t0 = time.perf_counter()
     logits = step(params, batch)
     torch.cuda.synchronize()
@@ -442,10 +475,12 @@ def prefill_phase(fa, mp, dev):
 
 
 def device_time_table(step, params, batch, top=8):
-    """Device time by kernel over one prefill, from torch.profiler: the
-    events that ran on the card (not the CPU-side operators, which carry
+    """Device time by kernel over one call of ``step``, from torch.profiler:
+    the events that ran on the card (not the CPU-side operators, which carry
     their kernels' time too, and not CUPTI's "Command Buffer Full" marker
-    for a full launch queue). Returns (total ms, [(ms, count, name)])."""
+    for a full launch queue). Returns (total ms, the top [(ms, count,
+    name)], {kind: ms}) with kinds: the port's flash kernels, cuBLAS's
+    products (``nvjet``) and the rest."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -461,7 +496,10 @@ def device_time_table(step, params, batch, top=8):
         if t > 0:
             rows.append((t / 1e3, e.count, e.key))
     rows.sort(reverse=True)
-    return sum(r[0] for r in rows), rows[:top]
+    kinds = {"flash kernels": 0.0, "cuBLAS (nvjet)": 0.0, "the rest": 0.0}
+    for t, _, name in rows:
+        kinds["flash kernels" if "flash_" in name else "cuBLAS (nvjet)" if "nvjet" in name else "the rest"] += t
+    return sum(r[0] for r in rows), rows[:top], kinds
 
 
 LIBRARY_MASK = {"causal": "", "sliding": ", boolean band mask"}
@@ -489,6 +527,8 @@ def in_turns(new, prev, rounds=2):
 
 
 TC_ROUTE = "bfloat16 tensor cores (wgmma, TMA-fed K/V ring)"
+TC_ROUTE_BWD = {"dq": TC_ROUTE, "dkv": "bfloat16 tensor cores (wgmma, resident K/V, TMA-fed Q/dO ring, dV and dK in "
+                                       "two warpgroups, P and dS as hi + lo bfloat16)"}
 PREV_ROUTE = "float32 CUDA cores, the same inputs widened to float32"
 
 
@@ -535,12 +575,13 @@ def flash_times(fa, main, cfg, params, batch, step, card):
     log(f"[times] warm prefill {ARCH} B={B_PREFILL} S={S_PREFILL}: {prefill_ms:.3f} ms (host clock, median of 3) = "
         f"{tokens / prefill_ms * 1e3:.1f} tokens/s; flash kernel {per_kind} x ms per launch = {kernel_ms:.3f} ms = "
         f"{kernel_ms / prefill_ms:.3f} of the prefill")
-    total, rows = device_time_table(step, params, batch)
+    total, rows, kinds = device_time_table(step, params, batch)
     if total == 0:
         log("[times] torch.profiler recorded no device time")
     else:
         log(f"[times] torch.profiler, one prefill: {total:.3f} ms of kernel time on the card ({total / prefill_ms:.3f} "
-            f"of the warm prefill); top kernels by device time:")
+            f"of the warm prefill); by kind {', '.join(f'{k} {t:.3f} ms' for k, t in kinds.items())}; top kernels "
+            f"by device time:")
         for t, n, name in rows:
             log(f"[times]   {t:10.3f} ms  {t / total:.3f}  x{n:<5d} {name[:90]}")
     return res["causal"]
@@ -591,11 +632,11 @@ def tile_margins(fa, args, want, kind, window, softcap):
     B, H, S, D = q.shape
     Hkv = k.shape[1]
     G, scale = H // Hkv, D ** -0.5
-    # the tiles of the kernels that ran: dQ's tensor-core tile for bfloat16,
-    # the CUDA-core tile otherwise and for dK/dV
+    # the tiles of the kernels that ran: the tensor-core tiles for bfloat16,
+    # the CUDA-core tile otherwise
     tc = q.dtype == torch.bfloat16
     dq_tile = (fa.DQ_TC_BLOCK_Q, fa.DQ_TC_BLOCK_K) if tc else (fa.BWD_BLOCK_Q, fa.BWD_BLOCK_K)
-    dkv_tile = (fa.BWD_BLOCK_Q, fa.BWD_BLOCK_K)
+    dkv_tile = (fa.DKV_TC_BLOCK_Q, fa.DKV_TC_BLOCK_K) if tc else (fa.BWD_BLOCK_Q, fa.BWD_BLOCK_K)
     qf = (q.float() * scale).reshape(B, Hkv, G, S, D)
     kf, vf = k.float()[:, :, None], v.float()[:, :, None]
     dof = do.float().reshape(B, Hkv, G, S, D)
@@ -714,18 +755,20 @@ def train_phase(fa, mp, dev, card):
 
     L = cfg.num_layers
     torch.cuda.reset_peak_memory_stats()
-    mp.launches = fa.launches = fa.launches_dq = fa.launches_dkv = fa.launches_fwd_tc = fa.launches_dq_tc = 0
+    mp.launches = fa.launches = fa.launches_dq = fa.launches_dkv = 0
+    fa.launches_fwd_tc = fa.launches_dq_tc = fa.launches_dkv_tc = 0
     losses, secs = [], []
     for i in range(TRAIN_STEPS):
-        n0 = (fa.launches, fa.launches_dq, fa.launches_dkv, fa.launches_fwd_tc, fa.launches_dq_tc)
+        n0 = (fa.launches, fa.launches_dq, fa.launches_dkv, fa.launches_fwd_tc, fa.launches_dq_tc, fa.launches_dkv_tc)
         t0 = time.perf_counter()
         params, state, loss = step(params, state, batch)
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
         per = (fa.launches - n0[0], fa.launches_dq - n0[1], fa.launches_dkv - n0[2])
         check(per == (2 * L, L, L), f"step {i + 1}: (forward, dQ, dK/dV) launches {per}, expected {(2 * L, L, L)}")
-        per_tc = (fa.launches_fwd_tc - n0[3], fa.launches_dq_tc - n0[4])
-        check(per_tc == (2 * L, L), f"step {i + 1}: tensor-core (forward, dQ) launches {per_tc}, expected {(2 * L, L)}")
+        per_tc = (fa.launches_fwd_tc - n0[3], fa.launches_dq_tc - n0[4], fa.launches_dkv_tc - n0[5])
+        check(per_tc == (2 * L, L, L),
+              f"step {i + 1}: tensor-core (forward, dQ, dK/dV) launches {per_tc}, expected {(2 * L, L, L)}")
         losses.append(float(loss))
         check(math.isfinite(losses[-1]), f"step {i + 1}: loss {losses[-1]}")
     launches = {"flash_attention": fa.launches, "flash_dq": fa.launches_dq, "flash_dkv": fa.launches_dkv}
@@ -734,10 +777,10 @@ def train_phase(fa, mp, dev, card):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     warm_ms = 1e3 * statistics.median(secs[1:])
     log(f"[train] {TRAIN_STEPS} steps, per step exactly {2 * L} forward (with the remat recompute), {L} dQ and {L} "
-        f"dK/dV launches, the forward and dQ ones on the tensor cores, min-plus 0; losses "
+        f"dK/dV launches, all on the tensor cores, min-plus 0; losses "
         f"{', '.join(f'{x:.5f}' for x in losses)}; peak device memory {peak_gb:.2f} GB; first step {secs[0]:.3f} s")
 
-    total, rows = device_time_table(lambda p, b: step(p, state, b), params, batch)
+    total, rows, kinds = device_time_table(lambda p, b: step(p, state, b), params, batch, top=12)
     tokens = B_TRAIN * S_TRAIN
     log(f"[times] {card}")
     log(f"[times] warm train step {ARCH} B={B_TRAIN} S={S_TRAIN}: {warm_ms:.3f} ms (host clock, median of "
@@ -747,7 +790,8 @@ def train_phase(fa, mp, dev, card):
         log("[times] torch.profiler recorded no device time")
     else:
         log(f"[times] torch.profiler, one step: {total:.3f} ms of kernel time on the card, busy {total / warm_ms:.3f} "
-            f"of the warm step; top kernels by device time:")
+            f"of the warm step; by kind {', '.join(f'{k} {t:.3f} ms' for k, t in kinds.items())}; top kernels by "
+            f"device time:")
         for t, n, name in rows:
             log(f"[times]   {t:10.3f} ms  {t / total:.3f}  x{n:<5d} {name[:90]}")
     tok = batch["tokens"]
@@ -769,11 +813,12 @@ def train_f32_check(fa, dev, cfg, tokens):
     cfg32 = cfg.replace(num_layers=F32_LAYERS, param_dtype="float32", compute_dtype="float32")
     p32 = init_params(cfg32, torch.Generator(device=dev).manual_seed(SEED))
     b32 = {"tokens": tokens}
-    n0 = (fa.launches, fa.launches_dq, fa.launches_dkv, fa.launches_fwd_tc, fa.launches_dq_tc)
+    n0 = (fa.launches, fa.launches_dq, fa.launches_dkv, fa.launches_fwd_tc, fa.launches_dq_tc, fa.launches_dkv_tc)
     loss_k, g_k = value_and_grad(p32, cfg32, b32)
     per = (fa.launches - n0[0], fa.launches_dq - n0[1], fa.launches_dkv - n0[2])
     check(per == (2 * F32_LAYERS, F32_LAYERS, F32_LAYERS), f"float32 step launches {per}")
-    check((fa.launches_fwd_tc, fa.launches_dq_tc) == n0[3:], "the float32 step launched a tensor-core kernel")
+    check((fa.launches_fwd_tc, fa.launches_dq_tc, fa.launches_dkv_tc) == n0[3:],
+          "the float32 step launched a tensor-core kernel")
     loss_p, g_p = value_and_grad(p32, cfg32.replace(attn_impl="plain"), b32)
     dloss = abs(float(loss_k) - float(loss_p))
     worst, ok = 0.0, True
@@ -815,12 +860,12 @@ def flash_bwd_times(fa, main, card):
         B, H, S, D = q.shape
         Hkv, scale = k.shape[1], D ** -0.5
         do_c, delta = fa._bwd_rows(o, do)
-        ms = {"dkv": median_event_ms(
-            lambda: fa._launch_bwd("dkv", q, k, v, do_c, lse, delta, kind, window, 50.0, scale), reps=5, per_rep=3)}
         wide = [x.float() for x in (q, k, v, do_c)]
-        ms["dq"], prev_ms = in_turns(
-            lambda: fa._launch_bwd("dq", q, k, v, do_c, lse, delta, kind, window, 50.0, scale),
-            lambda: fa._launch_bwd("dq", *wide, lse, delta, kind, window, 50.0, scale))
+        ms, prev_ms = {}, {}
+        for which in ("dq", "dkv"):
+            ms[which], prev_ms[which] = in_turns(
+                lambda: fa._launch_bwd(which, q, k, v, do_c, lse, delta, kind, window, 50.0, scale),
+                lambda: fa._launch_bwd(which, *wide, lse, delta, kind, window, 50.0, scale))
         del wide
         clocks = gpu_line("clocks.sm,power.draw")
         plain_ms = median_event_ms(lambda: fa.flash_attention_bwd_ref(q, k, v, o, lse, do, kind, window, 50.0),
@@ -835,24 +880,21 @@ def flash_bwd_times(fa, main, card):
         for which in ("dq", "dkv"):
             b_ms, b_by = flash_bwd_bound_ms(B, H, Hkv, S, D, kind, window, q.element_size(), which)
             res[(which, kind)] = dict(ms=ms[which], plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                                      library_ms=lib_ms)
-            if which == "dq":
-                res[(which, kind)]["prev_ms"] = prev_ms
-                route = (f"route {TC_ROUTE}; previous kernel ({PREV_ROUTE}, in turns) {prev_ms:.4f} ms, "
-                         f"{prev_ms / ms[which]:.2f}x slower")
-            else:
-                route = (f"route float32 CUDA cores; on them its floor is "
-                         f"{b_ms * PEAK_BF16_FLOPS / PEAK_F32_FLOPS:.3f} ms")
+                                      library_ms=lib_ms, prev_ms=prev_ms[which])
+            route = (f"route {TC_ROUTE_BWD[which]}; previous kernel ({PREV_ROUTE}, in turns) {prev_ms[which]:.4f} "
+                     f"ms, {prev_ms[which] / ms[which]:.2f}x slower")
             log(f"[times] flash_{which} {kind}{f'({window})' if kind == 'sliding' else ''} B={B} H={H} Hkv={Hkv} "
                 f"S={S} D={D} bfloat16 softcap 50: {ms[which]:.4f} ms per launch (clocks.sm, power.draw after: "
                 f"{clocks}); {route}; plain backward (dq, dk and dv) {plain_ms:.4f} ms; bound {b_ms:.4f} ms "
-                f"({b_by}), kernel at {ms[which] / b_ms:.2f}x the bound; library {lib_ms:.4f} ms (backward of "
+                f"({b_by}), kernel at {ms[which] / b_ms:.2f}x the bound ({b_ms / ms[which]:.3f} of the bf16 peak); "
+                f"library {lib_ms:.4f} ms (backward of "
                 f"scaled_dot_product_attention, dq, dk and dv, same shape, no softcap{LIBRARY_MASK[kind]})")
     log(f"[times] {card}")
-    dq_c = res[("dq", "causal")]
-    check(dq_c["prev_ms"] >= TC_SPEEDUP_MIN * dq_c["ms"],
-          f"the tensor-core dQ kernel is not {TC_SPEEDUP_MIN}x faster than the previous kernel at the causal shape")
-    return dq_c, res[("dkv", "causal")]
+    for which in ("dq", "dkv"):
+        r = res[(which, "causal")]
+        check(r["prev_ms"] >= TC_SPEEDUP_MIN * r["ms"], f"the tensor-core {which} kernel is not {TC_SPEEDUP_MIN}x "
+                                                         f"faster than the previous kernel at the causal shape")
+    return res[("dq", "causal")], res[("dkv", "causal")]
 
 
 def main() -> int:
@@ -899,19 +941,34 @@ def main() -> int:
     fa._bwd_launch_fns()
     log(f"[build] minplus.cu, flash_fwd.cu, flash_bwd.cu built and loaded in {time.perf_counter() - t0:.2f} s "
         f"({build.build_dir()})")
-    for name in ("minplus", "flash_fwd", "flash_bwd"):
+    tc_names = {"minplus": (), "flash_fwd": ("flash_fwd_tc_kernel",),
+                "flash_bwd": ("flash_dq_tc_kernel", "flash_dkv_tc_kernel")}
+    for name, kernels in tc_names.items():
+        usage = ptxas_usage((build.build_dir() / f"{name}.log").read_text())
         for line in (build.build_dir() / f"{name}.log").read_text().splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line or "C75" in line:
+            if "C75" in line or "warning" in line:
                 log(f"[build] {name} ptxas: {line.strip()}")
-    for name in ("flash_fwd", "flash_bwd"):
+        plain = [u for fn, u in usage.items() if not tc_kernels({fn: 0})]
+        log(f"[build] {name}: {len(plain)} CUDA-core kernels, registers {sorted(r for r, _, _ in plain)}, spill "
+            f"stores and loads {sum(a + b for _, a, b in plain)} bytes in all")
+        if not kernels:
+            continue
+        usage = tc_kernels(usage)
         counts = tensor_core_counts(build, name)
-        tc = {int(re.search(r"tc_kernelILi(\d+)E", fn).group(1)): c for fn, c in counts.items() if "_tc_kernel" in fn}
-        other = sum(h + m for fn, (h, m) in counts.items() if "_tc_kernel" not in fn)
-        log(f"[build] {name} SASS: tensor-core kernels (head dim: HGMMA, HMMA) "
-            f"{', '.join(f'{d}: {h}, {m}' for d, (h, m) in sorted(tc.items()))}; the {len(counts) - len(tc)} "
-            f"float32 CUDA-core kernels {other} in all")
-        check(sorted(tc) == list(fa.HEAD_DIMS), f"{name}: tensor-core kernels for head dims {sorted(tc)}")
+        tc = tc_kernels(counts)
+        other = sum(h + m for fn, (h, m) in counts.items() if not tc_kernels({fn: 0}))
+        for kern in kernels:
+            log(f"[build] {name} {kern} (head dim: ptxas registers, spill stores, spill loads in bytes; SASS HGMMA, "
+                "HMMA) " + ", ".join(f"{d}: {usage.get((kern, d))}; {tc.get((kern, d))}" for d in fa.HEAD_DIMS))
+            check(all((kern, d) in tc for d in fa.HEAD_DIMS), f"{name}: {kern} lacks a head dim of {fa.HEAD_DIMS}")
+        log(f"[build] {name} SASS: the {len(counts) - len(tc)} float32 CUDA-core kernels {other} tensor-core "
+            f"instructions in all")
+        check(sorted(k for k, _ in tc) == sorted(kern for kern in kernels for _ in fa.HEAD_DIMS),
+              f"{name}: tensor-core kernels {sorted(tc)}")
         check(all(h > 0 for h, _ in tc.values()), f"{name}: a bfloat16 tensor-core kernel has no HGMMA")
+        if name == "flash_bwd":
+            spills = usage[("flash_dkv_tc_kernel", 256)][1:]
+            check(spills == (0, 0), f"flash_dkv_tc_kernel<256> spills (stores, loads): {spills}")
 
     # -- phase 3: kernel vs plain version on the card ----------------------
     rng = np.random.default_rng(SEED)
@@ -1067,6 +1124,7 @@ def main() -> int:
     }, {
         "name": "flash_dkv",
         "route": "cuda",
+        "tc_route": "wgmma",
         "source": "src/repro_torch/kernels/csrc/flash_bwd.cu",
         "replaces": "src/repro/kernels/flash_attention.py:127",
         "launches": launches_train["flash_dkv"],

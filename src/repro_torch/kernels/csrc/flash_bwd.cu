@@ -1,8 +1,8 @@
 // Flash-attention backward (FlashAttention-2 style) for Hopper (sm_90a): two
-// kernels, launched one after the other for one attention layer. Both run on
-// the CUDA cores in float32; for bfloat16 I/O the dQ kernel has a
-// tensor-core route instead (flash_dq_tc_kernel further down, built from
-// flash_tc.cuh), while dK/dV keeps the CUDA-core kernel.
+// kernels, launched one after the other for one attention layer. float32 I/O
+// runs both on the CUDA cores in float32; bfloat16 I/O runs both on the
+// tensor cores instead (flash_dq_tc_kernel and flash_dkv_tc_kernel further
+// down, built from flash_tc.cuh).
 //
 //   q and dO (B, H, Sq, D), k and v (B, Hkv, Sk, D), float32 or bfloat16, the
 //   kv head of query head h is h / (H / Hkv); lse (B, H, Sq) is the forward's
@@ -26,10 +26,10 @@
 // tiles in shared memory, masks ragged tiles from bounds, and no block
 // depends on another.
 //
-// Design. Both kernels use 64 query rows by 32 keys per score tile and 256
-// threads: thread (ty, tx) = (tid / 16, tid % 16) owns rows 4*ty .. 4*ty+3 of
-// the tile and keys tx and tx + 16, and forms their s and dO.v in one pass
-// over D (12 shared reads per 16 FMAs). Rows of Q, dO, K and V are padded to
+// Design of the CUDA-core kernels (float32 I/O). Both use 64 query rows by
+// 32 keys per score tile and 256 threads: thread (ty, tx) = (tid / 16, tid %
+// 16) owns rows 4*ty .. 4*ty+3 of the tile and keys tx and tx + 16, and forms
+// their s and dO.v in one pass over D (12 shared reads per 16 FMAs). Rows of Q, dO, K and V are padded to
 // D + 1 floats and rows of P and dS to 33, so the lanes of a warp hit distinct
 // banks.
 //  - dQ: one block per (b, h, 64-row q tile), heaviest causal tiles first.
@@ -61,12 +61,13 @@
 // peak of 989 TFLOP/s, while the tensors move about 0.1 GB (0.03 ms at 3.35
 // TB/s). So both are bound by operations. The CUDA-core kernels run on the
 // float32 CUDA cores (67 TFLOP/s, a floor of 6.2 and 8.2 ms); the bfloat16
-// dQ route runs on the tensor cores, and dK/dV's move there is later work.
+// routes run on the tensor cores.
 //
-// Numerics. Everything is float32 from the widened inputs; expf and tanhf
-// are the IEEE-accurate versions (no --use_fast_math). Sums run in another
-// order than the reference's, so results agree to float32 rounding, not bit
-// for bit; they are the same from run to run.
+// Numerics. Every sum is float32 over the exact inputs; expf and tanhf are
+// the IEEE-accurate versions (no --use_fast_math); the tensor-core kernels
+// round only the operands they hand to the tensor cores (see there). Sums run in another order than the reference's, so
+// results agree to float32 rounding, not bit for bit; they are the same from
+// run to run.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -81,16 +82,6 @@ constexpr int kThreads = 256;  // 16 row groups x 16 key lanes
 constexpr float kNegInf = -1e30f;
 
 enum Kind { kCausal = 0, kSliding = 1, kBidirectional = 2 };
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) { return __float2bfloat16(x); }
 
 // Shared memory of one block, in floats. Keep in step with
 // flash_bwd_smem_bytes in kernels/flash_attention.py.
@@ -183,16 +174,16 @@ __device__ __forceinline__ void pair_grad(float s_raw, float dp, float lse, floa
 
 // Stages rows [r0, r0 + rows) of a (.., S, D) head into a float tile with
 // rows padded to D + 1, times mul; rows past S are zeros.
-template <typename T, int D>
-__device__ __forceinline__ void stage(float* dst, const T* src, long long row_stride, int r0, int rows, int S,
+template <int D>
+__device__ __forceinline__ void stage(float* dst, const float* src, long long row_stride, int r0, int rows, int S,
                                       float mul) {
   for (int i = threadIdx.x; i < rows * D; i += kThreads) {
     const int r = i / D, c = i % D;
-    dst[r * (D + 1) + c] = r0 + r < S ? to_float(src[(r0 + r) * row_stride + c]) * mul : 0.f;
+    dst[r * (D + 1) + c] = r0 + r < S ? src[(r0 + r) * row_stride + c] * mul : 0.f;
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(const Args a) {
   constexpr int NC = D / 16;  // dQ columns per thread
   constexpr int DP = D + 1;
@@ -214,11 +205,11 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(const Args a)
   const int G = a.H / a.Hkv;
   const int q0 = qt * kBQ;
   const int q1 = min(q0 + kBQ, a.Sq);
-  const T* kp = static_cast<const T*>(a.k) + b * a.ksb + (h / G) * a.ksh;
-  const T* vp = static_cast<const T*>(a.v) + b * a.vsb + (h / G) * a.vsh;
+  const float* kp = static_cast<const float*>(a.k) + b * a.ksb + (h / G) * a.ksh;
+  const float* vp = static_cast<const float*>(a.v) + b * a.vsb + (h / G) * a.vsh;
 
-  stage<T, D>(sQ, static_cast<const T*>(a.q) + b * a.qsb + h * a.qsh, a.qss, q0, kBQ, a.Sq, a.scale);
-  stage<T, D>(sdO, static_cast<const T*>(a.dout) + b * a.dsb + h * a.dsh, a.dss, q0, kBQ, a.Sq, 1.f);
+  stage<D>(sQ, static_cast<const float*>(a.q) + b * a.qsb + h * a.qsh, a.qss, q0, kBQ, a.Sq, a.scale);
+  stage<D>(sdO, static_cast<const float*>(a.dout) + b * a.dsb + h * a.dsh, a.dss, q0, kBQ, a.Sq, 1.f);
   const size_t row0 = (static_cast<size_t>(b) * a.H + h) * a.Sq;
   float lse_i[4], delta_i[4];
 #pragma unroll
@@ -246,8 +237,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(const Args a)
   for (int kt = lo; kt < hi; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();  // the previous tile's readers of sK, sV and sdS are done
-    stage<T, D>(sK, kp, a.kss, k0, kBK, a.Sk, 1.f);
-    stage<T, D>(sV, vp, a.vss, k0, kBK, a.Sk, 1.f);
+    stage<D>(sK, kp, a.kss, k0, kBK, a.Sk, 1.f);
+    stage<D>(sV, vp, a.vss, k0, kBK, a.Sk, 1.f);
     __syncthreads();
 
     float s[4][2], dp[4][2];
@@ -277,18 +268,18 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(const Args a)
     }
   }
 
-  T* dq = static_cast<T*>(a.dq);
+  float* dq = static_cast<float*>(a.dq);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int qi = q0 + 4 * ty + i;
     if (qi >= a.Sq) continue;
-    T* row = dq + (row0 + qi) * D;
+    float* row = dq + (row0 + qi) * D;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) row[tx + 16 * c] = from_float<T>(acc[i][c] * a.scale);
+    for (int c = 0; c < NC; ++c) row[tx + 16 * c] = acc[i][c] * a.scale;
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_kernel(const Args a) {
   constexpr int NC = D / 16;  // dK and dV columns per thread
   constexpr int DP = D + 1;
@@ -314,8 +305,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_kernel(const Args a
   const int k0 = kt * kBK;
   const int k1 = min(k0 + kBK, a.Sk);
 
-  stage<T, D>(sK, static_cast<const T*>(a.k) + b * a.ksb + hk * a.ksh, a.kss, k0, kBK, a.Sk, 1.f);
-  stage<T, D>(sV, static_cast<const T*>(a.v) + b * a.vsb + hk * a.vsh, a.vss, k0, kBK, a.Sk, 1.f);
+  stage<D>(sK, static_cast<const float*>(a.k) + b * a.ksb + hk * a.ksh, a.kss, k0, kBK, a.Sk, 1.f);
+  stage<D>(sV, static_cast<const float*>(a.v) + b * a.vsb + hk * a.vsh, a.vss, k0, kBK, a.Sk, 1.f);
 
   // q tiles [lo, hi) that can hold a row with an unmasked key of this tile;
   // p and dS are 0 on every other tile, unless a row sees no key at all
@@ -341,14 +332,14 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_kernel(const Args a
 
   for (int g = 0; g < G; ++g) {
     const int h = hk * G + g;
-    const T* qp = static_cast<const T*>(a.q) + b * a.qsb + h * a.qsh;
-    const T* dop = static_cast<const T*>(a.dout) + b * a.dsb + h * a.dsh;
+    const float* qp = static_cast<const float*>(a.q) + b * a.qsb + h * a.qsh;
+    const float* dop = static_cast<const float*>(a.dout) + b * a.dsb + h * a.dsh;
     const size_t row0 = (static_cast<size_t>(b) * a.H + h) * a.Sq;
     for (int it = lo; it < hi; ++it) {
       const int q0 = it * kBQ;
       __syncthreads();  // the previous tile's readers of sQ, sdO, sP, sdS, sL and sD are done
-      stage<T, D>(sQ, qp, a.qss, q0, kBQ, a.Sq, a.scale);
-      stage<T, D>(sdO, dop, a.dss, q0, kBQ, a.Sq, 1.f);
+      stage<D>(sQ, qp, a.qss, q0, kBQ, a.Sq, a.scale);
+      stage<D>(sdO, dop, a.dss, q0, kBQ, a.Sq, 1.f);
       if (tid < kBQ) {
         const bool in = q0 + tid < a.Sq;
         sL[tid] = in ? a.lse[row0 + q0 + tid] : 0.f;
@@ -393,8 +384,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_kernel(const Args a
     }
   }
 
-  T* dkp = static_cast<T*>(a.dk);
-  T* dvp = static_cast<T*>(a.dv);
+  float* dkp = static_cast<float*>(a.dk);
+  float* dvp = static_cast<float*>(a.dv);
 #pragma unroll
   for (int kk = 0; kk < 2; ++kk) {
     const int kj = k0 + 2 * ty + kk;
@@ -402,8 +393,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_kernel(const Args a
     const size_t row = ((static_cast<size_t>(b) * a.Hkv + hk) * a.Sk + kj) * D;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
-      dkp[row + tx + 16 * c] = from_float<T>(dk[kk][c]);
-      dvp[row + tx + 16 * c] = from_float<T>(dv[kk][c]);
+      dkp[row + tx + 16 * c] = dk[kk][c];
+      dvp[row + tx + 16 * c] = dv[kk][c];
     }
   }
 }
@@ -664,20 +655,389 @@ int launch_dq_tc_dim(int D, const Args& a, cudaStream_t stream) {
 #undef FLASH_DQ_TC_CASE
 }
 
+// ---- bfloat16 I/O, dK/dV: the tensor-core route (flash_tc.cuh) --------------
+//
+// One block per (b, kv head, 64-key tile), the lowest key tiles first (the
+// block index runs over kv heads and batches fastest, so every head's
+// heaviest causal tiles start in the first wave). K and V of the block's keys
+// stay in shared memory; the 64-row Q and dO tiles of every query head of
+// the GQA group stream through the two-stage ring (flash_tc.cuh), each with
+// its rows' lse or delta, over the q tiles of the float32 kernel's range
+// (from the causal diagonal to the window's last row, or every tile where a
+// sliding row sees no key). The GQA sum runs in that fixed order, with no
+// atomics.
+//
+// The two warpgroups split the work by accumulator. At D = 256 a 64-key dV
+// (or dK) in float32 is 128 registers a thread, so one warpgroup cannot hold
+// both:
+//  - warpgroup 0 forms S^T = K.Q^T (wgmma m64n64k16, keys x q rows, 32
+//    float32 registers a thread), then p and p * (1 - tanh^2) as pair_grad
+//    does (0 where masked or out of bounds), writes the latter to an
+//    exchange tile in shared memory and adds P^T.dO into dV;
+//  - warpgroup 1 forms dP^T = V.dO^T, reads the exchange tile in the same
+//    fragment layout (value r of thread t at float 128 r + t: conflict-free),
+//    forms dS^T = p (1 - tanh^2) (dP^T - delta) and adds dS^T.Q into dK.
+// The exchange tile is double-buffered under named barriers (full: 0 passes
+// it to 1; empty: 1 gives it back), so warpgroup 0 runs up to one q tile
+// ahead. Thread 0 of warpgroup 1 issues the TMA loads of q tile i + 1: Q
+// before its warpgroup's iteration i (its stage's last reader, dK of i - 1,
+// is then done) and dO once dP^T of i is issued.
+//
+// Numerics. P and dS go to the tensor cores as hi + lo bfloat16 parts, two
+// wgmma into the same float32 accumulator: dv = sum_q P dO and dk = sum_q dS
+// q both cancel (dO and dS take both signs), and either rounded once to
+// bfloat16 (2^-9 relative per entry) breaks the 2^-8 relative + 1e-5 of the
+// largest entry that dK/dV is held to wherever the sum cancels
+// (tests/test_torch_flash_tc.py); hi + lo carries them to about 2^-17. q's
+// scale is applied in float32, to S^T and in dK's epilogue. So the kernel
+// issues 12 D flops per pair where 8 D are needed.
+//
+// Shared memory at D = 256: K and V 32 KB each, 2 stages x (Q 32 KB + dO
+// 32 KB), 2 exchange tiles of 16 KB, 2 stages x (lse + delta) 512 B, plus the
+// alignment slack and the barriers: 231,552 B of the 232,448 B a block may
+// opt into. Keep in step with flash_dkv_tc_smem_bytes in
+// kernels/flash_attention.py.
+
+constexpr int kDkvTcBQ = 64;  // query rows per ring stage (the N of the score products)
+constexpr int kDkvTcBK = 64;  // keys per block (wgmma's M)
+constexpr int kXFull = 1;     // named barriers of the exchange tiles: full s = kXFull + s,
+constexpr int kXEmpty = 3;    // empty s = kXEmpty + s
+
+constexpr int dkv_tc_smem_bytes(int D) {
+  return flash_tc::kSmemAlign + 2 * flash_tc::tile_bytes(kDkvTcBK, D) +
+         flash_tc::kStages * 2 * flash_tc::tile_bytes(kDkvTcBQ, D) + flash_tc::kStages * kDkvTcBK * kDkvTcBQ * 4 +
+         flash_tc::kStages * 2 * kDkvTcBQ * 4 + flash_tc::kBarrierBytes;
+}
+
+// lse and delta of the bfloat16 dK/dV kernel: (B, H, Sr) with Sr = Sq
+// rounded up to a multiple of 4, since TMA reads a box from a 16-byte-aligned
+// start.
+__host__ __device__ constexpr int tma_rows(int Sq) { return (Sq + 3) & ~3; }
+
+// Where ring tile i of a block lies: q rows [q0, q0 + 64) of query head h,
+// whose lse and delta start at flat index row of (B, H, Sr).
+struct RingTile {
+  int q0, h, row;
+};
+__device__ __forceinline__ RingTile ring_tile(int i, int per_head, int lo, int hk, int G, int b, int H, int Sr) {
+  const int h = hk * G + i / per_head;
+  const int q0 = (lo + i % per_head) * kDkvTcBQ;
+  return {q0, h, (b * H + h) * Sr + q0};
+}
+
+template <int D>
+__global__ void __launch_bounds__(flash_tc::kThreads, 1)
+flash_dkv_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                    const __grid_constant__ CUtensorMap tlse, const __grid_constant__ CUtensorMap tdelta,
+                    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int B, int H, int Hkv, int Sq,
+                    int Sk, int kind, int window, float softcap, float scale) {
+  using namespace flash_tc;
+  static_assert(kDkvTcBQ == 64 && kDkvTcBK == 64, "the score products are wgmma m64n64k16");
+  constexpr int DC = chunks(D);
+  constexpr uint32_t kTile = tile_bytes(64, D);  // K, V, and each stage's Q and dO
+  constexpr uint32_t kChunk = 64 * 128;          // bytes of one 64-column chunk of a 64-row tile
+  constexpr uint32_t kXFloats = kDkvTcBK * kDkvTcBQ;
+  constexpr uint32_t kRows = kDkvTcBQ * 4;  // bytes of one q tile's lse (or delta)
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sK = (smem_u32(smem_raw) + kSmemAlign - 1) & ~static_cast<uint32_t>(kSmemAlign - 1);
+  const uint32_t sV = sK + kTile;
+  const uint32_t sRing = sV + kTile;                      // stage s: Q at sRing + 2 s kTile, dO right after
+  const uint32_t sX = sRing + kStages * 2 * kTile;        // exchange tile s: kXFloats floats from sX + 4 s kXFloats
+  const uint32_t sRows = sX + kStages * kXFloats * 4;     // stage s: lse at sRows + 2 s kRows, delta right after
+  const Barriers bar{sRows + kStages * 2 * kRows};        // q_full(): K and V; the ring: k_*: Q, v_*: dO
+  uint8_t* const smem = smem_raw + (sK - smem_u32(smem_raw));
+  float* const xs = reinterpret_cast<float*>(smem + (sX - sK));
+  const float* const rows = reinterpret_cast<const float*>(smem + (sRows - sK));
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int wg = warp >> 2;
+  const int tw = threadIdx.x & 127;  // thread within its warpgroup
+  const int hk = blockIdx.x % Hkv;
+  const int b = (blockIdx.x / Hkv) % B;
+  const int k0 = blockIdx.x / (Hkv * B) * kDkvTcBK;
+  const int k1 = min(k0 + kDkvTcBK, Sk);
+  const int G = H / Hkv;
+
+  // q tiles [lo, hi) that can hold a row with an unmasked key of this tile,
+  // as in flash_bwd_dkv_kernel
+  const int nq = (Sq + kDkvTcBQ - 1) / kDkvTcBQ;
+  int lo = 0, hi = nq;
+  if (kind != kBidirectional) {
+    lo = k0 / kDkvTcBQ;
+    if (kind == kSliding) {
+      const bool empty_row = window < 1 || Sq - 1 > static_cast<long long>(Sk) + window - 2;
+      if (empty_row) {
+        lo = 0;
+      } else {
+        hi = static_cast<int>(
+            min(static_cast<long long>(nq), (static_cast<long long>(k1) + window - 2) / kDkvTcBQ + 1));
+      }
+    }
+  }
+  const int per_head = max(hi - lo, 0);
+  const int n = G * per_head;
+  const int Sr = tma_rows(Sq);
+
+  init_barriers(bar);
+  constexpr int kIssuer = kThreads / 2;  // thread 0 of warpgroup 1
+  const bool issuer = threadIdx.x == kIssuer;
+  if (issuer && n > 0) {  // K, V and ring tile 0; the loop loads the rest
+    mbar_expect_tx(bar.q_full(), 2 * kTile);
+    for (int c = 0; c < DC; ++c) {
+      tma_load_4d(sK + c * kChunk, &tk, bar.q_full(), c * kChunkCols, k0, hk, b);
+      tma_load_4d(sV + c * kChunk, &tv, bar.q_full(), c * kChunkCols, k0, hk, b);
+    }
+    const RingTile t = ring_tile(0, per_head, lo, hk, G, b, H, Sr);
+    load_stage_rows<DC>(&tq, &tlse, bar.k_full(0), bar.k_empty(0), sRing, sRows, 0, kDkvTcBQ, t.q0, t.h, b, t.row);
+    load_stage_rows<DC>(&tdo, &tdelta, bar.v_full(0), bar.v_empty(0), sRing + kTile, sRows + kRows, 0, kDkvTcBQ,
+                        t.q0, t.h, b, t.row);
+  }
+  __syncwarp();
+  if (n > 0) mbar_wait(bar.q_full(), 0);
+
+  // this thread's accumulator rows are keys ka and ka + 8; its columns of
+  // a score tile are q rows frag_col(r, lane) of the ring tile
+  const int ka = k0 + frag_row(0, warp & 3, lane);
+  float acc[DC][32];  // warpgroup 0: dV; warpgroup 1: dK
+#pragma unroll
+  for (int c = 0; c < DC; ++c)
+#pragma unroll
+    for (int r = 0; r < 32; ++r) acc[c][r] = 0.f;
+
+  if (wg == 0) {
+    const float inv_cap = softcap != 0.f ? 1.f / softcap : 0.f;
+    for (int i = 0; i < n; ++i) {
+      const int s = i % kStages;
+      const uint32_t phase = (i / kStages) & 1;
+      const uint32_t sQ = sRing + 2 * s * kTile;
+      const uint32_t sdO = sQ + kTile;
+      const int q0 = ring_tile(i, per_head, lo, hk, G, b, H, Sr).q0;
+
+      float sc[32];
+#pragma unroll
+      for (int r = 0; r < 32; ++r) sc[r] = 0.f;
+      mbar_wait(bar.k_full(s), phase);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk & 3) * 32;  // 16 columns further along the chunk's 128-byte rows
+        wgmma_ss_n64(sc, smem_desc(sK + (kk >> 2) * kChunk + off, 16, 1024),
+                     smem_desc(sQ + (kk >> 2) * kChunk + off, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sc);
+      mbar_arrive(bar.k_empty(s));
+
+      // p, and p (1 - tanh^2) into the exchange tile; a tile whose every
+      // pair is in bounds and unmasked skips the mask and bounds
+      const float* lse = rows + 2 * s * kDkvTcBQ;
+      float* x = xs + s * kXFloats;
+      const bool whole = k0 + kDkvTcBK <= Sk && q0 + kDkvTcBQ <= Sq &&
+                         (kind == kBidirectional ||
+                          (k0 + kDkvTcBK - 1 <= q0 && (kind == kCausal || k0 > q0 + kDkvTcBQ - 1 - window)));
+      if (i >= kStages) named_sync(kXEmpty + s);
+      uint32_t phi[4][4], plo[4][4];  // P in bfloat16, hi and lo, the A operand of k-step t
+#pragma unroll
+      for (int r = 0; r < 32; ++r) {
+        const int col = frag_col(r, lane);
+        const float s_raw = sc[r] * scale;
+        float y = s_raw, dcap = 1.f;
+        if (softcap != 0.f) {
+          const float th = tanhf(s_raw * inv_cap);
+          y = softcap * th;
+          dcap = 1.f - th * th;
+        }
+        float p, pd;
+        if (whole) {
+          p = expf(y - lse[col]);
+          pd = p * dcap;
+        } else {
+          const int qi = q0 + col;
+          const int kj = ka + 8 * ((r >> 1) & 1);
+          const bool in = qi < Sq && kj < Sk;
+          const bool keep = in && unmasked(qi, kj, kind, window);
+          p = in ? expf((keep ? y : kNegInf) - lse[col]) : 0.f;
+          pd = keep ? p * dcap : 0.f;
+        }
+        x[r * 128 + tw] = pd;
+        sc[r] = p;
+      }
+      named_arrive(kXFull + s);
+#pragma unroll
+      for (int r = 0; r < 32; r += 2) {
+        const __nv_bfloat162 hi2 = __floats2bfloat162_rn(sc[r], sc[r + 1]);
+        const float2 hif = __bfloat1622float2(hi2);
+        phi[r >> 3][(r >> 1) & 3] = *reinterpret_cast<const uint32_t*>(&hi2);
+        plo[r >> 3][(r >> 1) & 3] = pack_bf16(sc[r] - hif.x, sc[r + 1] - hif.y);
+      }
+
+      mbar_wait(bar.v_full(s), phase);
+      wgmma_fence();
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const uint64_t od = smem_desc(sdO + t * 16 * 128, kChunk, 1024);
+        wgmma_rs(acc, phi[t], od);
+        wgmma_rs(acc, plo[t], od);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+#pragma unroll
+      for (int c = 0; c < DC; ++c) fence_regs(acc[c]);
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        fence_regs(phi[t]);
+        fence_regs(plo[t]);
+      }
+      mbar_arrive(bar.v_empty(s));
+    }
+  } else {
+    for (int i = 0; i < n; ++i) {
+      const int s = i % kStages;
+      const uint32_t phase = (i / kStages) & 1;
+      const uint32_t sQ = sRing + 2 * s * kTile;
+      const uint32_t sdO = sQ + kTile;
+      // ring tile i + 1 goes into the stage tile i - 1 held: Q now (this
+      // warpgroup read it last, in dK of i - 1), dO once dP^T of i is issued
+      const bool next = issuer && i + 1 < n;
+      const int sn = (i + 1) % kStages;
+      const uint32_t sQn = sRing + 2 * sn * kTile;
+      const RingTile tn = ring_tile(i + 1, per_head, lo, hk, G, b, H, Sr);
+      if (next)
+        load_stage_rows<DC>(&tq, &tlse, bar.k_full(sn), bar.k_empty(sn), sQn, sRows + 2 * sn * kRows, i + 1,
+                            kDkvTcBQ, tn.q0, tn.h, b, tn.row);
+      __syncwarp();
+
+      float dp[32];
+#pragma unroll
+      for (int r = 0; r < 32; ++r) dp[r] = 0.f;
+      mbar_wait(bar.v_full(s), phase);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk & 3) * 32;
+        wgmma_ss_n64(dp, smem_desc(sV + (kk >> 2) * kChunk + off, 16, 1024),
+                     smem_desc(sdO + (kk >> 2) * kChunk + off, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+      if (next)
+        load_stage_rows<DC>(&tdo, &tdelta, bar.v_full(sn), bar.v_empty(sn), sQn + kTile,
+                            sRows + (2 * sn + 1) * kRows, i + 1, kDkvTcBQ, tn.q0, tn.h, b, tn.row);
+      __syncwarp();
+      wgmma_wait_all();
+      fence_regs(dp);
+      mbar_arrive(bar.v_empty(s));
+
+      // dS^T = p (1 - tanh^2) (dP^T - delta), 0 wherever the exchange tile is
+      const float* delta = rows + (2 * s + 1) * kDkvTcBQ;
+      const float* x = xs + s * kXFloats;
+      named_sync(kXFull + s);
+#pragma unroll
+      for (int r = 0; r < 32; ++r) dp[r] = x[r * 128 + tw] * (dp[r] - delta[frag_col(r, lane)]);
+      if (i + kStages < n) named_arrive(kXEmpty + s);
+      uint32_t dhi[4][4], dlo[4][4];  // dS in bfloat16, hi and lo, the A operand of k-step t
+#pragma unroll
+      for (int r = 0; r < 32; r += 2) {
+        const __nv_bfloat162 hi2 = __floats2bfloat162_rn(dp[r], dp[r + 1]);
+        const float2 hif = __bfloat1622float2(hi2);
+        dhi[r >> 3][(r >> 1) & 3] = *reinterpret_cast<const uint32_t*>(&hi2);
+        dlo[r >> 3][(r >> 1) & 3] = pack_bf16(dp[r] - hif.x, dp[r + 1] - hif.y);
+      }
+
+      mbar_wait(bar.k_full(s), phase);
+      wgmma_fence();
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const uint64_t qd = smem_desc(sQ + t * 16 * 128, kChunk, 1024);
+        wgmma_rs(acc, dhi[t], qd);
+        wgmma_rs(acc, dlo[t], qd);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+#pragma unroll
+      for (int c = 0; c < DC; ++c) fence_regs(acc[c]);
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        fence_regs(dhi[t]);
+        fence_regs(dlo[t]);
+      }
+      mbar_arrive(bar.k_empty(s));
+    }
+  }
+
+  // warpgroup 0 writes dv, warpgroup 1 dk * scale, both (B, Hkv, Sk, D)
+  __nv_bfloat16* const out = wg == 0 ? dv : dk;
+  const float mul = wg == 0 ? 1.f : scale;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int kj = ka + 8 * j;
+    if (kj >= Sk) continue;
+    __nv_bfloat16* row = out + ((static_cast<size_t>(b) * Hkv + hk) * Sk + kj) * D;
+#pragma unroll
+    for (int c = 0; c < DC; ++c)
+#pragma unroll
+      for (int r = 2 * j; r < 32; r += 4) {
+        const int col = c * kChunkCols + frag_col(r, lane);
+        if (col < D)
+          *reinterpret_cast<__nv_bfloat162*>(row + col) = __floats2bfloat162_rn(acc[c][r] * mul, acc[c][r + 1] * mul);
+      }
+  }
+}
+
+template <int D>
+int launch_dkv_tc(const Args& a, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, tdo, tlse, tdelta;
+  const long long rows = static_cast<long long>(a.B) * a.H * tma_rows(a.Sq);
+  int rc = flash_tc::make_tensor_map(&tq, a.q, D, a.Sq, a.H, a.B, a.qsb, a.qsh, a.qss, kDkvTcBQ);
+  if (rc == 0) rc = flash_tc::make_tensor_map(&tdo, a.dout, D, a.Sq, a.H, a.B, a.dsb, a.dsh, a.dss, kDkvTcBQ);
+  if (rc == 0) rc = flash_tc::make_tensor_map(&tk, a.k, D, a.Sk, a.Hkv, a.B, a.ksb, a.ksh, a.kss, kDkvTcBK);
+  if (rc == 0) rc = flash_tc::make_tensor_map(&tv, a.v, D, a.Sk, a.Hkv, a.B, a.vsb, a.vsh, a.vss, kDkvTcBK);
+  if (rc == 0) rc = flash_tc::make_row_map(&tlse, a.lse, rows, kDkvTcBQ);
+  if (rc == 0) rc = flash_tc::make_row_map(&tdelta, a.delta, rows, kDkvTcBQ);
+  if (rc != 0) return rc;
+  const int smem = dkv_tc_smem_bytes(D);
+  auto kern = flash_dkv_tc_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int grid = (a.Sk + kDkvTcBK - 1) / kDkvTcBK * a.Hkv * a.B;
+  kern<<<grid, flash_tc::kThreads, smem, stream>>>(tq, tk, tv, tdo, tlse, tdelta, static_cast<__nv_bfloat16*>(a.dk),
+                                                   static_cast<__nv_bfloat16*>(a.dv), a.B, a.H, a.Hkv, a.Sq, a.Sk,
+                                                   a.kind, a.window, a.softcap, a.scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_dkv_tc_dim(int D, const Args& a, cudaStream_t stream) {
+#define FLASH_DKV_TC_CASE(DD) \
+  case DD:                    \
+    return launch_dkv_tc<DD>(a, stream);
+  switch (D) {
+    FLASH_DKV_TC_CASE(16)
+    FLASH_DKV_TC_CASE(32)
+    FLASH_DKV_TC_CASE(64)
+    FLASH_DKV_TC_CASE(128)
+    FLASH_DKV_TC_CASE(256)
+    default:
+      return -1;
+  }
+#undef FLASH_DKV_TC_CASE
+}
+
 enum Which { kDq = 0, kDkv = 1 };
 
-template <typename T, int D>
+template <int D>
 int launch_typed(int which, const Args& a, cudaStream_t stream) {
   if (which == kDq) {
     const int smem = static_cast<int>(dq_smem_floats(D) * sizeof(float));
-    auto kern = flash_bwd_dq_kernel<T, D>;
+    auto kern = flash_bwd_dq_kernel<D>;
     cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid((a.Sq + kBQ - 1) / kBQ, a.H, a.B);
     kern<<<grid, kThreads, smem, stream>>>(a);
   } else {
     const int smem = static_cast<int>(dkv_smem_floats(D) * sizeof(float));
-    auto kern = flash_bwd_dkv_kernel<T, D>;
+    auto kern = flash_bwd_dkv_kernel<D>;
     cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid((a.Sk + kBK - 1) / kBK, a.Hkv, a.B);
@@ -686,11 +1046,10 @@ int launch_typed(int which, const Args& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
 int launch_dim(int which, int D, const Args& a, cudaStream_t stream) {
 #define FLASH_BWD_CASE(DD) \
   case DD:                 \
-    return launch_typed<T, DD>(which, a, stream);
+    return launch_typed<DD>(which, a, stream);
   switch (D) {
     FLASH_BWD_CASE(16)
     FLASH_BWD_CASE(32)
@@ -705,8 +1064,8 @@ int launch_dim(int which, int D, const Args& a, cudaStream_t stream) {
 
 int launch(int which, int dtype, int D, const Args& a, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_dim<float>(which, D, a, st);
-  if (dtype == 1) return which == kDq ? launch_dq_tc_dim(D, a, st) : launch_dim<__nv_bfloat16>(which, D, a, st);
+  if (dtype == 0) return launch_dim(which, D, a, st);
+  if (dtype == 1) return which == kDq ? launch_dq_tc_dim(D, a, st) : launch_dkv_tc_dim(D, a, st);
   return -1;
 }
 
@@ -716,9 +1075,10 @@ int launch(int which, int dtype, int D, const Args& a, void* stream) {
 // and dout are in one dtype (0 float32, 1 bfloat16) and take any strides
 // with a contiguous head dimension; lse and delta are contiguous float32
 // (B, H, Sq); dq is written contiguous (B, H, Sq, D) and dk, dv contiguous
-// (B, Hkv, Sk, D), in the inputs' dtype. Each returns the cudaError_t of its
-// launch, or -1 for a head dimension or dtype that the file has no instance
-// of.
+// (B, Hkv, Sk, D), in the inputs' dtype. The bfloat16 dK/dV kernel reads lse
+// and delta as contiguous (B, H, tma_rows(Sq)) instead, 16-byte aligned. Each
+// returns the cudaError_t of its launch, or -1 for a head dimension or dtype
+// that the file has no instance of.
 extern "C" int flash_bwd_dq_launch(const void* q, const void* k, const void* v, const void* dout,
                                    const float* lse, const float* delta, void* dq,
                                    int B, int H, int Hkv, int Sq, int Sk, int D,

@@ -1,28 +1,35 @@
 // Building blocks of the bfloat16 tensor-core route of the flash-attention
-// kernels for Hopper (sm_90a): flash_fwd.cu's forward and flash_bwd.cu's dQ.
-// Inline PTX only (no CUTLASS or CuTe), so a build takes seconds.
+// kernels for Hopper (sm_90a): flash_fwd.cu's forward and flash_bwd.cu's dQ
+// and dK/dV. Inline PTX only (no CUTLASS or CuTe), so a build takes seconds.
 //
-// Both kernels share one shape. A block owns one (b, h, 128-row q tile) and
-// runs 256 threads: two warpgroups of 64 q rows each, and no producer warp.
-// ptxas budgets registers for whole warpgroups and, in this toolchain, does
-// not raise a region's budget past the launch's for setmaxnreg, so a
-// producer warp would cut every thread to 168 registers, and the 64 x D
-// float32 accumulator (128 a thread at D = 256), the score tiles and the
-// softmax's temporaries would spill. Thread 0 issues the TMA loads instead:
-// the q tile (and dO) and the first K/V tile up front, then each later tile
-// one iteration ahead, right after its warpgroup has issued that iteration's
-// asynchronous wgmma, into the stage that both warpgroups have released
-// (load_stage). Each of the kStages stages has four mbarriers (K full, V
-// full, K empty, V empty), so a K tile is refilled as soon as the
+// The forward and dQ share one shape. A block owns one (b, h, 128-row q
+// tile) and runs 256 threads: two warpgroups of 64 q rows each, and no
+// producer warp. ptxas budgets registers for whole warpgroups and, in this
+// toolchain, does not raise a region's budget past the launch's for
+// setmaxnreg, so a producer warp would cut every thread to 168 registers,
+// and the 64 x D float32 accumulator (128 a thread at D = 256), the score
+// tiles and the softmax's temporaries would spill. Thread 0 issues the TMA
+// loads instead: the q tile (and dO) and the first K/V tile up front, then
+// each later tile one iteration ahead, right after its warpgroup has issued
+// that iteration's asynchronous wgmma, into the stage that both warpgroups
+// have released (load_stage). Each of the kStages stages has four mbarriers
+// (K full, V full, K empty, V empty), so a K tile is refilled as soon as the
 // warpgroups are done with it, before they are done with its V tile.
+//
+// dK/dV turns the shape around: a block owns one (b, kv head, 64-key tile)
+// whose K and V stay in shared memory, and the ring streams the 64-row Q and
+// dO tiles of the GQA group instead, each with its rows' float32 lse or
+// delta (a 1-D tensor map, load_stage_rows). Its two warpgroups split the
+// work by accumulator, not by rows, and hand one float32 tile to each other
+// through shared memory under named barriers (named_sync, named_arrive).
 //
 // The scores S = Q.K^T (and dP = dO.V^T) read both operands from shared
 // memory, K-major; the second product (P.V, or dS.K) takes A from registers,
 // the score accumulator rounded to bfloat16 in its own fragment layout, and
 // B (V or K) from shared memory, MN-major (the transpose bit set), in one
 // instruction for the whole head dimension. Every sum is float32. The two
-// warpgroups take turns issuing their scores' products (pingpong_*), so one
-// forms its softmax while the other's products run.
+// warpgroups of the forward and dQ take turns issuing their scores' products
+// (pingpong_*), so one forms its softmax while the other's products run.
 //
 // Layout. Every TMA box is 64 columns (128 bytes, one 128-byte swizzle span)
 // by R rows, so a tile of R rows and D columns lies in shared memory as
@@ -155,6 +162,14 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], "
       "[%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// box at coordinate c0 of a 1-D tensor map into dst
+__device__ __forceinline__ void tma_load_1d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3}], [%2];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0)
       : "memory");
 }
 
@@ -336,6 +351,24 @@ inline int make_tensor_map(CUtensorMap* map, const void* base, int D, int S, int
   return r == CUDA_SUCCESS ? 0 : kErrTensorMap + static_cast<int>(r);
 }
 
+// The float32 vector of n entries at `base` (one value per row of a (B, H,
+// S) tensor, flattened) as a 1-D tensor map whose box is box_rows entries;
+// entries past n read as zeros. TMA reads a box only from a 16-byte-aligned
+// start (a coordinate that is a multiple of 4 here); any other start faults
+// at run time. Returns 0 or a launch code.
+inline int make_row_map(CUtensorMap* map, const float* base, long long n, int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return kErrNoEncoder;
+  const cuuint64_t dims[1] = {static_cast<cuuint64_t>(n)};
+  const cuuint64_t strides[1] = {0};  // rank 1 has no stride; never read
+  const cuuint32_t box[1] = {static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem_strides[1] = {1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<float*>(base), dims, strides, box,
+                            elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                            CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kErrTensorMap + static_cast<int>(r);
+}
+
 // The `rows`-row tile at key row k0 of kv head hk (all its 64-column chunks)
 // into dst, completing on the barrier `full`.
 template <int DC>
@@ -346,6 +379,13 @@ __device__ __forceinline__ void load_tile(const CUtensorMap* map, uint32_t full,
   for (int c = 0; c < DC; ++c) tma_load_4d(dst + c * rows * 2 * kChunkCols, map, full, c * kChunkCols, k0, hk, b);
 }
 
+// Named barrier `id` (1..15; 0 is __syncthreads) over the block's 256
+// threads: named_sync waits until all 256 have arrived, named_arrive counts
+// in without waiting. Shared-memory writes before an arrival are visible to
+// the threads that the barrier's sync releases.
+__device__ __forceinline__ void named_sync(int id) { asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory"); }
+__device__ __forceinline__ void named_arrive(int id) { asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory"); }
+
 // Ping-pong of the two warpgroups (as in FlashAttention-3): the barrier of
 // warpgroup w (named barrier 1 + w, 256 threads) passes when w has waited on
 // it and the other warpgroup has arrived. Each warpgroup waits on its own
@@ -353,12 +393,8 @@ __device__ __forceinline__ void load_tile(const CUtensorMap* map, uint32_t full,
 // through, so the two issue them in turns and one's softmax runs while the
 // other's products occupy the tensor cores. Warpgroup 1 lets 0 through
 // first; 0 takes 1's last pass after its loop, so both barriers end empty.
-__device__ __forceinline__ void pingpong_wait(int wg) {
-  asm volatile("bar.sync %0, 256;\n" ::"r"(1 + wg) : "memory");
-}
-__device__ __forceinline__ void pingpong_pass(int wg) {
-  asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - wg) : "memory");
-}
+__device__ __forceinline__ void pingpong_wait(int wg) { named_sync(1 + wg); }
+__device__ __forceinline__ void pingpong_pass(int wg) { named_arrive(2 - wg); }
 
 // Loads tile t (`rows` key rows from key0) into its stage at dst once the
 // block has released the tile kStages before it there (barrier `empty`).
@@ -367,6 +403,21 @@ __device__ __forceinline__ void load_stage(const CUtensorMap* map, uint32_t full
                                            int rows, int key0, int hk, int b) {
   if (t >= kStages) mbar_wait(empty, (t / kStages - 1) & 1);
   load_tile<DC>(map, full, dst, rows, key0, hk, b);
+}
+
+// Loads ring tile t, the `rows`-row tile at row r0 of head h and its rows'
+// float32 values at flat index `row` (a 1-D map), into its stage at dst and
+// row_dst once the block has released the tile kStages before it there
+// (barrier `empty`); both complete on `full`.
+template <int DC>
+__device__ __forceinline__ void load_stage_rows(const CUtensorMap* map, const CUtensorMap* row_map, uint32_t full,
+                                                uint32_t empty, uint32_t dst, uint32_t row_dst, int t, int rows,
+                                                int r0, int h, int b, int row) {
+  if (t >= kStages) mbar_wait(empty, (t / kStages - 1) & 1);
+  mbar_expect_tx(full, DC * rows * 2 * kChunkCols + rows * 4);
+#pragma unroll
+  for (int c = 0; c < DC; ++c) tma_load_4d(dst + c * rows * 2 * kChunkCols, map, full, c * kChunkCols, r0, h, b);
+  tma_load_1d(row_dst, row_map, full, row);
 }
 
 }  // namespace flash_tc

@@ -4,10 +4,9 @@ beside their plain PyTorch versions.
 ``flash_attention`` launches ``csrc/flash_fwd.cu`` on CUDA tensors and runs
 the plain version, :func:`flash_attention_ref`, on CPU tensors; it never falls
 back from one to the other. The CUDA kernels take two routes by the inputs'
-dtype: float32 runs on the CUDA cores in float32; bfloat16 runs the forward
-and dQ on the tensor cores (``wgmma``, with TMA-fed K/V stages;
-``csrc/flash_tc.cuh``), while dK/dV keeps the CUDA-core kernel for both
-dtypes. It returns what the JAX package's
+dtype: float32 runs on the CUDA cores in float32; bfloat16 runs the forward,
+dQ and dK/dV on the tensor cores (``wgmma``, with TMA-fed rings of K/V or, for
+dK/dV, Q/dO stages; ``csrc/flash_tc.cuh``). It returns what the JAX package's
 ``kernels/flash_attention.py::_fwd`` returns, ``(o, lse)``: the TPU kernel
 ``_fwd_kernel`` is what the forward replaces. Layout as there: q
 ``(B, H, Sq, D)``, k and v ``(B, Hkv, Sk, D)``, the kv head of query head
@@ -21,11 +20,11 @@ When an input requires a gradient, ``flash_attention`` goes through a
 CUDA tensors and runs :func:`flash_attention_bwd_ref` on CPU tensors.
 
 ``launches``, ``launches_dq`` and ``launches_dkv`` count the launches of the
-forward, dQ and dK/dV kernels, and only those; ``launches_fwd_tc`` and
-``launches_dq_tc`` count the tensor-core route's share of the first two. A
-run shows that it went through a kernel by reading its count before and
-after. Every kernel is built by :mod:`repro_torch.kernels.build` at its
-first launch.
+forward, dQ and dK/dV kernels, and only those; ``launches_fwd_tc``,
+``launches_dq_tc`` and ``launches_dkv_tc`` count the tensor-core route's share
+of each. A run shows that it went through a kernel by reading its count
+before and after. Every kernel is built by :mod:`repro_torch.kernels.build`
+at its first launch.
 """
 
 from __future__ import annotations
@@ -49,6 +48,8 @@ __all__ = [
     "flash_attention_ref",
     "flash_bwd_smem_bytes",
     "flash_bwd_tile_sizes",
+    "flash_dkv_tc_smem_bytes",
+    "flash_dkv_tc_tile_sizes",
     "flash_dq_tc_smem_bytes",
     "flash_dq_tc_tile_sizes",
     "flash_mask",
@@ -58,6 +59,7 @@ __all__ = [
     "flash_tile_sizes",
     "launches",
     "launches_dkv",
+    "launches_dkv_tc",
     "launches_dq",
     "launches_dq_tc",
     "launches_fwd_tc",
@@ -78,6 +80,10 @@ TC_BLOCK_Q = 128  # query rows per block of the forward (kTcBQ in csrc/flash_fwd
 TC_BLOCK_K = 64  # keys per K/V stage of the forward (kTcBK)
 DQ_TC_BLOCK_Q = 128  # query rows per block of dQ (kDqTcBQ in csrc/flash_bwd.cu)
 DQ_TC_BLOCK_K = 32  # keys per K/V stage of dQ (kDqTcBK)
+# dK/dV turns the shape around: a block owns DKV_TC_BLOCK_K keys (K and V
+# resident) and streams the GQA group's DKV_TC_BLOCK_Q-row Q and dO tiles.
+DKV_TC_BLOCK_Q = 64  # query rows per Q/dO stage of dK/dV (kDkvTcBQ in csrc/flash_bwd.cu)
+DKV_TC_BLOCK_K = 64  # keys per block of dK/dV (kDkvTcBK)
 TC_STAGES = 2  # kStages in csrc/flash_tc.cuh
 TC_SMEM_ALIGN = 1024  # kSmemAlign: the 128-byte swizzle repeats every 1024 bytes
 TC_BARRIER_BYTES = 128  # kBarrierBytes: the q tile's and each stage's mbarriers
@@ -91,9 +97,10 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 launches = 0
 launches_dq = 0
 launches_dkv = 0
-# of which on the bfloat16 tensor-core route: forward, dQ
+# of which on the bfloat16 tensor-core route: forward, dQ, dK/dV
 launches_fwd_tc = 0
 launches_dq_tc = 0
+launches_dkv_tc = 0
 
 
 def flash_smem_bytes(D: int) -> int:
@@ -164,6 +171,17 @@ def flash_dq_tc_smem_bytes(D: int) -> int:
             + TC_BARRIER_BYTES)
 
 
+def flash_dkv_tc_smem_bytes(D: int) -> int:
+    """Shared memory of one block of the tensor-core dK/dV kernel: the
+    resident K and V tiles, ``TC_STAGES`` stages of Q and dO tiles, the
+    float32 tile the two warpgroups exchange (one per stage), each stage's
+    lse and delta, the alignment slack and the barriers (``dkv_tc_smem_bytes``
+    in csrc/flash_bwd.cu)."""
+    BQ, BK = DKV_TC_BLOCK_Q, DKV_TC_BLOCK_K
+    return (TC_SMEM_ALIGN + 2 * _tc_tile_bytes(BK, D) + TC_STAGES * 2 * _tc_tile_bytes(BQ, D)
+            + TC_STAGES * BK * BQ * 4 + TC_STAGES * 2 * BQ * 4 + TC_BARRIER_BYTES)
+
+
 def _tc_tiles(D, need, tiles, smem_budget, what):
     if D not in HEAD_DIMS:
         raise ValueError(f"head dim {D} not supported by the {what} kernel; supported: {HEAD_DIMS}")
@@ -188,6 +206,16 @@ def flash_dq_tc_tile_sizes(D: int, smem_budget: int = SMEM_OPTIN_BYTES):
     whose tiles would not fit ``smem_budget`` (at D = 256 they take 197,760
     bytes)."""
     return _tc_tiles(D, flash_dq_tc_smem_bytes(D), (DQ_TC_BLOCK_Q, DQ_TC_BLOCK_K), smem_budget, "tensor-core dQ")
+
+
+def flash_dkv_tc_tile_sizes(D: int, smem_budget: int = SMEM_OPTIN_BYTES):
+    """``(Bq, Bk)`` of the tensor-core dK/dV kernel for head dimension ``D``:
+    64-row Q/dO stages by 64 keys (wgmma's row count), dV and dK in different
+    warpgroups' registers. Raises for a ``D`` it is not built for or whose
+    tiles would not fit ``smem_budget`` (at D = 256 they take 231,552
+    bytes)."""
+    return _tc_tiles(D, flash_dkv_tc_smem_bytes(D), (DKV_TC_BLOCK_Q, DKV_TC_BLOCK_K), smem_budget,
+                     "tensor-core dK/dV")
 
 
 def flash_mask(Sq: int, Sk: int, kind: str, window: int, device=None) -> torch.Tensor:
@@ -414,9 +442,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, kind="causal", window=0, softcap=0.
     PyTorch (the reference also forms it outside its kernels) and launches
     the dQ kernel and then the dK/dV kernel on the current stream; ``do``
     without a contiguous last axis (or, in bfloat16, that TMA cannot read) is
-    made contiguous first. bfloat16 dQ runs on the tensor cores. On CPU tensors
-    it returns :func:`flash_attention_bwd_ref`. dq comes in q's dtype and
-    shape, dk and dv in k's.
+    made contiguous first. bfloat16 runs both on the tensor cores. On CPU
+    tensors it returns :func:`flash_attention_bwd_ref`. dq comes in q's dtype
+    and shape, dk and dv in k's.
     """
     _check_inputs(q, k, v, kind)
     B, H, Sq, D = q.shape
@@ -429,9 +457,13 @@ def flash_attention_bwd(q, k, v, o, lse, do, kind="causal", window=0, softcap=0.
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, o, lse, do, kind, window, softcap, scale)
     _check_launch(q, k, v, window)
-    flash_bwd_tile_sizes(D)
     if q.dtype == torch.bfloat16:
         flash_dq_tc_tile_sizes(D)
+        flash_dkv_tc_tile_sizes(D)
+        if B * H * (Sq + 3) >= 2**31:
+            raise ValueError(f"B*H*Sq = {B * H * Sq} rows of lse: the dK/dV kernel indexes them with 32 bits")
+    else:
+        flash_bwd_tile_sizes(D)
     do, delta = _bwd_rows(o, do)
     (dq,) = _launch_bwd("dq", q, k, v, do, lse, delta, kind, window, softcap, scale)
     dk, dv = _launch_bwd("dkv", q, k, v, do, lse, delta, kind, window, softcap, scale)
@@ -447,18 +479,39 @@ def _bwd_rows(o, do):
     return do, (do.float() * o.float()).sum(dim=-1).contiguous()
 
 
+def _tma_rows(x):
+    """The contiguous float32 ``(B, H, Sq)`` tensor ``x`` as the bfloat16
+    dK/dV kernel reads it with TMA: ``(B, H, Sq)`` rounded up to a multiple
+    of 4 rows (each q tile's 64 values then start 16-byte aligned; the
+    padding is zeros and is never used), on a 16-byte-aligned base
+    (``tma_rows`` in csrc/flash_bwd.cu). Copies only where ``x`` is not so
+    already."""
+    pad = -x.shape[-1] % 4
+    if pad:
+        return torch.nn.functional.pad(x, (0, pad))
+    return x if x.data_ptr() % TMA_ALIGN == 0 else x.clone()
+
+
 def _launch_bwd(which, q, k, v, do, lse, delta, kind, window, softcap, scale):
     """One backward kernel on checked inputs: ``"dq"`` -> ``(dq,)``,
-    ``"dkv"`` -> ``(dk, dv)``; counts the launch."""
-    global launches_dq, launches_dkv, launches_dq_tc
+    ``"dkv"`` -> ``(dk, dv)``; counts the launch. The bfloat16 kernels read
+    q, k, v and ``do`` with TMA (it raises where TMA cannot), and dK/dV also
+    ``lse`` and ``delta`` (:func:`_tma_rows`)."""
+    global launches_dq, launches_dkv, launches_dq_tc, launches_dkv_tc
     B, H, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
+    tc = q.dtype == torch.bfloat16
     if which == "dq":
         outs = (torch.empty((B, H, Sq, D), dtype=q.dtype, device=q.device),)
     else:
         outs = tuple(torch.empty((B, Hkv, Sk, D), dtype=k.dtype, device=q.device) for _ in range(2))
     launch = _bwd_launch_fns()[which == "dkv"]
     lse = lse.contiguous()
+    if tc:
+        for name, x in (("q", q), ("k", k), ("v", v), ("do", do)):
+            _check_tma(x, name)
+        if which == "dkv":
+            lse, delta = _tma_rows(lse), _tma_rows(delta)
     with torch.cuda.device(q.device):
         rc = launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
@@ -471,9 +524,10 @@ def _launch_bwd(which, q, k, v, do, lse, delta, kind, window, softcap, scale):
         raise RuntimeError(f"flash_bwd_{which}_launch failed: code {rc} ({_shapes(q, k)}, kind={kind})")
     if which == "dq":
         launches_dq += 1
-        launches_dq_tc += q.dtype == torch.bfloat16
+        launches_dq_tc += tc
     else:
         launches_dkv += 1
+        launches_dkv_tc += tc
     return outs
 
 

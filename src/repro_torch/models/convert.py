@@ -27,15 +27,17 @@ def config_from_jax(jcfg) -> ModelConfig:
     return ModelConfig(**fields)
 
 
-def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
-    """A tensor with a copy of the array's values, in its dtype (bfloat16
-    arrays, which numpy holds as ``ml_dtypes.bfloat16``, keep their bits)."""
+def tensor_from_numpy(a, device="cuda") -> torch.Tensor:
+    """A tensor on ``device`` (the card unless the caller asks for the CPU)
+    with a copy of the array's values, in its dtype (bfloat16 arrays, which
+    numpy holds as ``ml_dtypes.bfloat16``, keep their bits)."""
+    dev = resolve_device(device)
     a = np.array(a)
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
     else:
         t = torch.from_numpy(a)
-    return t.to(device)
+    return t.to(dev)
 
 
 def _map(tree, fn):

@@ -4,9 +4,10 @@ argmins); the flash-attention forward at rtol = atol = 2e-5 for float32 and
 2e-2 for bfloat16 I/O (the reference's forward tolerances), and its bfloat16
 tensor-core route within the limit its roundings give; the dQ and dK/dV
 kernels at the reference's gradient tolerance (rtol 3e-4, atol 3e-5) for
-float32 and within 2^-8 relative of the plain version's float32 gradients
-for bfloat16 I/O; the prefill and a training step of a SMOKE model on the
-kernel route against the plain route, and the launches of a step.
+float32 and, on the tensor cores, within 2^-8 relative of the plain
+version's float32 gradients for bfloat16 I/O; the prefill and a training
+step of a SMOKE model on the kernel route against the plain route, and the
+launches of a step.
 
 Every test here needs a CUDA card and ``nvcc`` (the kernel has no CPU mode),
 is marked ``cuda`` and skips without them. The file imports no JAX, so it
@@ -157,8 +158,7 @@ def test_cuda_tc_forward_matches_plain(cuda, D, S, kind, window, softcap, H, Hkv
 ])
 def test_cuda_tc_dq_matches_plain(cuda, D, S, kind, window, softcap, H, Hkv):
     """The bfloat16 tensor-core dQ kernel within 2^-8 relative + 1e-5 of the
-    largest entry of the plain version's float32 dq; dK/dV stays on the CUDA
-    cores."""
+    largest entry of the plain version's float32 dq."""
     rng = np.random.default_rng(S + D + 8)
     q, k, v, o, lse, do = _bwd_inputs(rng, 1, H, Hkv, S, D, torch.bfloat16, cuda, kind, window, softcap)
     before = (fa.launches_dq, fa.launches_dq_tc, fa.launches_dkv)
@@ -168,6 +168,59 @@ def test_cuda_tc_dq_matches_plain(cuda, D, S, kind, window, softcap, H, Hkv):
     want = fa.flash_attention_bwd_ref(*(x.float() for x in (q, k, v, o)), lse, do.float(), kind, window, softcap)[0]
     assert dq.dtype == torch.bfloat16
     torch.testing.assert_close(dq.float(), want, rtol=2.0 ** -8, atol=1e-5 * want.abs().max().item())
+
+
+@pytest.mark.parametrize("D", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("S,kind,window,softcap,H,Hkv", [
+    (200, "causal", 0, 50.0, 4, 2), (640, "sliding", 37, 50.0, 4, 1), (333, "bidirectional", 0, 0.0, 2, 2),
+])
+def test_cuda_tc_dkv_matches_plain(cuda, D, S, kind, window, softcap, H, Hkv):
+    """The bfloat16 tensor-core dK/dV kernel within 2^-8 relative + 1e-5 of
+    the largest entry of the plain version's float32 dk and dv, at every head
+    dimension it is built for."""
+    rng = np.random.default_rng(S + D + 10)
+    q, k, v, o, lse, do = _bwd_inputs(rng, 1, H, Hkv, S, D, torch.bfloat16, cuda, kind, window, softcap)
+    before = (fa.launches_dkv, fa.launches_dkv_tc)
+    _, dk, dv = fa.flash_attention_bwd(q, k, v, o, lse, do, kind, window, softcap)
+    torch.cuda.synchronize()
+    assert (fa.launches_dkv, fa.launches_dkv_tc) == (before[0] + 1, before[1] + 1)
+    want = fa.flash_attention_bwd_ref(*(x.float() for x in (q, k, v, o)), lse, do.float(), kind, window, softcap)[1:]
+    for g, w in zip((dk, dv), want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        torch.testing.assert_close(g.float(), w, rtol=2.0 ** -8, atol=1e-5 * w.abs().max().item())
+
+
+def test_cuda_tc_dkv_takes_ragged_kv_and_a_misaligned_lse(cuda):
+    """bfloat16 (B, S, H, D) views through transpose(1, 2), Sq != Sk, rows
+    with no key in their window (every q tile reaches every key tile), and
+    an lse whose base is not 16-byte aligned (copied before TMA reads it)."""
+    rng = np.random.default_rng(11)
+    q, k, v = (torch.from_numpy(rng.normal(size=(2, S, h, 64)).astype(np.float32)).to(cuda, torch.bfloat16)
+               .transpose(1, 2) for S, h in ((150, 4), (70, 2), (70, 2)))
+    o, lse = fa.flash_attention(q, k, v, "sliding", 16, 0.0)
+    lse = torch.cat([torch.zeros(1, device=cuda), lse.flatten()])[1:].view(lse.shape)
+    assert lse.data_ptr() % fa.TMA_ALIGN
+    do = torch.from_numpy(rng.normal(size=(2, 4, 150, 64)).astype(np.float32)).to(cuda, torch.bfloat16)
+    before = fa.launches_dkv_tc
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, "sliding", 16, 0.0)[1:]
+    assert fa.launches_dkv_tc == before + 1
+    want = fa.flash_attention_bwd_ref(*(x.float() for x in (q, k, v, o)), lse, do.float(), "sliding", 16, 0.0)[1:]
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.float(), w, rtol=2.0 ** -8, atol=1e-5 * w.abs().max().item())
+
+
+def test_cuda_float32_dkv_stays_on_the_cuda_cores(cuda):
+    """float32 I/O keeps the CUDA-core dK/dV kernel, at the reference's
+    gradient tolerance: no tensor-core launch."""
+    rng = np.random.default_rng(12)
+    q, k, v, o, lse, do = _bwd_inputs(rng, 1, 4, 2, 200, 128, torch.float32, cuda, "causal", 0, 50.0)
+    before = (fa.launches_dkv, fa.launches_dkv_tc, fa.launches_dq_tc)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, "causal", 0, 50.0)
+    torch.cuda.synchronize()
+    assert (fa.launches_dkv, fa.launches_dkv_tc, fa.launches_dq_tc) == (before[0] + 1, before[1], before[2])
+    want = fa.flash_attention_bwd_ref(q, k, v, o, lse, do, "causal", 0, 50.0)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=3e-4, atol=3e-5)
 
 
 def test_cuda_tc_takes_strided_views_and_ragged_kv(cuda):

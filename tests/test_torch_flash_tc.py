@@ -1,17 +1,18 @@
 """The bfloat16 tensor-core route of the flash kernels, on the CPU.
 
 The Hopper kernels of that route (``csrc/flash_tc.cuh``, the forward in
-``csrc/flash_fwd.cu`` and dQ in ``csrc/flash_bwd.cu``) run only on the card,
-where ``chip_smoke.py`` and ``tests/test_torch_cuda.py`` hold them against the
-plain versions. Here the parts around them are checked: the tile and
-shared-memory choice against the CUDA sources' constants, the check of what
-TMA can read, and the limits the card's check applies. For the limits, an
-emulation of each kernel's arithmetic (its tiles and tile range, the online
-softmax in float32, P rounded to bfloat16 once before P.V; dS carried to the
-tensor cores as two bfloat16 parts) lies within them on small grid cases,
-an emulation with one tile dropped breaks the forward's lse limit, and the
-emulations agree with the JAX package's ``_fwd`` and ``_bwd`` (Pallas in
-interpret mode) on the same inputs from numpy seeds.
+``csrc/flash_fwd.cu``, dQ and dK/dV in ``csrc/flash_bwd.cu``) run only on the
+card, where ``chip_smoke.py`` and ``tests/test_torch_cuda.py`` hold them
+against the plain versions. Here the parts around them are checked: the tile
+and shared-memory choice against the CUDA sources' constants, the check of
+what TMA can read, and the limits the card's check applies. For the limits,
+an emulation of each kernel's arithmetic (its tiles and tile range, the
+online softmax in float32, P rounded to bfloat16 once before P.V; dS, and in
+dK/dV also P, carried to the tensor cores as two bfloat16 parts) lies within
+them on small grid cases, an emulation with one tile dropped breaks the
+forward's lse limit, each single rounding the backward kernels avoid breaks
+their limit, and the emulations agree with the JAX package's ``_fwd`` and
+``_bwd`` (Pallas in interpret mode) on the same inputs from numpy seeds.
 """
 
 import importlib.util
@@ -134,6 +135,69 @@ def tc_dq(q, k, v, o, lse, do, kind, window, softcap, split=True):
     return dq * scale
 
 
+def dkv_tile_range(k0, k1, Sq, Sk, kind, window, BQ):
+    """The q tiles ``[lo, hi)`` the dK/dV kernels visit for keys ``[k0, k1)``
+    (csrc/flash_bwd.cu, both routes): from the causal diagonal to the
+    window's last row, or every tile where a sliding row sees no key."""
+    nq = -(-Sq // BQ)
+    lo, hi = 0, nq
+    if kind != "bidirectional":
+        lo = k0 // BQ
+        if kind == "sliding":
+            if window < 1 or Sq - 1 > Sk + window - 2:
+                lo = 0
+            else:
+                hi = min(nq, (k1 + window - 2) // BQ + 1)
+    return lo, hi
+
+
+def _parts(x, split):
+    """x as the tensor cores take it: bfloat16 hi, and with ``split`` also
+    the bfloat16 lo = bf16(x - hi)."""
+    hi = x.bfloat16().float()
+    return (hi, (x - hi).bfloat16().float()) if split else (hi,)
+
+
+def tc_dkv(q, k, v, o, lse, do, kind, window, softcap, split_p=True, split_ds=True):
+    """The tensor-core dK/dV kernel's arithmetic on float32 tensors holding
+    bfloat16 values: per DKV_TC_BLOCK_K-key tile, the DKV_TC_BLOCK_Q-row q
+    tiles of its range, S^T and dP^T in float32, p and p (1 - tanh^2) as
+    ``pair_grad`` forms them (0 where masked), dS^T = p (1 - tanh^2)
+    (dP^T - delta); P^T.dO and dS^T.Q with P and dS as hi + lo bfloat16 parts
+    (or, with ``split_p`` / ``split_ds`` False, rounded to bfloat16 once),
+    summed over the GQA group; q's scale in float32 on S^T and on dk. Returns
+    (dk, dv) in float32, before the output's rounding."""
+    B, H, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    G = H // Hkv
+    BQ, BK, scale = fa.DKV_TC_BLOCK_Q, fa.DKV_TC_BLOCK_K, D ** -0.5
+    q5, do5 = (x.reshape(B, Hkv, G, Sq, D) for x in (q, do))
+    lse5 = lse.reshape(B, Hkv, G, Sq)
+    delta5 = (do * o).sum(-1).reshape(B, Hkv, G, Sq)
+    mask = fa.flash_mask(Sq, Sk, kind, window)
+    dk, dv = torch.zeros(B, Hkv, Sk, D), torch.zeros(B, Hkv, Sk, D)
+    for k0 in range(0, Sk, BK):
+        k1 = min(k0 + BK, Sk)
+        kt, vt = k[:, :, None, k0:k1], v[:, :, None, k0:k1]
+        lo, hi = dkv_tile_range(k0, k1, Sq, Sk, kind, window, BQ)
+        for it in range(lo, hi):
+            q0, q1 = it * BQ, min(it * BQ + BQ, Sq)
+            s = (kt @ q5[..., q0:q1, :].transpose(-1, -2)) * scale  # (B, Hkv, G, keys, q rows)
+            dcap = 1.0
+            if softcap:
+                t = torch.tanh(s / softcap)
+                s, dcap = softcap * t, 1 - t * t
+            keep = mask[q0:q1, k0:k1].T
+            p = torch.exp(torch.where(keep, s, fa.NEG_INF) - lse5[..., None, q0:q1])
+            ds = torch.where(keep, p * dcap, 0.0) * (vt @ do5[..., q0:q1, :].transpose(-1, -2)
+                                                     - delta5[..., None, q0:q1])
+            for part in _parts(p, split_p):
+                dv[:, :, k0:k1] += (part @ do5[..., q0:q1, :]).sum(2)
+            for part in _parts(ds, split_ds):
+                dk[:, :, k0:k1] += (part @ q5[..., q0:q1, :]).sum(2)
+    return dk * scale, dv
+
+
 # (B, H, Hkv, S, D, kind, window, softcap): ragged and whole lengths, every
 # mask kind, softcap 0 and 50, G in {1, 2, 4}
 GRID = [(1, 4, 4 // G, S, D, kind, window, softcap)
@@ -222,22 +286,79 @@ def test_tc_dq_matches_reference_bwd():
     np.testing.assert_allclose(got.numpy(), want, rtol=3e-4, atol=3e-5)
 
 
+def _within(got, want):
+    rtol, atol = chip_smoke.bwd_limits(want, torch.bfloat16)
+    return bool(((got - want).abs() <= atol + rtol * want.abs()).all())
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,D,kind,window,softcap", GRID)
+def test_tc_dkv_split_rounding_is_within_the_chip_limit(B, H, Hkv, S, D, kind, window, softcap):
+    """P and dS as hi + lo bfloat16 parts keep dk and dv within chip_smoke's
+    unchanged limit (2^-8 relative + 1e-5 of the largest entry) of the plain
+    version's float32 gradients, and so does the outputs' one rounding on
+    top."""
+    q, k, v, o, lse, do = _bwd_case(S + D, H, Hkv, S, D, kind, window, softcap)
+    want = fa.flash_attention_bwd_ref(q, k, v, o, lse, do, kind, window, softcap)[1:]
+    for got, w in zip(tc_dkv(q, k, v, o, lse, do, kind, window, softcap), want):
+        assert _within(got, w) and _within(got.bfloat16().float(), w)
+
+
+@pytest.mark.parametrize("S,D,G,kind,window,softcap", [
+    (200, 32, 2, "causal", 0, 50.0), (640, 16, 4, "sliding", 37, 50.0), (640, 32, 1, "bidirectional", 0, 0.0),
+])
+@pytest.mark.parametrize("rounded_once", ["p", "ds"])
+def test_tc_dkv_single_rounding_breaks_the_chip_limit(S, D, G, kind, window, softcap, rounded_once):
+    """P rounded to bfloat16 once breaks dv's limit and dS rounded once
+    breaks dk's, where the sums over q cancel (dO and dS take both signs);
+    the other gradient stays within its limit. This is why the kernel
+    splits both."""
+    q, k, v, o, lse, do = _bwd_case(S + D, 4, 4 // G, S, D, kind, window, softcap)
+    want_dk, want_dv = fa.flash_attention_bwd_ref(q, k, v, o, lse, do, kind, window, softcap)[1:]
+    dk, dv = tc_dkv(q, k, v, o, lse, do, kind, window, softcap, split_p=rounded_once != "p",
+                    split_ds=rounded_once != "ds")
+    broken, kept = ((dv, want_dv), (dk, want_dk)) if rounded_once == "p" else ((dk, want_dk), (dv, want_dv))
+    assert not _within(*broken) and _within(*kept)
+
+
+def test_tc_dkv_matches_reference_bwd():
+    """The emulated tensor-core dK/dV against the reference's ``_bwd`` (dk,
+    dv) on the same inputs and the reference's own ``o`` and ``lse``, at the
+    reference's gradient tolerance."""
+    rng = np.random.default_rng(4)
+    q, k, v = make_qkv(rng, 1, 4, 2, 256, 32)
+    do = torch.from_numpy(rng.normal(size=q.shape).astype(np.float32))
+    scale = 32 ** -0.5
+    jq, jk, jv, jdo = (jnp.asarray(x.numpy()) for x in (q, k, v, do))
+    o_j, lse_j = _fwd(jq, jk, jv, "sliding", 100, 30.0, scale, 128, 64, True)
+    want = _bwd(jq, jk, jv, o_j, lse_j, jdo, "sliding", 100, 30.0, scale, 128, 64, True)[1:]
+    got = tc_dkv(q, k, v, torch.from_numpy(np.array(o_j)), torch.from_numpy(np.array(lse_j)), do, "sliding", 100,
+                 30.0)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=3e-4, atol=3e-5)
+
+
 def test_tc_tile_choice_fits_shared_memory():
     for D in fa.HEAD_DIMS:
         assert fa.flash_tc_tile_sizes(D) == (fa.TC_BLOCK_Q, fa.TC_BLOCK_K) == (128, 64)
         assert fa.flash_dq_tc_tile_sizes(D) == (fa.DQ_TC_BLOCK_Q, fa.DQ_TC_BLOCK_K) == (128, 32)
+        assert fa.flash_dkv_tc_tile_sizes(D) == (fa.DKV_TC_BLOCK_Q, fa.DKV_TC_BLOCK_K) == (64, 64)
         assert fa.flash_tc_smem_bytes(D) <= fa.SMEM_OPTIN_BYTES
         assert fa.flash_dq_tc_smem_bytes(D) <= fa.SMEM_OPTIN_BYTES
+        assert fa.flash_dkv_tc_smem_bytes(D) <= fa.SMEM_OPTIN_BYTES
     assert fa.flash_tc_smem_bytes(256) == fa.flash_dq_tc_smem_bytes(256) == 197_760
+    # K, V, 2 stages of Q and dO, 2 float32 64 x 64 exchange tiles, 2 stages of lse and delta
+    assert fa.flash_dkv_tc_smem_bytes(256) == 1024 + 2 * 32_768 + 2 * 2 * 32_768 + 2 * 16_384 + 2 * 512 + 128
+    assert fa.flash_dkv_tc_smem_bytes(256) == 231_552
     assert fa.flash_tc_smem_bytes(16) == 1024 + 16_384 + 2 * 2 * 8_192 + 128  # D < 64 takes a whole 64-column chunk
     for D in (8, 48, 512):
-        for tiles in (fa.flash_tc_tile_sizes, fa.flash_dq_tc_tile_sizes):
+        for tiles in (fa.flash_tc_tile_sizes, fa.flash_dq_tc_tile_sizes, fa.flash_dkv_tc_tile_sizes):
             with pytest.raises(ValueError):
                 tiles(D)
-    for tiles in (fa.flash_tc_tile_sizes, fa.flash_dq_tc_tile_sizes):
+    for tiles, fits in ((fa.flash_tc_tile_sizes, 128), (fa.flash_dq_tc_tile_sizes, 128),
+                        (fa.flash_dkv_tc_tile_sizes, 64)):
         with pytest.raises(ValueError, match="budget"):
             tiles(256, smem_budget=190_000)
-        assert tiles(128, smem_budget=100_000)
+        assert tiles(fits, smem_budget=100_000)
 
 
 def test_tc_constants_are_the_cuda_sources():
@@ -253,11 +374,16 @@ def test_tc_constants_are_the_cuda_sources():
     assert re.search(rf"constexpr int kTcBK = {fa.TC_BLOCK_K};", fwd)
     assert re.search(rf"constexpr int kDqTcBQ = {fa.DQ_TC_BLOCK_Q};", bwd)
     assert re.search(rf"constexpr int kDqTcBK = {fa.DQ_TC_BLOCK_K};", bwd)
+    assert re.search(rf"constexpr int kDkvTcBQ = {fa.DKV_TC_BLOCK_Q};", bwd)
+    assert re.search(rf"constexpr int kDkvTcBK = {fa.DKV_TC_BLOCK_K};", bwd)
+    # lse and delta rows as _tma_rows lays them out: Sq rounded up to a multiple of 4
+    assert "constexpr int tma_rows(int Sq) { return (Sq + 3) & ~3; }" in bwd
     # every head dimension has a tensor-core instance, so no bfloat16 case takes the float32 kernel
     assert tuple(int(d) for d in re.findall(r"FLASH_TC_CASE\((\d+)\)", fwd)) == fa.HEAD_DIMS
     assert tuple(int(d) for d in re.findall(r"FLASH_DQ_TC_CASE\((\d+)\)", bwd)) == fa.HEAD_DIMS
+    assert tuple(int(d) for d in re.findall(r"FLASH_DKV_TC_CASE\((\d+)\)", bwd)) == fa.HEAD_DIMS
     assert "dtype == 1)\n    return launch_tc_dim(" in fwd
-    assert "which == kDq ? launch_dq_tc_dim(" in bwd
+    assert "which == kDq ? launch_dq_tc_dim(D, a, st) : launch_dkv_tc_dim(D, a, st)" in bwd
     for src in (hdr, fwd, bwd):  # built from the repo's sources alone, IEEE tanh
         assert "#include <cute" not in src and "#include <cutlass" not in src and "tanh.approx" not in src
 
@@ -279,6 +405,24 @@ def test_tma_check_rejects_what_tma_cannot_read():
     assert fa._strides(odd) == [256, 128, 16]
 
 
+@pytest.mark.parametrize("Sq", [8, 200, 333, 334, 150])
+def test_tma_rows_give_every_q_tile_an_aligned_start(Sq):
+    """lse and delta as the bfloat16 dK/dV kernel reads them with TMA: rows
+    padded to a multiple of 4, so the 64 values of every q tile of every
+    head start 16-byte aligned (TMA refuses other starts); values kept, no
+    copy where none is needed, and a misaligned base copied."""
+    x = torch.arange(2 * 3 * Sq, dtype=torch.float32).reshape(2, 3, Sq)
+    y = fa._tma_rows(x)
+    Sr = y.shape[-1]
+    assert y.shape == (2, 3, Sr) and Sr % 4 == 0 and Sr - Sq < 4 and y.is_contiguous()
+    assert torch.equal(y[..., :Sq], x) and (y is x) == (Sr == Sq)
+    starts = [(b * 3 + h) * Sr + q0 for b in range(2) for h in range(3) for q0 in range(0, Sq, fa.DKV_TC_BLOCK_Q)]
+    assert all(y.data_ptr() % fa.TMA_ALIGN == 0 and 4 * r % fa.TMA_ALIGN == 0 for r in starts)
+    shifted = torch.cat([torch.zeros(1), torch.arange(2 * 3 * 8, dtype=torch.float32)])[1:].view(2, 3, 8)
+    assert shifted.data_ptr() % fa.TMA_ALIGN and fa._tma_rows(shifted).data_ptr() % fa.TMA_ALIGN == 0
+    assert torch.equal(fa._tma_rows(shifted), shifted)
+
+
 def test_bf16_launch_checks_tma_before_the_card():
     """``_check_launch`` raises on a bfloat16 view TMA cannot read, after the
     device check: a CPU tensor never reaches the kernel."""
@@ -290,8 +434,10 @@ def test_bf16_launch_checks_tma_before_the_card():
 
 def test_tc_launch_counters_exist_and_stay_on_the_cpu():
     q, k, v = make_qkv(np.random.default_rng(2), 1, 2, 1, 64, 16)
-    before = (fa.launches, fa.launches_fwd_tc, fa.launches_dq, fa.launches_dq_tc)
+    before = (fa.launches, fa.launches_fwd_tc, fa.launches_dq, fa.launches_dq_tc, fa.launches_dkv, fa.launches_dkv_tc)
     o, lse = fa.flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16(), "causal")
     fa.flash_attention_bwd(q.bfloat16(), k.bfloat16(), v.bfloat16(), o, lse, torch.ones_like(o), "causal")
-    assert (fa.launches, fa.launches_fwd_tc, fa.launches_dq, fa.launches_dq_tc) == before
+    assert (fa.launches, fa.launches_fwd_tc, fa.launches_dq, fa.launches_dq_tc, fa.launches_dkv,
+            fa.launches_dkv_tc) == before
+    assert "launches_dkv_tc" in fa.__all__
     assert math.isfinite(float(lse.sum()))

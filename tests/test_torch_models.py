@@ -172,7 +172,7 @@ def test_params_from_jax_shapes_dtypes_and_count(arch):
 
 def test_params_from_jax_keeps_bfloat16():
     a = np.asarray(jnp.asarray(np.random.default_rng(4).normal(size=(3, 5)), dtype=jnp.bfloat16))
-    t = tensor_from_numpy(a)
+    t = tensor_from_numpy(a, device="cpu")
     assert t.dtype == torch.bfloat16
     np.testing.assert_array_equal(t.float().numpy(), a.astype(np.float32))
 
@@ -222,3 +222,12 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch):
         make_dummy_batch(cfg, 1, 8, "prefill", np.random.default_rng(0))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         prefill_fn({}, cfg.replace(family="moe"), {})
+
+
+def test_tensor_from_numpy_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
+    """tensor_from_numpy defaults to the card, as the other entry points do,
+    and refuses to carry on quietly on the CPU without one."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tensor_from_numpy(np.zeros(3, np.float32))
+    assert tensor_from_numpy(np.zeros(3, np.float32), device="cpu").device.type == "cpu"

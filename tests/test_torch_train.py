@@ -100,7 +100,7 @@ def test_adamw_matches_jax_over_three_steps(dtype):
                  "b": [rng.normal(size=s).astype(np.float32) for s in shapes["b"]]} for i in range(3)]
     jdt = jnp.dtype(dtype)
     to_j = lambda t: jax.tree.map(lambda a: jnp.asarray(a, dtype=jdt), t)
-    to_t = lambda t: jax.tree.map(lambda a: tensor_from_numpy(np.asarray(jnp.asarray(a, dtype=jdt))), t)
+    to_t = lambda t: jax.tree.map(lambda a: tensor_from_numpy(np.asarray(jnp.asarray(a, dtype=jdt)), "cpu"), t)
 
     jopt, topt = jax_adamw(3e-4, weight_decay=0.1), adamw(3e-4, weight_decay=0.1)
     jp, tp = to_j(p_np), to_t(p_np)
@@ -113,7 +113,7 @@ def test_adamw_matches_jax_over_three_steps(dtype):
         assert int(ts.step) == int(js.step)
         for got, want in ((tp, jp), (ts.mu, js.mu), (ts.nu, js.nu)):
             for a, b in zip(tree_leaves(got), jax.tree.leaves(want)):
-                b = tensor_from_numpy(np.asarray(b))
+                b = tensor_from_numpy(np.asarray(b), device="cpu")
                 assert a.dtype == b.dtype
                 if a.dtype == torch.bfloat16:
                     assert _ulps(a, b) <= 1
