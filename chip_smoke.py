@@ -9,7 +9,7 @@ Run from the repository root, with one card visible:
 Phases, in order; any failure ends the run with a non-zero exit code:
 
 1. device     — a CUDA card is present; prints its name and power limit.
-2. build      — loads both kernels, which builds every
+2. build      — loads the kernels, which builds every
                 ``src/repro_torch/kernels/csrc/*.cu`` (one nvcc each, all
                 started together), and prints ptxas's registers and spills
                 (the tensor-core kernels' in one line each; it fails if the
@@ -19,15 +19,32 @@ Phases, in order; any failure ends the run with a non-zero exit code:
                 fails if a bfloat16 tensor-core kernel (forward, dQ, dK/dV;
                 one per head dimension each) has none.
 3. kernel     — ``minplus_cuda_batch`` against ``minplus_step_ref_batch`` on
-                the card over a grid of shapes: bit-identical float32 values
-                and identical int32 argmins.
+                the card over a grid of shapes, ties and all-BIG rows:
+                bit-identical float32 values and identical int32 argmins;
+                then the class scan in one host call
+                (``minplus_scan_cuda``) and the backtrack kernel it
+                launches after the row kernels against the plain scan and
+                backtrack over n x B x Tp x W = {1, 2, 7, 100} x {1, 3, 16,
+                17} x {1, 7, 1500, 10001} x {1, 5, 1001}: last row, argmin
+                slab and schedules identical; and the busiest block's
+                candidates against the mean at the main shape.
 4. main       — solves 16 random instances (n = 100 clients, T = 10,000
                 tasks, W <= 1,001) through ``solve_schedule_dp_batch``:
-                exactly n kernel launches, bit-identical to the plain path
-                on the card, feasible, within rtol 1e-5 of the float64 host
-                DP; then the paper's worked example.
-5. times      — kernel and plain-version time per class step, the bound, and
-                the warm end-to-end solve time.
+                exactly n row launches, one host call into the scan and one
+                backtrack launch; the device pack bit-identical to the host
+                pack; X, K_last and the argmin slab bit-identical to the
+                plain path on the card; feasible, within rtol 1e-5 of the
+                float64 host DP; then the paper's worked example.
+5. times      — the row kernel (the profiler's device time: one wrapper call
+                from Python now takes longer than the kernel, so CUDA events
+                around back-to-back calls would time the host) and its plain
+                version per class step beside the bound (4 lane instructions
+                per candidate over 132 SMs x 128 lanes x clocks.max.sm); the
+                scan, its row kernels' device time and the backtrack; the warm solve
+                split into host part, device pack, scan and backtrack, timed
+                in turns with the previous orchestration (host lower-limit
+                removal and packing, a Python loop of ``minplus_cuda_batch``,
+                the plain backtrack).
 6. flash      — ``flash_attention`` against ``flash_attention_ref`` on the
                 card over mask kinds, softcaps, GQA ratios, head dims and
                 lengths (ragged ones included), and at the main path's
@@ -82,6 +99,7 @@ count and times; the last line is ``{"ok": true, "device": {...}}``.
 import json
 import math
 import re
+import itertools
 import statistics
 import subprocess
 import sys
@@ -99,6 +117,10 @@ B_MAIN, N_MAIN, T_MAIN, U_MAIN = 16, 100, 10_000, 1_000
 ARCH, B_PREFILL, S_PREFILL, F32_LAYERS = "gemma2-2b", 2, 8192, 2
 FLASH_GRID_S = (128, 200, 640, 1024)
 FLASH_GRID_D = (64, 128, 256)
+# A head dim between the built ones (hubert-xlarge's and zamba2-2.7b's D = 80),
+# which the wrapper runs on the next built instance on zero-padded inputs:
+# (B, GQA group, S, D, kind, window, softcap), H = 8.
+HEAD_DIM_CASES = ((2, 2, 640, 80, "causal", 0, 0.0), (1, 4, 1024, 80, "sliding", 37, 50.0))
 # Training: gemma2-2b FULL (remat "full", AdamW), one batch of B_TRAIN prompts
 # of S_TRAIN tokens (S > window, so the sliding layers cut), one cold and
 # TRAIN_STEPS - 1 warm steps; the float32 check runs F32_LAYERS layers of it.
@@ -133,7 +155,13 @@ F32_TOL = 2e-5
 BF16_O_RTOL = 2.0 ** -8
 BF16_P_RTOL = 2.0 ** -8
 BF16_GRID_TOL = 2e-2
-OPS_PER_CANDIDATE = 3  # add, saturating min, compare
+# The min-plus row update: lane instructions per candidate (an add, a
+# compare, a select of the value and one of the index), issued by 4
+# schedulers x 32 lanes per SM each clock.
+OPS_PER_CANDIDATE = 4
+LANES_PER_SM = 128
+# The class scan and backtrack grid of phase 3.
+SCAN_GRID = tuple(itertools.product((1, 2, 7, 100), (1, 3, 16, 17), (1, 7, 1500, 10001), (1, 5, 1001)))
 # The flash backward kernels against their plain version. float32: the
 # reference's gradient tolerance. bfloat16 I/O: both compute in float32 from
 # the same widened inputs and the kernels round once, so their gradients lie
@@ -171,21 +199,30 @@ def gpu_line(fields="name,power.limit") -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def tensor_core_counts(build, name):
-    """``{kernel function: (HGMMA, HMMA)}``: the tensor-core instructions in
-    the SASS of every kernel of ``lib<name>.so`` (``cuobjdump -sass``)."""
+def sass_ops(build, name):
+    """``{kernel function: ({opcode: count}, {opcode: predicated count})}``
+    from the SASS of every kernel of ``lib<name>.so`` (``cuobjdump -sass``)."""
     cuobjdump = Path(build._nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "-sass", str(build.build_dir() / f"lib{name}.so")],
                           capture_output=True, text=True, check=True).stdout
-    counts, fn = {}, None
+    out, fn = {}, None
     for line in sass.splitlines():
         if "Function : " in line:
             fn = line.split("Function : ")[1].strip()
-            counts[fn] = [0, 0]
-        elif fn is not None:
-            counts[fn][0] += "HGMMA" in line
-            counts[fn][1] += "HMMA" in line
-    return {k: tuple(v) for k, v in counts.items()}
+            out[fn] = ({}, {})
+            continue
+        m = re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?([A-Z0-9_]+)", line) if fn else None
+        if m:
+            for counts, hit in zip(out[fn], (True, bool(m.group(1)))):
+                if hit:
+                    counts[m.group(2)] = counts.get(m.group(2), 0) + 1
+    return out
+
+
+def tensor_core_counts(build, name):
+    """``{kernel function: (HGMMA, HMMA)}``: the tensor-core instructions in
+    the SASS of every kernel of ``lib<name>.so``."""
+    return {fn: (ops.get("HGMMA", 0), ops.get("HMMA", 0)) for fn, (ops, _) in sass_ops(build, name).items()}
 
 
 def ptxas_usage(log_text):
@@ -246,14 +283,32 @@ def candidates(B, Tp, W) -> int:
     return int(B * np.minimum(t + 1, W).sum())
 
 
-def bound_ms(B, Tp, W):
+def bound_ms(B, Tp, W, sms, max_mhz):
     """Least time for one row update: the larger of its bytes (inputs read
-    once, outputs written once) over HBM bandwidth and its float32
-    operations over the float32 peak. Returns (ms, 'bytes'|'operations')."""
+    once, outputs written once) over HBM bandwidth and its lane instructions
+    (OPS_PER_CANDIDATE per candidate) over ``sms`` x LANES_PER_SM lanes at
+    ``max_mhz`` (the card's clocks.max.sm). Returns (ms, 'bytes'|'operations')."""
     nbytes = 4 * B * Tp + 4 * B * W + (4 + 4) * B * Tp
     t_bytes = nbytes / PEAK_BYTES_PER_S
-    t_ops = OPS_PER_CANDIDATE * candidates(B, Tp, W) / PEAK_F32_FLOPS
+    t_ops = OPS_PER_CANDIDATE * candidates(B, Tp, W) / (sms * LANES_PER_SM * max_mhz * 1e6)
     return 1e3 * max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def backtrack_bound_ms(n, B):
+    """Least time for the backtrack by the contract's count: the n entries a
+    walk reads of the slab for each instance, t_star, and the (B, n) int32
+    schedules written, over HBM bandwidth. (The kernel is bound by the
+    latency of n dependent reads instead.) Returns (ms, 'bytes')."""
+    return 1e3 * (4 * n * B + 8 * B + 4 * n * B) / PEAK_BYTES_PER_S, "bytes"
+
+
+def block_balance(B, Tp, W, BT):
+    """(busiest block's candidates / mean, blocks) of one row launch with
+    tiles of BT outputs: a block's valid candidates are sum min(t + 1, W)
+    over its tile."""
+    per_t = np.minimum(np.arange(Tp, dtype=np.int64) + 1, W)
+    tiles = np.add.reduceat(per_t, np.arange(0, Tp, BT))
+    return float(tiles.max() / tiles.mean()), B * len(tiles)
 
 
 def median_event_ms(fn, reps, per_rep=1, warmup=3):
@@ -354,6 +409,12 @@ def flash_err(fa, got, q, k, v, kind, window, softcap):
     return ok, float((o - o_plain).abs().max()), float((o - o32).abs().max()), float((lse - lse32).abs().max())
 
 
+def padded_head_dims(fa) -> str:
+    """What the HEAD_DIM_CASES run on, for the log."""
+    return ", ".join(sorted({f"D = {c[3]} on the D = {fa.kernel_head_dim(c[3])} kernels, zero-padded"
+                             for c in HEAD_DIM_CASES}))
+
+
 def flash_phase(fa, dev):
     """Phase 6: the flash kernel against its plain version on the card.
     Returns the main path's causal and sliding inputs and the largest
@@ -370,6 +431,7 @@ def flash_phase(fa, dev):
     for dtype in (torch.float32, torch.bfloat16):
         cases += [(1, 2, 1, 8192, 256, "causal", 0, 50.0, dtype), (1, 2, 1, 8192, 256, "sliding", 4096, 50.0, dtype),
                   (1, 2, 2, 8192, 128, "bidirectional", 0, 0.0, dtype)]
+        cases += [(B, 8, 8 // G, S, D, kind, window, softcap, dtype) for B, G, S, D, kind, window, softcap in HEAD_DIM_CASES]
     worst = {torch.float32: [0.0] * 3, torch.bfloat16: [0.0] * 3}
     for B, H, Hkv, S, D, kind, window, softcap, dtype in cases:
         q, k, v = flash_inputs(gen, B, H, Hkv, S, D, dtype, dev)
@@ -380,7 +442,8 @@ def flash_phase(fa, dev):
                   f"softcap={softcap} {dtype} (max |do|, |do32|, |dlse| {errs})")
         worst[dtype] = [max(a, b) for a, b in zip(worst[dtype], errs)]
     f32, b16 = worst[torch.float32], worst[torch.bfloat16]
-    log(f"[flash] {len(cases)} cases within tolerance of the plain version: float32 rtol=atol={F32_TOL} on o and "
+    log(f"[flash] {len(cases)} cases ({padded_head_dims(fa)} among them) within tolerance of the plain version: "
+        f"float32 rtol=atol={F32_TOL} on o and "
         f"lse (largest |do| {f32[1]:.3e}, |dlse| {f32[2]:.3e}); bfloat16 I/O o within {BF16_GRID_TOL} of the plain "
         f"output (largest {b16[0]:.3e}) and within {BF16_O_RTOL:.3e} |o32| + {BF16_P_RTOL:.3e} (P|V|)/l + {F32_TOL} "
         f"of its float32 value o32 (largest |o - o32| {b16[1]:.3e}), lse within {F32_TOL} (largest {b16[2]:.3e})")
@@ -690,6 +753,8 @@ def flash_bwd_phase(fa, dev):
                     G = (1, 2, 4)[(si + di) % 3]
                     for dtype in (torch.float32, torch.bfloat16):
                         cases.append((2 if S <= 640 else 1, 8, 8 // G, S, D, kind, window, softcap, dtype))
+    for dtype in (torch.float32, torch.bfloat16):
+        cases += [(B, 8, 8 // G, S, D, kind, window, softcap, dtype) for B, G, S, D, kind, window, softcap in HEAD_DIM_CASES]
     worst = {torch.float32: [0.0] * 3, torch.bfloat16: [0.0] * 3}
     for B, H, Hkv, S, D, kind, window, softcap, dtype in cases:
         args = bwd_inputs(fa, gen, B, H, Hkv, S, D, dtype, dev, kind, window, softcap)
@@ -700,7 +765,8 @@ def flash_bwd_phase(fa, dev):
                   f"softcap={softcap} {dtype} (max |d dq|, |d dk|, |d dv| {errs})")
         worst[dtype] = [max(a, b) for a, b in zip(worst[dtype], errs)]
     f32, b16 = worst[torch.float32], worst[torch.bfloat16]
-    log(f"[flash bwd] {len(cases)} cases within tolerance of the plain backward: float32 rtol={GRAD_RTOL} "
+    log(f"[flash bwd] {len(cases)} cases ({padded_head_dims(fa)} among them) within tolerance of the plain "
+        f"backward: float32 rtol={GRAD_RTOL} "
         f"atol={GRAD_ATOL} (largest |d dq|, |d dk|, |d dv| {f32[0]:.3e}, {f32[1]:.3e}, {f32[2]:.3e}); bfloat16 I/O "
         f"within rtol={BWD_BF16_RTOL:.3e} of the float32 gradients + {BWD_BF16_ATOL_REL} of their largest entry "
         f"(largest {b16[0]:.3e}, {b16[1]:.3e}, {b16[2]:.3e})")
@@ -897,6 +963,297 @@ def flash_bwd_times(fa, main, card):
     return res[("dq", "causal")], res[("dkv", "causal")]
 
 
+def scan_inputs(rng, n, B, Tp, W, dev):
+    """A start row, a (B, n, W) cost view of an (n, B, W) array (so the scan
+    reads it with its strides) and ragged starting points for the
+    backtrack."""
+    from repro_torch.kernels.ref import BIG
+
+    k0 = band_inputs(rng, B, Tp, 1, dev)[0]
+    by_class = rng.uniform(0, 10, (n, B, W)).astype(np.float32)
+    by_class[rng.random(by_class.shape) < 0.2] = BIG
+    costs = torch.from_numpy(by_class).to(dev).transpose(0, 1)
+    t_star = torch.from_numpy(rng.integers(0, Tp, B)).to(dev)
+    return k0, costs, t_star
+
+
+def minplus_phase(mp, dev):
+    """Phase 3: the row kernel, the scan and the backtrack against their
+    plain versions on the card. Returns the main-shape row inputs (kept for
+    timing) and the row kernel's largest value error there."""
+    from repro_torch.kernels.ref import BIG, backtrack_ref, minplus_scan_ref, minplus_step_ref_batch
+
+    rng = np.random.default_rng(SEED)
+    cases = [(3, Tp, W, None, None, False)
+             for Tp in (1, 7, 64, 255, 1024, 1500, 10001) for W in (1, 5, 130, 700, 1001)]
+    # explicit tiles: 1, 2 and 4 warps along t, band chunks not a multiple of 8, odd edges
+    cases += [(2, 1500, 700, BT, BW, False)
+              for BT, BW in ((1, 1), (33, 7), (256, 64), (600, 100), (1024, 256))]
+    cases += [(4, 3000, 400, None, None, True), (2, 1500, 700, 33, 7, True),
+              (3, 10001, 5000, None, None, True)]  # tie-heavy; the last in 5 band chunks
+    n_ok = 0
+    for B, Tp, W, BT, BW, ties in cases:
+        kprev, cost = band_inputs(rng, B, Tp, W, dev, ties=ties)
+        got = mp.minplus_cuda_batch(kprev, cost, BT=BT, BW=BW)
+        torch.cuda.synchronize()
+        want = minplus_step_ref_batch(kprev, cost)
+        check(bit_identical(got, want), f"kernel != plain at B={B} Tp={Tp} W={W} BT={BT} BW={BW} ties={ties}")
+        n_ok += 1
+    # all-BIG: values stay BIG, argmin keeps 0
+    kprev = torch.full((2, 37), BIG, dtype=torch.float32, device=dev)
+    cost = torch.full((2, 11), BIG, dtype=torch.float32, device=dev)
+    for BT, BW in ((None, None), (8, 3), (512, 64)):
+        got = mp.minplus_cuda_batch(kprev, cost, BT=BT, BW=BW)
+        check(bit_identical(got, minplus_step_ref_batch(kprev, cost)), "all-BIG case differs")
+        check(bool((got[0] == BIG).all()) and bool((got[1] == 0).all()), "all-BIG convention broken")
+        n_ok += 1
+    # the main-path shape, kept for timing
+    kprev_m, cost_m = band_inputs(rng, B_MAIN, T_MAIN + 1, U_MAIN + 1, dev)
+    got = mp.minplus_cuda_batch(kprev_m, cost_m)
+    want = minplus_step_ref_batch(kprev_m, cost_m)
+    check(bit_identical(got, want), "kernel != plain at the main-path shape")
+    max_abs_err = float((got[0] - want[0]).abs().max())
+    bt_m, bw_m = mp.hopper_tile_sizes(T_MAIN + 1, U_MAIN + 1)
+    log(f"[kernel] {n_ok + 1} row cases bit-identical to the plain version (values and argmins), ties and "
+        f"all-BIG rows included; main shape B={B_MAIN} Tp={T_MAIN + 1} W={U_MAIN + 1} BT={bt_m} BW={bw_m}, "
+        f"max_abs_err {max_abs_err}")
+
+    t0 = time.perf_counter()
+    for n, B, Tp, W in SCAN_GRID:
+        k0, costs, t_star = scan_inputs(rng, n, B, Tp, W, dev)
+        I = torch.empty((n, B, Tp), dtype=torch.int32, device=dev)
+        k_last, X = mp.minplus_scan_cuda(k0.clone(), costs, I, t_star=t_star)
+        torch.cuda.synchronize()
+        I_ref = torch.empty_like(I)
+        k_ref = minplus_scan_ref(k0.clone(), costs, I_ref)
+        X_ref = backtrack_ref(I_ref, t_star)
+        where = f"n={n} B={B} Tp={Tp} W={W}"
+        check(torch.equal(k_last.view(torch.int32), k_ref.view(torch.int32)), f"scan's last row != plain at {where}")
+        check(torch.equal(I, I_ref), f"scan's argmin slab != plain at {where}")
+        check(torch.equal(X, X_ref), f"backtrack after the scan != plain at {where}")
+    ratio, blocks = block_balance(B_MAIN, T_MAIN + 1, U_MAIN + 1, bt_m)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    log(f"[kernel] scan (one host call) and backtrack: {len(SCAN_GRID)} cases over n x B x Tp x W = "
+        f"{{1, 2, 7, 100}} x {{1, 3, 16, 17}} x {{1, 7, 1500, 10001}} x {{1, 5, 1001}}, last row, argmin slab "
+        f"and schedules identical to the plain scan and backtrack ({time.perf_counter() - t0:.1f} s)")
+    log(f"[kernel] balance at the main shape: {blocks} blocks of {mp.MAX_THREADS} threads on {sms} SMs "
+        f"({blocks / sms:.2f} per SM); busiest block's candidates / mean {ratio:.4f}")
+    return (kprev_m, cost_m), max_abs_err
+
+
+def solver_phase(mp, fa, dev):
+    """Phase 4: the main path through the entry point, its launches, and
+    bit-identity to the plain path on the card."""
+    from repro_torch.core import (
+        Problem,
+        ProblemBatch,
+        random_problem,
+        remove_lower_limits,
+        solve_fused_batch_torch,
+        solve_schedule_dp,
+        solve_schedule_dp_batch,
+        solve_schedule_dp_torch,
+        total_cost,
+        validate_schedule_batch,
+    )
+    from repro_torch.core.torch_dp import _backtrack_batch, dp_tables_batch, pack_batch, pack_problem
+
+    prng = np.random.default_rng(SEED)
+    batch = ProblemBatch.from_problems([random_problem(prng, n=N_MAIN, T=T_MAIN, regime="arbitrary",
+                                                       max_upper=U_MAIN) for _ in range(B_MAIN)])
+    b0 = remove_lower_limits(batch)
+    log(f"[main] batch B={batch.B} n={batch.n} T={T_MAIN} W'={b0.W} (after lower-limit removal)")
+    mp.launches = mp.launches_scan = mp.launches_backtrack = fa.launches = 0
+    t0 = time.perf_counter()
+    X = solve_schedule_dp_batch(batch, device="cuda")
+    cold_s = time.perf_counter() - t0
+    launches = {"row": mp.launches, "scan": mp.launches_scan, "backtrack": mp.launches_backtrack}
+    check(launches["row"] == batch.n, f"{launches['row']} row launches in the main solve, expected n={batch.n}")
+    check(launches["scan"] == 1, f"{launches['scan']} host calls into the scan, expected 1")
+    check(launches["backtrack"] == 1, f"{launches['backtrack']} backtrack launches, expected 1")
+    check(fa.launches == 0, f"the solve launched the flash kernel {fa.launches} times")
+    validate_schedule_batch(batch, X)
+    log(f"[main] solve_schedule_dp_batch: {launches['row']} row launches (n={batch.n}) in {launches['scan']} host "
+        f"call into the scan, {launches['backtrack']} backtrack launch, first call {cold_s:.3f} s, every schedule "
+        f"sums to T and lies in [L, U]")
+
+    costs = pack_batch(batch, dev)
+    check(torch.equal(costs.view(torch.int32), pack_problem(b0, dev).view(torch.int32)),
+          "the device pack differs from the host pack")
+    t_star = torch.from_numpy(b0.T).to(dev)
+    Tmax = int(b0.T.max())
+    Xc, Kc = solve_fused_batch_torch(costs, t_star, Tmax, backend="cuda")
+    Xr, Kr = solve_fused_batch_torch(costs, t_star, Tmax, backend="ref")
+    check(torch.equal(Xc, Xr), "schedules differ between the kernels and the plain path")
+    check(torch.equal(Kc.view(torch.int32), Kr.view(torch.int32)), "K_last differs between kernels and plain path")
+    check(np.array_equal(X, Xc.cpu().numpy().astype(np.int64) + batch.lower), "entry point != fused solver")
+    Kc, Ic = dp_tables_batch(costs, Tmax, backend="cuda")
+    Kr, Ir = dp_tables_batch(costs, Tmax, backend="ref")
+    check(torch.equal(Ic, Ir), "the argmin slab differs between the kernels and the plain path")
+    bt_err = int((Xc - _backtrack_batch(Ir, t_star)).abs().max())
+    check(bt_err == 0, "the backtrack kernel differs from the plain backtrack")
+    log("[main] device pack bit-identical to the host pack; X, K_last and the argmin slab bit-identical to "
+        "backend='ref' on the card")
+
+    worst = 0.0
+    for b in (0, 1):
+        p = batch.instance(b)
+        c64 = total_cost(p, solve_schedule_dp(p))
+        cgpu = total_cost(p, X[b])
+        gap = abs(cgpu - c64) / abs(c64)
+        check(gap <= 1e-5, f"instance {b}: GPU cost {cgpu} vs float64 host DP {c64} (rel gap {gap})")
+        worst = max(worst, gap)
+    log(f"[main] float64 host DP on instances 0, 1: largest relative cost gap {worst:.3e} (limit 1e-5)")
+
+    for T, want_x, want_c in ((5, [2, 3, 0], 7.5), (8, [1, 2, 5], 11.5)):
+        p = paper_problem(T, Problem)
+        x = solve_schedule_dp_torch(p, device="cuda")
+        check(list(x) == want_x and abs(total_cost(p, x) - want_c) < 1e-9, f"paper example T={T}: {x}")
+    log("[main] paper example: T=5 -> [2, 3, 0] cost 7.5, T=8 -> [1, 2, 5] cost 11.5")
+    return batch, X, launches, bt_err
+
+
+def device_ms(fn, kernel, calls=1):
+    """The profiler's device time of the kernels whose name holds ``kernel``
+    over ``calls`` calls of ``fn`` after one warm-up call: (total ms,
+    launches). Unlike CUDA events around back-to-back calls, it does not
+    count the gaps a host-bound caller leaves between launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for e in prof.key_averages():
+        if kernel in e.key:
+            total += getattr(e, "device_time_total", None) or e.cuda_time_total
+            count += e.count
+    return total / 1e3, count
+
+
+def per_launch_ms(fn, kernel, calls=20):
+    """Device time per launch of ``kernel`` over ``calls`` calls of ``fn``
+    that launch it once each."""
+    total, count = device_ms(fn, kernel, calls)
+    check(count == calls, f"the profiler saw {count} launches of {kernel} in {calls} calls")
+    return total / count
+
+
+def solver_times(mp, minplus_main, batch, X, dev, card):
+    """Phase 5: the row kernel against its bound, the scan, the backtrack,
+    and the warm solve with its split, in turns with the previous
+    orchestration."""
+    from repro_torch.core import remove_lower_limits, restore_lower_limits, solve_schedule_dp_batch
+    from repro_torch.core.torch_dp import _backtrack_batch, _pack_on_device, pack_problem
+    from repro_torch.kernels.ref import BIG, minplus_step_ref_batch
+
+    kprev_m, cost_m = minplus_main
+    out_k = torch.empty_like(kprev_m)
+    out_i = torch.empty(kprev_m.shape, dtype=torch.int32, device=dev)
+    row = lambda **kw: mp.minplus_cuda_batch(kprev_m, cost_m, out=out_k, iout=out_i, **kw)  # noqa: E731
+    kernel_ms = per_launch_ms(row, "minplus_row_kernel", calls=20)
+    clocks = gpu_line("clocks.sm,power.draw")
+    call_ms = median_event_ms(row, reps=15, per_rep=20)
+    plain_ms = median_event_ms(lambda: minplus_step_ref_batch(kprev_m, cost_m), reps=5, per_rep=4)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    max_mhz = float(gpu_line("clocks.max.sm").split()[0])
+    b_ms, b_by = bound_ms(B_MAIN, T_MAIN + 1, U_MAIN + 1, sms, max_mhz)
+    bt_m, bw_m = mp.hopper_tile_sizes(T_MAIN + 1, U_MAIN + 1)
+    sweep = []
+    for BT in (256, 512, 1024):
+        for BW in (128, 256, 512, 1024):
+            ms = per_launch_ms(lambda: row(BT=BT, BW=BW), "minplus_row_kernel", calls=5)
+            sweep.append(f"{BT}x{BW}={ms:.4f}")
+    log(f"[times] {card}")
+    log(f"[times] minplus_cuda per class step (B={B_MAIN}, Tp={T_MAIN + 1}, W={U_MAIN + 1}, BT={bt_m}, BW={bw_m}): "
+        f"{kernel_ms:.4f} ms (the profiler's device time over 20 launches; clocks.sm, power.draw after: {clocks}); "
+        f"one call of the wrapper from Python {call_ms:.4f} ms (CUDA events over 20 back-to-back calls: the host's "
+        f"pace where it exceeds the kernel's); plain version {plain_ms:.4f} ms; bound {1e3 * b_ms:.2f} us ({b_by}: {OPS_PER_CANDIDATE} lane instructions x "
+        f"{candidates(B_MAIN, T_MAIN + 1, U_MAIN + 1)} candidates over {sms} SMs x {LANES_PER_SM} lanes x "
+        f"{max_mhz:.0f} MHz), kernel at {kernel_ms / b_ms:.2f}x the bound; library_ms: none")
+    log(f"[times] tiles BTxBW=ms at the main shape (device time over 5 launches): {' '.join(sweep)}")
+
+    # the main solve's own inputs, on the card
+    b0 = remove_lower_limits(batch)
+    costs = pack_problem(b0, dev)
+    t_star = torch.from_numpy(b0.T).to(dev)
+    Tp = int(b0.T.max()) + 1
+    n = batch.n
+    k0 = torch.full((batch.B, Tp), BIG, dtype=torch.float32, device=dev)
+    k0[:, 0] = 0.0
+    I = torch.empty((n, batch.B, Tp), dtype=torch.int32, device=dev)
+    scan_ms = median_event_ms(lambda: mp.minplus_scan_cuda(k0, costs, I), reps=5, warmup=1)
+    rows_ms, rows_count = device_ms(lambda: mp.minplus_scan_cuda(k0, costs, I), "minplus_row_kernel")
+    check(rows_count == n, f"the profiler saw {rows_count} row kernels in one scan, expected {n}")
+    # the backtrack's device time, from the scan calls that launch it after their row kernels
+    bt_ms = per_launch_ms(lambda: mp.minplus_scan_cuda(k0, costs, I, t_star=t_star), "minplus_backtrack_kernel",
+                          calls=20)
+    plain_bt_ms = median_event_ms(lambda: _backtrack_batch(I, t_star), reps=5, per_rep=4)
+    bt_b_ms, bt_b_by = backtrack_bound_ms(n, batch.B)
+    log(f"[times] scan in one host call (n={n}): {scan_ms:.4f} ms (CUDA events, median of 5); its {rows_count} row "
+        f"kernels {rows_ms:.4f} ms of device time (profiler) = {rows_ms / n:.4f} ms each; outside the row steps "
+        f"{(scan_ms - rows_ms) / scan_ms:.4f} of the scan")
+    log(f"[times] backtrack kernel {bt_ms:.4f} ms = {1e3 * bt_ms / n:.3f} us per dependent read (the profiler's "
+        f"device time over 20 launches, each after its scan's row kernels, as in a solve); plain backtrack {plain_bt_ms:.4f} ms; bound by the bytes it must move {1e3 * bt_b_ms:.5f} us")
+
+    # the warm solve and its split
+    costs64 = torch.from_numpy(batch.costs).to(dev)
+    lower, upper = (torch.from_numpy(a).to(dev) for a in (batch.lower, batch.upper))
+    pack_ms = median_event_ms(lambda: _pack_on_device(costs64, lower, upper), reps=15, per_rep=5)
+    h2d_ms = median_wall_ms(lambda: (torch.from_numpy(batch.costs).to(dev), torch.from_numpy(batch.lower).to(dev),
+                                     torch.from_numpy(batch.upper).to(dev)), reps=5)
+    X_dev = torch.from_numpy(X - batch.lower).to(dev)
+
+    def host_part():
+        batch.validate()
+        t_prime = batch.T - batch.lower.sum(axis=1)
+        torch.from_numpy(t_prime).to(dev)
+        return restore_lower_limits(batch, X_dev.cpu().numpy().astype(np.int64))
+
+    host_ms = median_wall_ms(host_part, reps=5)
+
+    def previous_solve():
+        """The previous orchestration: host lower-limit removal and packing,
+        a Python loop of minplus_cuda_batch over the transposed costs, the
+        plain backtrack."""
+        batch.validate()
+        p0 = remove_lower_limits(batch)
+        c = pack_problem(p0, dev)
+        T = int(p0.T.max())
+        by_class = c.transpose(0, 1).contiguous()
+        rows = (torch.full((batch.B, T + 1), BIG, dtype=torch.float32, device=dev),
+                torch.empty((batch.B, T + 1), dtype=torch.float32, device=dev))
+        rows[0][:, 0] = 0.0
+        slab = torch.empty((batch.n, batch.B, T + 1), dtype=torch.int32, device=dev)
+        for i in range(batch.n):
+            mp.minplus_cuda_batch(rows[i % 2], by_class[i], out=rows[(i + 1) % 2], iout=slab[i])
+        Xp = _backtrack_batch(slab, torch.from_numpy(p0.T).to(dev))
+        return restore_lower_limits(batch, Xp.cpu().numpy().astype(np.int64))
+
+    check(np.array_equal(previous_solve(), X), "the previous orchestration gives other schedules")
+    new_solve = lambda: solve_schedule_dp_batch(batch, device="cuda")  # noqa: E731
+    walls = {"new": [], "previous": []}
+    for name, fn in (("previous", previous_solve), ("new", new_solve), ("new", new_solve),
+                     ("previous", previous_solve)):
+        walls[name].append(median_wall_ms(fn, reps=5))
+    e2e_ms, prev_ms = (statistics.mean(walls[k]) for k in ("new", "previous"))
+    log(f"[times] warm solve_schedule_dp_batch {e2e_ms:.3f} ms (host clock, mean of two medians of 5, in turns "
+        f"previous, new, new, previous: {walls}); the previous orchestration {prev_ms:.3f} ms, "
+        f"{prev_ms / e2e_ms:.2f}x slower")
+    log(f"[times] the solve = host part (validate, T', restore) {host_ms:.3f} ms + float64 tables and limits to "
+        f"the card {h2d_ms:.3f} ms + device pack {pack_ms:.4f} ms + scan {scan_ms:.4f} ms + backtrack "
+        f"{bt_ms:.4f} ms + rest {e2e_ms - host_ms - h2d_ms - pack_ms - scan_ms - bt_ms:.3f} ms; row kernel time "
+        f"{n * kernel_ms:.3f} ms = {n * kernel_ms / e2e_ms:.3f} of the solve")
+    return {
+        "row": {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None},
+        "backtrack": {"ms": bt_ms, "plain_ms": plain_bt_ms, "bound_ms": bt_b_ms, "bound_by": bt_b_by,
+                      "library_ms": None},
+    }
+
+
 def main() -> int:
     # -- phase 1: device ---------------------------------------------------
     if not torch.cuda.is_available():
@@ -920,11 +1277,9 @@ def main() -> int:
         total_cost,
         validate_schedule_batch,
     )
-    from repro_torch.core.torch_dp import pack_problem
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import minplus as mp
-    from repro_torch.kernels.ref import BIG, minplus_step_ref_batch
 
     dev = torch.device("cuda")
     # float32 products in full float32 for the plain versions and the model
@@ -936,7 +1291,7 @@ def main() -> int:
 
     # -- phase 2: build ----------------------------------------------------
     t0 = time.perf_counter()
-    mp._launch_fn()  # the first load builds every source, all together
+    mp._launch_fns()  # the first load builds every source, all together
     fa._launch_fn()
     fa._bwd_launch_fns()
     log(f"[build] minplus.cu, flash_fwd.cu, flash_bwd.cu built and loaded in {time.perf_counter() - t0:.2f} s "
@@ -951,6 +1306,12 @@ def main() -> int:
         plain = [u for fn, u in usage.items() if not tc_kernels({fn: 0})]
         log(f"[build] {name}: {len(plain)} CUDA-core kernels, registers {sorted(r for r, _, _ in plain)}, spill "
             f"stores and loads {sum(a + b for _, a, b in plain)} bytes in all")
+        if name == "minplus":
+            ops, pred = next(v for fn, v in sass_ops(build, name).items() if "minplus_row_kernel" in fn)
+            log(f"[build] minplus_row_kernel SASS: FADD {ops.get('FADD', 0)} (predicated {pred.get('FADD', 0)}), "
+                f"FSETP {ops.get('FSETP', 0)}, FSEL {ops.get('FSEL', 0)}, SEL {ops.get('SEL', 0)}, "
+                f"LDS {ops.get('LDS', 0)} (the unrolled inner loop: 64 candidates, each an add, a compare and "
+                f"two predicated adds)")
         if not kernels:
             continue
         usage = tc_kernels(usage)
@@ -970,113 +1331,10 @@ def main() -> int:
             spills = usage[("flash_dkv_tc_kernel", 256)][1:]
             check(spills == (0, 0), f"flash_dkv_tc_kernel<256> spills (stores, loads): {spills}")
 
-    # -- phase 3: kernel vs plain version on the card ----------------------
-    rng = np.random.default_rng(SEED)
-    cases = [(3, Tp, W, None, None, False)
-             for Tp in (1, 7, 64, 255, 1024, 1500, 10001) for W in (1, 5, 130, 700, 1001)]
-    # explicit tiles: 1, 2, 4 and 8 outputs per thread, odd edges
-    cases += [(2, 1500, 700, BT, BW, False)
-              for BT, BW in ((1, 1), (33, 7), (256, 64), (600, 100), (2048, 256))]
-    cases += [(4, 3000, 400, None, None, True), (2, 1500, 700, 33, 7, True)]  # tie-heavy
-    n_ok = 0
-    for B, Tp, W, BT, BW, ties in cases:
-        kprev, cost = band_inputs(rng, B, Tp, W, dev, ties=ties)
-        got = mp.minplus_cuda_batch(kprev, cost, BT=BT, BW=BW)
-        torch.cuda.synchronize()
-        want = minplus_step_ref_batch(kprev, cost)
-        check(bit_identical(got, want), f"kernel != plain at B={B} Tp={Tp} W={W} BT={BT} BW={BW} ties={ties}")
-        n_ok += 1
-    # all-BIG: values stay BIG, argmin keeps 0
-    kprev = torch.full((2, 37), BIG, dtype=torch.float32, device=dev)
-    cost = torch.full((2, 11), BIG, dtype=torch.float32, device=dev)
-    for BT, BW in ((None, None), (8, 3)):
-        got = mp.minplus_cuda_batch(kprev, cost, BT=BT, BW=BW)
-        check(bit_identical(got, minplus_step_ref_batch(kprev, cost)), "all-BIG case differs")
-        check(bool((got[0] == BIG).all()) and bool((got[1] == 0).all()), "all-BIG convention broken")
-        n_ok += 1
-    # the main-path shape, kept for timing
-    kprev_m, cost_m = band_inputs(rng, B_MAIN, T_MAIN + 1, U_MAIN + 1, dev)
-    got = mp.minplus_cuda_batch(kprev_m, cost_m)
-    want = minplus_step_ref_batch(kprev_m, cost_m)
-    check(bit_identical(got, want), "kernel != plain at the main-path shape")
-    max_abs_err = float((got[0] - want[0]).abs().max())
-    bt_m, bw_m = mp.hopper_tile_sizes(T_MAIN + 1, U_MAIN + 1)
-    log(f"[kernel] {n_ok + 1} cases bit-identical to the plain version (values and argmins); "
-        f"main shape B={B_MAIN} Tp={T_MAIN + 1} W={U_MAIN + 1} BT={bt_m} BW={bw_m}, max_abs_err {max_abs_err}")
-
-    # -- phase 4: the main path at full size -------------------------------
-    prng = np.random.default_rng(SEED)
-    probs = [random_problem(prng, n=N_MAIN, T=T_MAIN, regime="arbitrary", max_upper=U_MAIN)
-             for _ in range(B_MAIN)]
-    batch = ProblemBatch.from_problems(probs)
-    b0 = remove_lower_limits(batch)
-    log(f"[main] batch B={batch.B} n={batch.n} T={T_MAIN} W'={b0.W} (after lower-limit removal)")
-    mp.launches = fa.launches = 0
-    t0 = time.perf_counter()
-    X = solve_schedule_dp_batch(batch, device="cuda")
-    cold_s = time.perf_counter() - t0
-    launches_main = mp.launches
-    check(launches_main == batch.n, f"{launches_main} kernel launches in the main solve, expected n={batch.n}")
-    check(fa.launches == 0, f"the solve launched the flash kernel {fa.launches} times")
-    validate_schedule_batch(batch, X)
-    log(f"[main] solve_schedule_dp_batch: {launches_main} launches (n={batch.n}), first call {cold_s:.3f} s, "
-        f"every schedule sums to T and lies in [L, U]")
-
-    costs = pack_problem(b0, dev)
-    t_star = torch.from_numpy(b0.T).to(dev)
-    Tmax = int(b0.T.max())
-    Xc, Kc = solve_fused_batch_torch(costs, t_star, Tmax, backend="cuda")
-    Xr, Kr = solve_fused_batch_torch(costs, t_star, Tmax, backend="ref")
-    check(torch.equal(Xc, Xr), "schedules differ between the kernel and the plain path")
-    check(torch.equal(Kc.view(torch.int32), Kr.view(torch.int32)), "K_last differs between kernel and plain path")
-    check(np.array_equal(X, Xc.cpu().numpy().astype(np.int64) + batch.lower), "entry point != fused solver")
-    log("[main] X and K_last bit-identical to backend='ref' on the card")
-
-    worst = 0.0
-    for b in (0, 1):
-        p = batch.instance(b)
-        c64 = total_cost(p, solve_schedule_dp(p))
-        cgpu = total_cost(p, X[b])
-        gap = abs(cgpu - c64) / abs(c64)
-        check(gap <= 1e-5, f"instance {b}: GPU cost {cgpu} vs float64 host DP {c64} (rel gap {gap})")
-        worst = max(worst, gap)
-    log(f"[main] float64 host DP on instances 0, 1: largest relative cost gap {worst:.3e} (limit 1e-5)")
-
-    for T, want_x, want_c in ((5, [2, 3, 0], 7.5), (8, [1, 2, 5], 11.5)):
-        p = paper_problem(T, Problem)
-        x = solve_schedule_dp_torch(p, device="cuda")
-        check(list(x) == want_x and abs(total_cost(p, x) - want_c) < 1e-9, f"paper example T={T}: {x}")
-    log("[main] paper example: T=5 -> [2, 3, 0] cost 7.5, T=8 -> [1, 2, 5] cost 11.5")
-
-    # -- phase 5: times ----------------------------------------------------
-    out_k = torch.empty_like(kprev_m)
-    out_i = torch.empty(kprev_m.shape, dtype=torch.int32, device=dev)
-    kernel_ms = median_event_ms(
-        lambda: mp.minplus_cuda_batch(kprev_m, cost_m, out=out_k, iout=out_i), reps=15, per_rep=20)
-    clocks = gpu_line("clocks.sm,power.draw")
-    plain_ms = median_event_ms(lambda: minplus_step_ref_batch(kprev_m, cost_m), reps=5, per_rep=4)
-    b_ms, b_by = bound_ms(B_MAIN, T_MAIN + 1, U_MAIN + 1)
-    sweep = []
-    for BT in (128, 256, 512, 1024):
-        for BW in (128, 256, 512, 1024):
-            ms = median_event_ms(
-                lambda: mp.minplus_cuda_batch(kprev_m, cost_m, BT=BT, BW=BW, out=out_k, iout=out_i),
-                reps=5, per_rep=20)
-            sweep.append(f"{BT}x{BW}={ms:.4f}")
-    e2e_ms = median_wall_ms(lambda: solve_schedule_dp_batch(batch, device="cuda"), reps=5)
-    prep_ms = median_wall_ms(lambda: pack_problem(remove_lower_limits(batch), dev), reps=5)
-    device_ms = median_event_ms(
-        lambda: solve_fused_batch_torch(costs, t_star, Tmax, backend="cuda"), reps=5, warmup=1)
-    log(f"[times] {card}")
-    log(f"[times] minplus_cuda per class step (B={B_MAIN}, Tp={T_MAIN + 1}, W={U_MAIN + 1}, "
-        f"BT={bt_m}, BW={bw_m}): {kernel_ms:.4f} ms (median of 15 runs of 20 launches; "
-        f"clocks.sm, power.draw after: {clocks}); plain version {plain_ms:.4f} ms; "
-        f"bound {1e3 * b_ms:.2f} us ({b_by}); library_ms: none")
-    log(f"[times] tiles BTxBW=ms at the main shape: {' '.join(sweep)}")
-    log(f"[times] warm solve_schedule_dp_batch {e2e_ms:.3f} ms (host clock, median of 5) = "
-        f"host lower-limit removal + packing {prep_ms:.3f} ms + device solve {device_ms:.3f} ms "
-        f"(CUDA events) + rest; {launches_main} kernel launches per solve; kernel time "
-        f"{launches_main * kernel_ms:.3f} ms = {launches_main * kernel_ms / e2e_ms:.3f} of the solve")
+    # -- phases 3-5: the min-plus kernels, the solver's main path, times ------
+    minplus_main, max_abs_err = minplus_phase(mp, dev)
+    batch, X, launches_main, bt_err = solver_phase(mp, fa, dev)
+    st = solver_times(mp, minplus_main, batch, X, dev, card)
 
     # -- phases 6-8: the flash kernel and the gemma2-2b prefill -------------
     flash_main, flash_err_max = flash_phase(fa, dev)
@@ -1096,13 +1354,17 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/minplus.cu",
         "replaces": "src/repro/kernels/minplus.py:76",
-        "launches": launches_main,
+        "launches": launches_main["row"],
         "max_abs_err": max_abs_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": b_ms,
-        "bound_by": b_by,
-        "library_ms": None,
+        **st["row"],
+    }, {
+        "name": "minplus_backtrack",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/minplus.cu",
+        "replaces": "none: no TPU kernel (src/repro/core/jax_dp.py:148 _backtrack_batch is a plain jnp lax.scan)",
+        "launches": launches_main["backtrack"],
+        "max_abs_err": bt_err,
+        **st["backtrack"],
     }, {
         "name": "flash_attention",
         "route": "cuda",

@@ -1,16 +1,22 @@
 """PyTorch implementation of the (MC)^2MKP dynamic program for scheduling
 instances (contiguous classes), built on the min-plus row update.
 
-The DP row update over classes is a Python loop of ``n`` steps; each step is
-one banded min-plus convolution (``repro_torch.kernels``, ``backend="auto"``
-dispatches by device) that writes its argmins straight into a preallocated
-``(n, B, T+1)`` int32 slab. Backtracking walks that slab in reverse on the
-same device. The fused solver (:func:`solve_fused_batch_torch`) returns only
-the ``(B, n)`` schedules plus the final DP row ``K_last``, so nothing bigger
-than the answer has to leave the device.
+The DP row update over classes is ``n`` banded min-plus convolutions, each
+writing its argmins into a preallocated ``(n, B, T+1)`` int32 slab, and
+backtracking walks that slab in reverse on the same device. On the card
+(backend ``"cuda"``, which ``"auto"`` picks there) the scan and the backtrack
+are one host call into ``kernels/minplus.py::minplus_scan_cuda``: no PyTorch
+op and no Python step per class. The other backends run the plain versions,
+a Python loop of row updates and of gather steps. The fused solver
+(:func:`solve_fused_batch_torch`) returns only the ``(B, n)`` schedules plus
+the final DP row ``K_last``, so nothing bigger than the answer has to leave
+the device.
 
 Inputs are the 0-lower-limit equivalent instance (Section 5.2) as dense
 arrays: ``costs (n, W)`` padded with BIG beyond each ``U_i``.
+:func:`pack_batch` builds them for a whole :class:`ProblemBatch` on the
+device from its float64 tables, bit-identical to the host's
+``pack_problem(remove_lower_limits(batch))``.
 
 Entry points run on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``; without a CUDA device they raise rather than run on the
@@ -22,8 +28,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..kernels.ops import BIG, minplus_step_batch
+from ..kernels.minplus import minplus_scan_cuda
+from ..kernels.ops import BIG, minplus_step_batch, resolve_backend
+from ..kernels.ref import backtrack_ref, minplus_scan_ref
 from .problem import (
+    PACK_BIG,
     Problem,
     ProblemBatch,
     remove_lower_limits,
@@ -35,6 +44,7 @@ __all__ = [
     "solve_schedule_dp_batch",
     "solve_fused_batch_torch",
     "dp_tables_batch",
+    "pack_batch",
     "pack_problem",
     "resolve_device",
 ]
@@ -75,29 +85,63 @@ def pack_problem(p0, device="cuda") -> torch.Tensor:
     return torch.from_numpy(costs).to(dev)
 
 
+def pack_batch(batch: ProblemBatch, device="cuda") -> torch.Tensor:
+    """The packed ``(B, n, W)`` float32 cost tensor of ``batch``'s
+    0-lower-limit instances, built on ``device``: bit-identical to
+    ``pack_problem(remove_lower_limits(batch), device)``.
+
+    The float64 tables and the limits cross to the device once; there, as
+    torch ops, each row is shifted left by its ``L`` and rebased to
+    ``C(L) = 0`` (paper eqs. (8)-(10)), entries past ``U - L`` become BIG,
+    and the result is saturated to BIG and cast to float32. The float64
+    subtract and the round-to-nearest cast are the same IEEE operations on
+    the device as in numpy.
+    """
+    dev = resolve_device(device)
+    costs = torch.from_numpy(batch.costs).to(dev)
+    lower = torch.from_numpy(batch.lower).to(dev)
+    upper = torch.from_numpy(batch.upper).to(dev)
+    return _pack_on_device(costs, lower, upper)
+
+
+def _pack_on_device(costs: torch.Tensor, lower: torch.Tensor, upper: torch.Tensor) -> torch.Tensor:
+    """:func:`pack_batch` on tensors already on the device: float64 ``costs
+    (B, n, W)``, int64 ``lower``/``upper (B, n)``."""
+    W = costs.shape[2]
+    src = torch.arange(W, device=costs.device) + lower[:, :, None]  # C(j + L)
+    valid = src <= upper[:, :, None]
+    base = costs.gather(2, lower[:, :, None])  # C(L)
+    shifted = costs.gather(2, src.clamp_(max=W - 1)) - base
+    packed = torch.where(valid, shifted, PACK_BIG)
+    return torch.minimum(packed, packed.new_tensor(float(BIG))).to(torch.float32)
+
+
 def _dp_scan_from(k0: torch.Tensor, costs: torch.Tensor, I: torch.Tensor, backend: str = "ref"):
     """Continues the class scan from the DP row ``k0 (B, T+1)`` over the
     classes in ``costs (B, n, W)``, writing step ``i``'s argmins into
-    ``I[i]`` of the ``(n, B, T+1)`` int32 slab. ``k0`` is taken over as one
-    half of the ping-pong pair of rows, so it is overwritten when ``n > 1``.
-    Returns the final row."""
-    n = costs.shape[1]
-    by_class = costs.transpose(0, 1).contiguous()  # (n, B, W): each step's table contiguous
-    rows = (k0, torch.empty_like(k0))
-    for i in range(n):
-        minplus_step_batch(rows[i % 2], by_class[i], backend=backend, out=rows[(i + 1) % 2], iout=I[i])
-    return rows[n % 2]
+    ``I[i]`` of the ``(n, B, T+1)`` int32 slab. Backend ``"cuda"`` is one
+    call of :func:`minplus_scan_cuda`, which overwrites ``k0`` when
+    ``n > 1``; the others loop over :func:`minplus_step_batch`. Returns the
+    final row."""
+    if resolve_backend(backend, k0.device) == "cuda":
+        return minplus_scan_cuda(k0, costs, I)[0]
+    return minplus_scan_ref(k0, costs, I, step=lambda k, c: minplus_step_batch(k, c, backend=backend))
+
+
+def _dp_buffers(costs: torch.Tensor, T: int):
+    """The DP's first row ``k0 (B, T+1)`` (0 at ``t = 0``, BIG elsewhere) and
+    an empty ``(n, B, T+1)`` int32 argmin slab, on ``costs``' device."""
+    B, n, _ = costs.shape
+    k0 = torch.full((B, T + 1), BIG, dtype=torch.float32, device=costs.device)
+    k0[:, 0] = 0.0
+    return k0, torch.empty((n, B, T + 1), dtype=torch.int32, device=costs.device)
 
 
 def _dp_tables_batch(costs: torch.Tensor, T: int, backend: str = "ref"):
     """Scans the DP over classes for a whole batch: ``costs (B, n, W)`` ->
     ``(K_last (B, T+1), I (n, B, T+1) int32)``, both on ``costs``' device."""
-    B, n, _ = costs.shape
-    k0 = torch.full((B, T + 1), BIG, dtype=torch.float32, device=costs.device)
-    k0[:, 0] = 0.0
-    I = torch.empty((n, B, T + 1), dtype=torch.int32, device=costs.device)
-    k_last = _dp_scan_from(k0, costs, I, backend=backend)
-    return k_last, I
+    k0, I = _dp_buffers(costs, T)
+    return _dp_scan_from(k0, costs, I, backend=backend), I
 
 
 def dp_tables_batch(costs: torch.Tensor, T: int, backend: str = "auto"):
@@ -108,23 +152,18 @@ def dp_tables_batch(costs: torch.Tensor, T: int, backend: str = "auto"):
     return _dp_tables_batch(costs.to(torch.float32), int(T), backend=backend)
 
 
-def _backtrack_batch(I: torch.Tensor, t_star: torch.Tensor) -> torch.Tensor:
-    """Reverse walk: per instance, ``x_i = I[i, b, t_b]; t_b -= x_i``.
-    Returns ``(B, n)`` int32 on ``I``'s device."""
-    n, B, _ = I.shape
-    X = torch.empty((B, n), dtype=torch.int32, device=I.device)
-    t = t_star.to(device=I.device, dtype=torch.int64)  # gather wants int64 indices
-    for i in range(n - 1, -1, -1):
-        j = I[i].gather(1, t[:, None])[:, 0]
-        X[:, i] = j
-        t = t - j
-    return X
+# The backtrack kernel's plain version: n gather steps in reverse.
+_backtrack_batch = backtrack_ref
 
 
 def _solve_fused_batch(costs: torch.Tensor, t_star: torch.Tensor, T: int, backend: str = "ref"):
-    k_last, I = _dp_tables_batch(costs, T, backend=backend)
-    X = _backtrack_batch(I, t_star)
-    return X, k_last
+    k0, I = _dp_buffers(costs, T)
+    if resolve_backend(backend, costs.device) == "cuda":
+        # one host call: the n row launches, then the backtrack launch
+        k_last, X = minplus_scan_cuda(k0, costs, I, t_star=t_star)
+        return X, k_last
+    k_last = _dp_scan_from(k0, costs, I, backend=backend)
+    return _backtrack_batch(I, t_star), k_last
 
 
 def solve_fused_batch_torch(costs: torch.Tensor, t_star, T: int, backend: str = "auto"):
@@ -133,7 +172,10 @@ def solve_fused_batch_torch(costs: torch.Tensor, t_star, T: int, backend: str = 
 
     Args:
       costs: ``(B, n, W)`` float32 packed tables (0-lower-limit instances).
-      t_star: ``(B,)`` filled capacities to backtrack from.
+      t_star: ``(B,)`` filled capacities to backtrack from, in ``[0, T]``;
+        checked where they are on the host (a sequence, a numpy array or a
+        CPU tensor), left to the caller on the card, where a walk out of
+        the row would give zeros.
       T: row width (max ``T'`` across the batch).
 
     Returns ``(X, K_last)``: ``(B, n)`` int32 schedules and the ``(B, T+1)``
@@ -141,8 +183,11 @@ def solve_fused_batch_torch(costs: torch.Tensor, t_star, T: int, backend: str = 
     units across instance ``b``). The ``(n, B, T+1)`` argmin slab is
     allocated, filled and read on the device and never returned.
     """
-    t_star = torch.as_tensor(t_star, device=costs.device)
-    return _solve_fused_batch(costs.to(torch.float32), t_star, int(T), backend=backend)
+    T = int(T)
+    t_star = torch.as_tensor(t_star)
+    if t_star.device.type == "cpu" and t_star.numel() and not (0 <= int(t_star.min()) <= int(t_star.max()) <= T):
+        raise ValueError(f"t_star must lie in [0, T={T}], got [{int(t_star.min())}, {int(t_star.max())}]")
+    return _solve_fused_batch(costs.to(torch.float32), t_star.to(costs.device), T, backend=backend)
 
 
 def solve_schedule_dp_torch(problem: Problem, backend: str = "auto", device="cuda") -> np.ndarray:
@@ -153,8 +198,7 @@ def solve_schedule_dp_torch(problem: Problem, backend: str = "auto", device="cud
     p0 = remove_lower_limits(problem)
     costs = pack_problem(p0, device)
     # Scheduling instances always fill the knapsack: T* == T.
-    t_star = torch.tensor([p0.T], dtype=torch.int64, device=costs.device)
-    X, _ = solve_fused_batch_torch(costs[None], t_star, int(p0.T), backend=backend)
+    X, _ = solve_fused_batch_torch(costs[None], [int(p0.T)], int(p0.T), backend=backend)
     return restore_lower_limits(problem, X[0].cpu().numpy().astype(np.int64))
 
 
@@ -164,15 +208,16 @@ def solve_schedule_dp_batch(problems, backend: str = "auto", device="cuda") -> n
     Accepts a sequence of :class:`Problem` (ragged ``n``/``U_i``/``T`` are
     padded into a dense stack) or a prebuilt :class:`ProblemBatch`. Returns a
     ``(B, n)`` int64 array of schedules — row ``b`` solves instance ``b``;
-    columns past an instance's own ``n`` are 0. Only the ``(B, n)``
+    columns past an instance's own ``n`` are 0. The cost tables are packed on
+    ``device`` (:func:`pack_batch`); the host keeps only ``validate()``,
+    ``T'`` and the final ``restore_lower_limits``. Only the ``(B, n)``
     schedules come back to the host.
     """
     batch = problems if isinstance(problems, ProblemBatch) else ProblemBatch.from_problems(problems)
     batch.validate()
-    b0 = remove_lower_limits(batch)
-    costs = pack_problem(b0, device)
-    Tmax = int(b0.T.max())
-    # Scheduling instances always fill the knapsack: T*_b == T'_b.
-    t_star = torch.from_numpy(b0.T).to(costs.device)
-    X, _ = solve_fused_batch_torch(costs, t_star, Tmax, backend=backend)
+    costs = pack_batch(batch, device)
+    # eq. (8) on the host: T' = T - sum L. Scheduling instances always fill
+    # the knapsack, so T*_b == T'_b.
+    Tp = batch.T - batch.lower.sum(axis=1)
+    X, _ = solve_fused_batch_torch(costs, Tp, int(Tp.max()), backend=backend)
     return restore_lower_limits(batch, X.cpu().numpy().astype(np.int64))

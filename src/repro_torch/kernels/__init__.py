@@ -1,9 +1,12 @@
 """The port's kernels, each beside its plain PyTorch version.
 
-``minplus``: the banded min-plus row update of the exact solver, a
-hand-written Hopper kernel (``csrc/minplus.cu``, built by ``build`` at its
-first launch) behind ``minplus_cuda_batch``. ``blocked``: the tiled PyTorch
-CPU backend. ``ref``: the dense PyTorch oracle, the kernel's plain version.
+``minplus``: the exact solver's device path, hand-written Hopper kernels
+(``csrc/minplus.cu``, built by ``build`` at their first launch): the banded
+min-plus row update behind ``minplus_cuda_batch``, the whole class scan in
+one host call behind ``minplus_scan_cuda``, which also launches the
+backtrack when given ``t_star``. ``blocked``: the tiled PyTorch CPU backend.
+``ref``: the dense PyTorch oracle and the plain scan and backtrack, the
+kernels' plain versions.
 ``ops`` exposes the dispatching wrappers — ``backend="auto"`` selects by the
 tensor's device.
 
@@ -17,19 +20,27 @@ Import it as a module; it is not re-exported here, so
 """
 
 from .blocked import auto_block_sizes, minplus_blocked_batch
-from .minplus import hopper_tile_sizes, minplus_cuda, minplus_cuda_batch
+from .minplus import (
+    hopper_tile_sizes,
+    minplus_cuda,
+    minplus_cuda_batch,
+    minplus_scan_cuda,
+)
 from .ops import BACKENDS, BIG, DISPATCH_TABLE, minplus_step, minplus_step_batch, resolve_backend
-from .ref import minplus_step_ref, minplus_step_ref_batch
+from .ref import backtrack_ref, minplus_scan_ref, minplus_step_ref, minplus_step_ref_batch
 
 __all__ = [
     "BACKENDS",
     "BIG",
     "DISPATCH_TABLE",
     "auto_block_sizes",
+    "backtrack_ref",
     "hopper_tile_sizes",
     "minplus_blocked_batch",
     "minplus_cuda",
     "minplus_cuda_batch",
+    "minplus_scan_cuda",
+    "minplus_scan_ref",
     "minplus_step",
     "minplus_step_batch",
     "minplus_step_ref",

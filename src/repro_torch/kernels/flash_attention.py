@@ -19,6 +19,13 @@ When an input requires a gradient, ``flash_attention`` goes through a
 ``csrc/flash_bwd.cu`` (the TPU kernels ``_dq_kernel`` and ``_dkv_kernel``) on
 CUDA tensors and runs :func:`flash_attention_bwd_ref` on CPU tensors.
 
+The kernels are built for the head dims ``HEAD_DIMS``. On CUDA tensors a
+head dim between them (D = 80 of the reference's hubert-xlarge and
+zamba2-2.7b configs) runs the instance of the next built one,
+:func:`kernel_head_dim`, on inputs zero-padded to it: zero columns add
+nothing to ``q k^T`` and give zero output and gradient columns, which are
+cut off again, and the softmax scale stays ``D ** -0.5`` of the true D.
+
 ``launches``, ``launches_dq`` and ``launches_dkv`` count the launches of the
 forward, dQ and dK/dV kernels, and only those; ``launches_fwd_tc``,
 ``launches_dq_tc`` and ``launches_dkv_tc`` count the tensor-core route's share
@@ -57,6 +64,7 @@ __all__ = [
     "flash_tc_smem_bytes",
     "flash_tc_tile_sizes",
     "flash_tile_sizes",
+    "kernel_head_dim",
     "launches",
     "launches_dkv",
     "launches_dkv_tc",
@@ -216,6 +224,23 @@ def flash_dkv_tc_tile_sizes(D: int, smem_budget: int = SMEM_OPTIN_BYTES):
     bytes)."""
     return _tc_tiles(D, flash_dkv_tc_smem_bytes(D), (DKV_TC_BLOCK_Q, DKV_TC_BLOCK_K), smem_budget,
                      "tensor-core dK/dV")
+
+
+def kernel_head_dim(D: int) -> int:
+    """The head dim of the kernel instance that computes head dim ``D``:
+    ``D`` itself where the kernels are built for it, else the next one of
+    ``HEAD_DIMS`` above it (D = 80 runs at 128, on zero-padded inputs).
+    Raises above the largest."""
+    for d in HEAD_DIMS:
+        if d >= D:
+            return d
+    raise ValueError(f"head dim {D} not supported by the flash kernels: above the largest of {HEAD_DIMS}")
+
+
+def _pad_head(x: torch.Tensor, Dk: int) -> torch.Tensor:
+    """``x`` with its last axis zero-padded to ``Dk`` entries (a new
+    contiguous tensor, through which autograd passes the gradient back)."""
+    return torch.nn.functional.pad(x, (0, Dk - x.shape[-1]))
 
 
 def flash_mask(Sq: int, Sk: int, kind: str, window: int, device=None) -> torch.Tensor:
@@ -398,10 +423,17 @@ def flash_attention(q, k, v, kind="causal", window=0, softcap=0.0, scale=None):
     need what TMA needs (:func:`_check_tma`), or it raises. On CPU tensors it
     returns :func:`flash_attention_ref`. ``scale`` defaults to ``D ** -0.5``.
     When grad mode is on and q, k or v requires a gradient, ``o`` carries one:
-    its backward is :func:`flash_attention_bwd`.
+    its backward is :func:`flash_attention_bwd`. On CUDA tensors a head dim
+    outside ``HEAD_DIMS`` runs the kernels of :func:`kernel_head_dim` on
+    zero-padded copies, and ``o`` is a view of the first D columns.
     """
     _check_inputs(q, k, v, kind)
-    scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
+    D = q.shape[-1]
+    scale = D ** -0.5 if scale is None else float(scale)
+    if q.device.type == "cuda" and D not in HEAD_DIMS:
+        Dk = kernel_head_dim(D)
+        o, lse = flash_attention(*(_pad_head(x, Dk) for x in (q, k, v)), kind, window, softcap, scale)
+        return o[..., :D], lse
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         return _FlashAttention.apply(q, k, v, kind, window, softcap, scale)
     return _forward(q, k, v, kind, window, softcap, scale)
@@ -444,7 +476,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, kind="causal", window=0, softcap=0.
     without a contiguous last axis (or, in bfloat16, that TMA cannot read) is
     made contiguous first. bfloat16 runs both on the tensor cores. On CPU
     tensors it returns :func:`flash_attention_bwd_ref`. dq comes in q's dtype
-    and shape, dk and dv in k's.
+    and shape, dk and dv in k's. On CUDA tensors a head dim outside
+    ``HEAD_DIMS`` runs the kernels of :func:`kernel_head_dim` on zero-padded
+    copies, and the gradients are views of their first D columns.
     """
     _check_inputs(q, k, v, kind)
     B, H, Sq, D = q.shape
@@ -456,6 +490,10 @@ def flash_attention_bwd(q, k, v, o, lse, do, kind="causal", window=0, softcap=0.
     scale = D ** -0.5 if scale is None else float(scale)
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, o, lse, do, kind, window, softcap, scale)
+    if D not in HEAD_DIMS:
+        Dk = kernel_head_dim(D)
+        q, k, v, o, do = (_pad_head(x, Dk) for x in (q, k, v, o, do))
+        return tuple(g[..., :D] for g in flash_attention_bwd(q, k, v, o, lse, do, kind, window, softcap, scale))
     _check_launch(q, k, v, window)
     if q.dtype == torch.bfloat16:
         flash_dq_tc_tile_sizes(D)

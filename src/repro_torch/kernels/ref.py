@@ -12,13 +12,17 @@ table, banded to width ``W = U_i + 1``. This module is the plain version the
 CUDA kernel (``kernels/csrc/minplus.cu``) is held against, bit for bit, and
 the CPU path of its wrapper. It materializes the whole ``(B, T+1, W)``
 candidate tensor, so it is for small shapes and for checking.
+
+``minplus_scan_ref`` and ``backtrack_ref`` are the plain versions of the
+class scan and the backtrack kernel that ``minplus_scan_cuda`` launches: a
+Python loop of ``n`` row updates, and ``n`` gather steps in reverse.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["minplus_step_ref", "minplus_step_ref_batch", "BIG"]
+__all__ = ["minplus_step_ref", "minplus_step_ref_batch", "minplus_scan_ref", "backtrack_ref", "BIG"]
 
 # Large-but-finite stand-in for +inf: keeps arithmetic NaN-free in float32
 # while dominating any real cost (energy values in this codebase are << 1e30).
@@ -76,3 +80,31 @@ def minplus_step_ref(kprev: torch.Tensor, cost: torch.Tensor):
     """
     kout, iout = minplus_step_ref_batch(kprev[None], cost[None])
     return kout[0], iout[0]
+
+
+def minplus_scan_ref(k0: torch.Tensor, costs: torch.Tensor, I: torch.Tensor, step=minplus_step_ref_batch):
+    """The class scan as a Python loop: from the DP row ``k0 (B, T+1)`` over
+    the classes of ``costs (B, n, W)``, class ``i`` by ``step(row, costs[:,
+    i])`` (a batched row update, the dense oracle by default), its argmins
+    copied into ``I[i]`` of the ``(n, B, T+1)`` int32 slab. Returns the last
+    row (``k0`` itself when ``n == 0``)."""
+    k = k0
+    for i in range(costs.shape[1]):
+        k, idx = step(k, costs[:, i])
+        I[i].copy_(idx)
+    return k
+
+
+def backtrack_ref(I: torch.Tensor, t_star: torch.Tensor) -> torch.Tensor:
+    """Reverse walk through the argmin slab ``I (n, B, T+1)``: per instance,
+    ``x_i = I[i, b, t_b]; t_b -= x_i`` from ``t_star (B,)``. Returns ``(B, n)``
+    int32 on ``I``'s device; a ``t_b`` outside the row raises (the kernel
+    gives ``x_i = 0`` there instead, so callers check the range)."""
+    n, B, _ = I.shape
+    X = torch.empty((B, n), dtype=torch.int32, device=I.device)
+    t = t_star.to(device=I.device, dtype=torch.int64)  # gather wants int64 indices
+    for i in range(n - 1, -1, -1):
+        j = I[i].gather(1, t[:, None])[:, 0]
+        X[:, i] = j
+        t = t - j
+    return X

@@ -89,7 +89,9 @@ def _build_mask(q_pos, kv_pos, kind: str, window: int = 0, prefix_len=None):
 def _flash_route(q, k, v, kind, prefix_len, kv_valid) -> bool:
     """The reference's conditions for the kernel route
     (``models/layers.py::attention``) that name features the kernel lacks: a
-    prefix mask, a cache mask, ``Sq != Sk``, ``D != Dv``. The reference's
+    prefix mask, a cache mask, ``Sq != Sk``, ``D != Dv``. A head dim the
+    kernels are not built for (D = 80) takes the kernel route too, as in the
+    reference: the wrapper runs it on zero-padded inputs. The reference's
     length conditions (``Sq >= 128``, ``Sq % 128 == 0``) are dropped with its
     fault: there the kernel gets 512-row blocks and a grid of ``Sq // 512``,
     so for ``Sq % 512 != 0`` the rows past the last whole block are never

@@ -1,6 +1,8 @@
 """The port's hand-written CUDA kernels on the card, against their plain
-PyTorch versions: the min-plus kernel bit for bit (float32 values, int32
-argmins); the flash-attention forward at rtol = atol = 2e-5 for float32 and
+PyTorch versions: the min-plus row kernel bit for bit (float32 values, int32
+argmins), the class scan in one host call (last row and argmin slab) and the
+backtrack kernel exactly, the device pack bit for bit against the host's,
+and the launch counters of one solve; the flash-attention forward at rtol = atol = 2e-5 for float32 and
 2e-2 for bfloat16 I/O (the reference's forward tolerances), and its bfloat16
 tensor-core route within the limit its roundings give; the dQ and dK/dV
 kernels at the reference's gradient tolerance (rtol 3e-4, atol 3e-5) for
@@ -21,8 +23,15 @@ import pytest
 import torch
 
 from repro_torch.core import ProblemBatch, random_problem, remove_lower_limits
-from repro_torch.core.torch_dp import pack_problem, solve_fused_batch_torch, solve_schedule_dp_batch
-from repro_torch.kernels import BIG, minplus_cuda_batch, minplus_step_ref_batch
+from repro_torch.core.torch_dp import (
+    _backtrack_batch,
+    dp_tables_batch,
+    pack_batch,
+    pack_problem,
+    solve_fused_batch_torch,
+    solve_schedule_dp_batch,
+)
+from repro_torch.kernels import BIG, minplus_cuda_batch, minplus_scan_ref, minplus_step_ref_batch
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import minplus as mp
 
@@ -36,11 +45,17 @@ def cuda():
     return torch.device("cuda")
 
 
-def band_inputs(rng, B, Tp, W, device):
-    kprev = rng.uniform(0, 100, (B, Tp)).astype(np.float32)
+def band_inputs(rng, B, Tp, W, device, ties=False):
+    """A DP row + cost stack with BIG sprinkled in both; with ``ties`` the
+    values are small integers, so many candidates tie."""
+    if ties:
+        kprev = rng.integers(0, 8, (B, Tp)).astype(np.float32)
+        cost = rng.integers(0, 4, (B, W)).astype(np.float32)
+    else:
+        kprev = rng.uniform(0, 100, (B, Tp)).astype(np.float32)
+        cost = rng.uniform(0, 10, (B, W)).astype(np.float32)
     kprev[rng.random((B, Tp)) < 0.3] = float(BIG)
     kprev[:, 0] = 0.0
-    cost = rng.uniform(0, 10, (B, W)).astype(np.float32)
     cost[rng.random((B, W)) < 0.2] = float(BIG)
     return torch.from_numpy(kprev).to(device), torch.from_numpy(cost).to(device)
 
@@ -52,16 +67,19 @@ def assert_bit_identical(got, want):
     assert torch.equal(gi, wi)
 
 
-@pytest.mark.parametrize("B,Tp,W,BT,BW", [
-    (3, 1, 1, None, None),
-    (3, 1500, 700, None, None),
-    (3, 10001, 1001, None, None),
-    (2, 1500, 700, 33, 7),
-    (2, 1500, 700, 600, 100),
-    (2, 1500, 700, 2048, 256),
+@pytest.mark.parametrize("B,Tp,W,BT,BW,ties", [
+    (3, 1, 1, None, None, False),
+    (3, 1500, 700, None, None, False),
+    (3, 10001, 1001, None, None, False),
+    (2, 1500, 700, 33, 7, False),
+    (2, 1500, 700, 600, 100, False),
+    (2, 1500, 700, 1024, 256, False),
+    (4, 3000, 400, None, None, True),
+    (2, 1500, 700, 33, 7, True),
+    (3, 10001, 5000, None, None, True),
 ])
-def test_cuda_kernel_matches_plain(cuda, B, Tp, W, BT, BW):
-    kprev, cost = band_inputs(np.random.default_rng(Tp + W), B, Tp, W, cuda)
+def test_cuda_kernel_matches_plain(cuda, B, Tp, W, BT, BW, ties):
+    kprev, cost = band_inputs(np.random.default_rng(Tp + W), B, Tp, W, cuda, ties=ties)
     before = mp.launches
     got = minplus_cuda_batch(kprev, cost, BT=BT, BW=BW)
     torch.cuda.synchronize()
@@ -69,14 +87,63 @@ def test_cuda_kernel_matches_plain(cuda, B, Tp, W, BT, BW):
     assert_bit_identical(got, minplus_step_ref_batch(kprev, cost))
 
 
+@pytest.mark.parametrize("BT,BW", [(None, None), (8, 3), (512, 64)])
+def test_cuda_kernel_keeps_big_and_argmin_zero_on_all_big_rows(cuda, BT, BW):
+    kprev = torch.full((2, 37), BIG, dtype=torch.float32, device=cuda)
+    cost = torch.full((2, 11), BIG, dtype=torch.float32, device=cuda)
+    got = minplus_cuda_batch(kprev, cost, BT=BT, BW=BW)
+    assert_bit_identical(got, minplus_step_ref_batch(kprev, cost))
+    assert bool((got[0] == BIG).all()) and bool((got[1] == 0).all())
+
+
+@pytest.mark.parametrize("W", [1, 5, 1001])
+@pytest.mark.parametrize("Tp", [1, 7, 1500, 10001])
+@pytest.mark.parametrize("B", [1, 3, 16, 17])
+@pytest.mark.parametrize("n", [1, 2, 7, 100])
+def test_cuda_scan_and_backtrack_match_plain(cuda, n, B, Tp, W):
+    """One host call: the last row and the whole argmin slab against the
+    plain scan, the costs read through a (B, n, W) view of an (n, B, W)
+    array, then the backtrack kernel the same call launches against the
+    plain backtrack from ragged starting points."""
+    rng = np.random.default_rng(n * 1000 + B * 100 + Tp + W)
+    k0 = band_inputs(rng, B, Tp, 1, cuda)[0]
+    by_class = rng.uniform(0, 10, (n, B, W)).astype(np.float32)
+    by_class[rng.random(by_class.shape) < 0.2] = float(BIG)
+    costs = torch.from_numpy(by_class).to(cuda).transpose(0, 1)
+    t_star = torch.from_numpy(rng.integers(0, Tp, B)).to(cuda)
+    I = torch.empty((n, B, Tp), dtype=torch.int32, device=cuda)
+    before = (mp.launches, mp.launches_scan, mp.launches_backtrack)
+    k_last, X = mp.minplus_scan_cuda(k0.clone(), costs, I, t_star=t_star)
+    torch.cuda.synchronize()
+    assert (mp.launches, mp.launches_scan, mp.launches_backtrack) == (before[0] + n, before[1] + 1, before[2] + 1)
+    I_ref = torch.empty_like(I)
+    k_ref = minplus_scan_ref(k0.clone(), costs, I_ref)
+    assert torch.equal(k_last.view(torch.int32), k_ref.view(torch.int32))
+    assert torch.equal(I, I_ref)
+    X_ref = _backtrack_batch(I_ref, t_star)
+    assert torch.equal(X, X_ref)
+
+
+def test_cuda_device_pack_matches_host_pack(cuda):
+    rng = np.random.default_rng(3)
+    probs = [random_problem(rng, n=int(rng.integers(1, 30)), T=int(rng.integers(1, 900)), max_upper=200,
+                            regime=("arbitrary", "linear", "increasing", "decreasing")[b % 4]) for b in range(9)]
+    batch = ProblemBatch.from_problems(probs)
+    got = pack_batch(batch, cuda)
+    want = pack_problem(remove_lower_limits(batch), cuda)
+    assert got.device.type == "cuda" and got.dtype == torch.float32
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
 def test_cuda_solve_matches_plain_path(cuda):
     rng = np.random.default_rng(0)
     batch = ProblemBatch.from_problems(
         [random_problem(rng, n=12, T=500, regime="arbitrary", max_upper=100) for _ in range(4)]
     )
-    before = mp.launches
+    before = (mp.launches, mp.launches_scan, mp.launches_backtrack)
     X = solve_schedule_dp_batch(batch, device="cuda")
-    assert mp.launches == before + batch.n
+    # one host call into the scan (n row launches) and one backtrack launch
+    assert (mp.launches, mp.launches_scan, mp.launches_backtrack) == (before[0] + batch.n, before[1] + 1, before[2] + 1)
     np.testing.assert_array_equal(X, solve_schedule_dp_batch(batch, device="cpu"))
     b0 = remove_lower_limits(batch)
     costs = pack_problem(b0, cuda)
@@ -84,6 +151,9 @@ def test_cuda_solve_matches_plain_path(cuda):
     Xc, Kc = solve_fused_batch_torch(costs, t_star, int(b0.T.max()), backend="cuda")
     Xr, Kr = solve_fused_batch_torch(costs, t_star, int(b0.T.max()), backend="ref")
     assert torch.equal(Xc, Xr) and torch.equal(Kc.view(torch.int32), Kr.view(torch.int32))
+    Kc, Ic = dp_tables_batch(costs, int(b0.T.max()), backend="cuda")
+    Kr, Ir = dp_tables_batch(costs, int(b0.T.max()), backend="ref")
+    assert torch.equal(Ic, Ir) and torch.equal(Kc.view(torch.int32), Kr.view(torch.int32))
 
 
 @pytest.mark.parametrize("B,H,Hkv,S,D,kind,window,softcap,dtype", [
@@ -364,3 +434,45 @@ def test_cuda_train_step_launches_with_remat(cuda):
     L = cfg.num_layers
     assert (fa.launches, fa.launches_dq, fa.launches_dkv) == (before[0] + 2 * L, before[1] + L, before[2] + L)
     assert torch.isfinite(loss)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_head_dim_80_runs_the_flash_kernels(cuda, dtype):
+    """D = 80 (hubert-xlarge, zamba2-2.7b) lies between the head dims the
+    flash kernels are built for: attention(impl="flash") runs the D = 128
+    forward, dQ and dK/dV kernels on zero-padded inputs, and o and the
+    gradients match the plain version at the built head dims' tolerances
+    (float32: the reference's; bfloat16: chip_smoke.py's limits)."""
+    from repro_torch.models.layers import attention
+
+    rng = np.random.default_rng(80)
+    S, D, kind, window, softcap = 256, 80, "sliding", 100, 30.0
+    q, k, v = (torch.from_numpy(rng.normal(size=(2, S, h, D)).astype(np.float32) * 0.5).to(cuda, dtype)
+               .requires_grad_() for h in (4, 2, 2))
+    do = torch.from_numpy(rng.normal(size=(2, S, 4, D)).astype(np.float32)).to(cuda, dtype)
+    pos = torch.arange(S, device=cuda)
+    before = (fa.launches, fa.launches_dq, fa.launches_dkv, fa.launches_fwd_tc)
+    got = attention(q, k, v, q_pos=pos, kv_pos=pos, kind=kind, window=window, attn_softcap=softcap, impl="flash")
+    grads = torch.autograd.grad(got, (q, k, v), do)
+    torch.cuda.synchronize()
+    tc = int(dtype == torch.bfloat16)
+    assert (fa.launches, fa.launches_dq, fa.launches_dkv, fa.launches_fwd_tc) == (
+        before[0] + 1, before[1] + 1, before[2] + 1, before[3] + tc)
+    assert got.shape == (2, S, 4, D) and got.dtype == dtype
+    q32, k32, v32, do32 = (x.detach().float().transpose(1, 2) for x in (q, k, v, do))
+    o32, lse32 = fa.flash_attention_ref(q32, k32, v32, kind, window, softcap)
+    o = got.detach().transpose(1, 2)
+    want = fa.flash_attention_bwd_ref(q32, k32, v32, o.float(), lse32, do32, kind, window, softcap)
+    if dtype == torch.float32:
+        torch.testing.assert_close(o, o32, rtol=2e-5, atol=2e-5)
+    else:
+        pv_abs = fa.flash_attention_ref(q32, k32, v32.abs(), kind, window, softcap)[0]
+        limit = 2.0 ** -8 * (o32.abs() + pv_abs) + 2e-5
+        assert bool(((o.float() - o32).abs() <= limit).all()), float(((o.float() - o32).abs() / limit).max())
+    for g, w in zip(grads, want):
+        g = g.transpose(1, 2)
+        assert g.shape == w.shape and g.dtype == dtype
+        if dtype == torch.float32:
+            torch.testing.assert_close(g, w, rtol=3e-4, atol=3e-5)
+        else:
+            torch.testing.assert_close(g.float(), w, rtol=2.0 ** -8, atol=1e-5 * w.abs().max().item())

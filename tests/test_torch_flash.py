@@ -160,6 +160,57 @@ def test_attention_keeps_the_plain_route_for_what_the_kernel_lacks(monkeypatch, 
     torch.testing.assert_close(got, attention(q, k, v, impl="plain", **kw), rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("kind,window,softcap", [("causal", 0, 0.0), ("sliding", 50, 30.0)])
+def test_attention_takes_the_kernel_route_at_head_dims_between_the_built_ones(monkeypatch, kind, window, softcap):
+    """D = 80 (the reference's hubert-xlarge and zamba2-2.7b) takes the
+    kernel route, as in the reference, and matches the reference's XLA
+    route. On the card the wrapper runs it at the next built head dim
+    (``kernel_head_dim``), on zero-padded inputs."""
+    assert 80 not in fa.HEAD_DIMS and fa.kernel_head_dim(80) == 128
+    calls = _route_calls(monkeypatch)
+    S, D = 128, 80
+    q, k, v = make_qkv(np.random.default_rng(80), 1, 4, 2, S, D)
+    want = _jax_xla(q, k, v, kind, window, softcap)
+    got = attention(
+        torch.from_numpy(q).transpose(1, 2), torch.from_numpy(k).transpose(1, 2),
+        torch.from_numpy(v).transpose(1, 2), q_pos=torch.arange(S), kv_pos=torch.arange(S),
+        kind=kind, window=window, attn_softcap=softcap, impl="flash",
+    )
+    assert calls == [(1, 4, S, D)]
+    assert got.shape == (1, S, 4, D)
+    np.testing.assert_allclose(got.transpose(1, 2).numpy(), want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("D", [8, 48, 80, 200])
+def test_zero_padded_head_dim_gives_the_same_attention_and_gradients(D):
+    """What the card's route for a head dim outside ``HEAD_DIMS`` rests on:
+    the plain forward and backward at ``kernel_head_dim(D)`` on zero-padded
+    q, k, v, o and dO, with the scale of the true D, cut back to D columns,
+    equal the plain forward and backward at D (float32 summation-order noise
+    aside), and the padded columns of o and of every gradient are zero."""
+    Dk = fa.kernel_head_dim(D)
+    assert Dk in fa.HEAD_DIMS and Dk > D and all(d < D for d in fa.HEAD_DIMS if d < Dk)
+    rng = np.random.default_rng(D)
+    q, k, v = (torch.from_numpy(x) for x in make_qkv(rng, 1, 4, 2, 96, D))
+    do = torch.from_numpy(rng.normal(size=(1, 4, 96, D)).astype(np.float32))
+    args = ("sliding", 40, 20.0, D ** -0.5)
+    o, lse = fa.flash_attention_ref(q, k, v, *args)
+    grads = fa.flash_attention_bwd_ref(q, k, v, o, lse, do, *args)
+    qp, kp, vp, op, dop = (fa._pad_head(x, Dk) for x in (q, k, v, o, do))
+    o_p, lse_p = fa.flash_attention_ref(qp, kp, vp, *args)
+    grads_p = fa.flash_attention_bwd_ref(qp, kp, vp, op, lse_p, dop, *args)
+    for got, want in zip((o_p, *grads_p), (o, *grads)):
+        assert got.shape[-1] == Dk and not got[..., D:].any()
+        torch.testing.assert_close(got[..., :D], want, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(lse_p, lse, rtol=1e-6, atol=1e-6)
+
+
+def test_kernel_head_dim_refuses_head_dims_above_the_largest():
+    assert [fa.kernel_head_dim(d) for d in (1, 16, 17, 64, 65, 128, 129, 256)] == [16, 16, 32, 64, 128, 128, 256, 256]
+    with pytest.raises(ValueError, match="above the largest"):
+        fa.kernel_head_dim(257)
+
+
 def test_flash_tile_choice_fits_shared_memory():
     assert fa.SMEM_OPTIN_BYTES == 227 * 1024
     for D in fa.HEAD_DIMS:

@@ -163,10 +163,15 @@ def test_hopper_tile_sizes_respect_smem_budget(Tp, W):
     assert BT <= max(1, 1 << (Tp - 1).bit_length())  # never overshoots the padded row
     assert BW <= max(1, 1 << (W - 1).bit_length())
     assert mp.smem_bytes(BT, BW) <= mp.SMEM_BUDGET_BYTES
-    # the formula the kernel allocates with: window of the block's span + costs
-    nt = min(BT, mp.MAX_THREADS)
-    span = nt * (BT // nt)
-    assert mp.smem_bytes(BT, BW) == 4 * (span + BW - 1) + 4 * BW
+    # the formula the kernel allocates with: the row window of the block's
+    # span (warps of 8 outputs a lane, side by side along t), one pad word
+    # after every 8 entries, rounded to a float4, then the costs, with BW
+    # rounded up to a multiple of 8; at least one value and index a thread
+    span = next(32 * 8 * g for g in (1, 2, 4) if 32 * 8 * g >= BT)
+    bw8 = -(-BW // 8) * 8
+    nk = span + bw8 - 1
+    window = -(-(nk + (nk - 1) // 8) // 4) * 4
+    assert mp.smem_bytes(BT, BW) == 4 * max(window + bw8, 2 * mp.MAX_THREADS)
     # a tighter budget still holds
     BT2, BW2 = hopper_tile_sizes(Tp, W, smem_budget=2048)
     assert mp.smem_bytes(BT2, BW2) <= 2048
