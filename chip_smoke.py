@@ -91,6 +91,33 @@ Phases, in order; any failure ends the run with a non-zero exit code:
                 ``scaled_dot_product_attention``, and each beside the previous
                 (float32 CUDA-core) kernel on the widened inputs, in turns
                 (at least 5x faster at the causal shape).
+12. facade    — the scheduler layers through ``Solver(device="cuda")``:
+                (a) phase 4's batch with ``algorithm="dp_batch"`` three
+                times: one plan build (an eager warm-up, then one CUDA-graph
+                capture) and two replays (``compiles`` 1, ``hits`` 2), X
+                identical to phase 4's, K_last's first T'max + 1 columns
+                bit-identical, 3 x n_b row launches and 3 backtracks, and by
+                the profiler one warm replay = n_b = 128 row kernels and 1
+                backtrack kernel; (b) a mixed batch of 16 (4 each of the
+                increasing, linear, decreasing and arbitrary regimes, n =
+                100, T = 10,000, numpy seed 1) through ``solve``: paper
+                Table 2's algorithms, schedules identical to the same call
+                with ``device="cpu"``, objectives within rtol 1e-6 of the
+                serial float64 algorithm (host DP for the arbitrary ones);
+                (c) ``Solver.sweep`` of phase 4's instance 0 over a
+                100-point deadline grid in one dispatch: feasible, the
+                float32 DP objective never rising as deadlines loosen, the
+                first and last points identical to
+                ``solve_schedule_dp_batch`` of their tightened instances,
+                and the peak device memory; (d) ``Solver.frontier`` over 64
+                deadlines of that instance: the points assembled from
+                ``solve_schedule_dp_batch`` of the tightened instances, and,
+                at a cut size (n = 100, T = 1,000, U <= 100), the CPU's
+                points; (e) times beside the card's name and power limit:
+                the cold plan build and capture, the warm bucketed DP solve
+                in turns with ``solve_schedule_dp_batch`` split into host
+                pad, copy and replay, the warm mixed solve by part, and the
+                warm 100-point sweep.
 
 The line before the last is a JSON object of every kernel with its launch
 count and times; the last line is ``{"ok": true, "device": {...}}``.
@@ -180,6 +207,16 @@ TC_SPEEDUP_MIN = 5.0
 # The dense model's loss and gradients, kernel route against plain route: the
 # reference's test_dense_model_with_pallas_attention_matches_xla.
 LOSS_ATOL, MODEL_GRAD_RTOL, MODEL_GRAD_ATOL = 2e-5, 2e-3, 2e-5
+# Phase 12: the mixed batch's regimes (4 instances each) and the algorithm
+# paper Table 2 gives each (upper limits bind: U <= 1,000 < T'); the deadline
+# grids of the sweep and the frontier; the frontier's CPU comparison at a cut
+# size (n clients, T tasks, U <= max_upper), where the CPU's DP takes
+# seconds, not the tens of minutes of the full instance; the selection's
+# float32 objectives against the serial float64 algorithms.
+MIXED_TABLE2 = {"increasing": "marin", "linear": "marco", "decreasing": "mardec", "arbitrary": "dp"}
+SWEEP_POINTS, FRONTIER_POINTS = 100, 64
+FRONTIER_CPU_N, FRONTIER_CPU_T, FRONTIER_CPU_U = 100, 1_000, 100
+FACADE_RTOL = 1e-6
 
 
 def check(cond, msg):
@@ -1113,11 +1150,12 @@ def solver_phase(mp, fa, dev):
     return batch, X, launches, bt_err
 
 
-def device_ms(fn, kernel, calls=1):
-    """The profiler's device time of the kernels whose name holds ``kernel``
-    over ``calls`` calls of ``fn`` after one warm-up call: (total ms,
-    launches). Unlike CUDA events around back-to-back calls, it does not
-    count the gaps a host-bound caller leaves between launches."""
+def device_ms_by(fn, kernels, calls=1):
+    """The profiler's device time of the kernels whose name holds each of
+    ``kernels`` over ``calls`` calls of ``fn`` after one warm-up call:
+    {kernel: (total ms, launches)}. Unlike CUDA events around back-to-back
+    calls, it does not count the gaps a host-bound caller leaves between
+    launches."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1126,12 +1164,18 @@ def device_ms(fn, kernel, calls=1):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    total, count = 0.0, 0
+    out = {k: (0.0, 0) for k in kernels}
     for e in prof.key_averages():
-        if kernel in e.key:
-            total += getattr(e, "device_time_total", None) or e.cuda_time_total
-            count += e.count
-    return total / 1e3, count
+        for k in kernels:
+            if k in e.key:
+                ms, count = out[k]
+                out[k] = (ms + (getattr(e, "device_time_total", None) or e.cuda_time_total) / 1e3, count + e.count)
+    return out
+
+
+def device_ms(fn, kernel, calls=1):
+    """:func:`device_ms_by` of one kernel: (total ms, launches)."""
+    return device_ms_by(fn, (kernel,), calls)[kernel]
 
 
 def per_launch_ms(fn, kernel, calls=20):
@@ -1254,6 +1298,264 @@ def solver_times(mp, minplus_main, batch, X, dev, card):
     }
 
 
+def time_tables(p, seed):
+    """Per-device time tables as benchmarks/bench_pareto.py builds them:
+    sorted uniform(0.05, 1.0) seconds for 1..U_i batches, 0 for none."""
+    rng = np.random.default_rng(seed)
+    tt = [np.sort(rng.uniform(0.05, 1.0, int(u) + 1)) for u in p.upper]
+    for t in tt:
+        t[0] = 0.0
+    return tt
+
+
+def same_frontier(a, b) -> bool:
+    return len(a) == len(b) and all(
+        (p.time, p.energy, p.deadline) == (q.time, q.energy, q.deadline) and np.array_equal(p.schedule, q.schedule)
+        for p, q in zip(a, b))
+
+
+def dispatch_split(plan, batch, shape, reps=5):
+    """A warm dispatch of ``batch`` to its bucket's captured ``plan``, step by
+    step as ``SweepEngine`` runs it, synchronized after each step: medians
+    over ``reps`` of the host pad, the copy into the static buffers, the
+    replay, and the clone, copy to the host and restore of the schedules
+    (ms, host clock)."""
+    Bb, nb, _, Wb = shape
+    steps = {"host pad": [], "copy in": [], "replay": [], "clone, copy out, restore": []}
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        padded = batch.pad_to(B=Bb, n=nb, W=Wb)
+        arrays = (padded.costs, padded.lower, padded.upper, padded.T - padded.lower.sum(axis=1))
+        t1 = time.perf_counter()
+        for buf, a in zip(plan.inputs, arrays):
+            buf.copy_(torch.from_numpy(a))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        plan.graph.replay()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        X = plan.outputs[0].clone().cpu().numpy()[: batch.B, : batch.n] + batch.lower
+        t4 = time.perf_counter()
+        for k, a, b in zip(steps, (t0, t1, t2, t3), (t1, t2, t3, t4)):
+            steps[k].append(1e3 * (b - a))
+    check(X.shape == (batch.B, batch.n), "the step-by-step dispatch lost its shape")
+    return {k: statistics.median(v) for k, v in steps.items()}
+
+
+def split_text(split):
+    return " + ".join(f"{k} {v:.3f} ms" for k, v in split.items()) + f" = {sum(split.values()):.3f} ms"
+
+
+def facade_host_split(plist, X, reps=5):
+    """The facade's host work around one dispatch of ``plist`` (ms, host
+    clock, medians): the regimes it reports, the dense batch the engine
+    builds from the instances, and the validation and float64 objectives of
+    the ``(B, n)`` schedules ``X``."""
+    from repro_torch.core import ProblemBatch, total_cost, validate_schedule
+
+    def objectives():
+        for p, x in zip(plist, X):
+            validate_schedule(p, x[: p.n])
+            total_cost(p, x[: p.n])
+
+    return {
+        "regimes": median_wall_ms(lambda: [p.regime() for p in plist], reps),
+        "dense batch": median_wall_ms(lambda: ProblemBatch.from_problems(plist), reps),
+        "validation and objectives": median_wall_ms(objectives, reps),
+    }
+
+
+def facade_phase(mp, dev, card, batch, X):
+    """Phase 12: the scheduler layers through the Solver facade on the card.
+    Returns the launches of the DP batch path, (a), counted from 0."""
+    from repro_torch.core import (
+        ProblemBatch,
+        Solver,
+        deadline_grid,
+        marco,
+        mardec,
+        mardecun,
+        marin,
+        random_problem,
+        select_algorithm_batch,
+        solve_schedule_dp,
+        solve_schedule_dp_batch,
+        tighten_for_deadline,
+        total_cost,
+    )
+    from repro_torch.core.pareto import assemble_frontier
+    from repro_torch.core.sweep import request_bucket, reset_default_engines
+    from repro_torch.core.torch_dp import pack_batch, solve_fused_batch_torch
+
+    reset_default_engines()
+    solver = Solver(device="cuda")
+    eng = solver.engine
+    Tp = batch.T - batch.lower.sum(axis=1)
+    Tmax = int(Tp.max())
+    nb, Tb, Wb = request_bucket(batch)
+    _, K4 = solve_fused_batch_torch(pack_batch(batch, dev), torch.from_numpy(Tp).to(dev), Tmax, backend="cuda")
+    K4 = K4.cpu().numpy()  # phase 4's final rows
+
+    # (a) the DP batch: one plan build (eager warm-up, capture), two replays
+    mp.launches = mp.launches_scan = mp.launches_backtrack = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sols = [solver.solve(batch, algorithm="dp_batch")]
+    cold_ms = 1e3 * (time.perf_counter() - t0)
+    sols += [solver.solve(batch, algorithm="dp_batch") for _ in range(2)]
+    launches = {"row": mp.launches, "scan": mp.launches_scan, "backtrack": mp.launches_backtrack}
+    check(launches == {"row": 3 * nb, "scan": 1, "backtrack": 3},
+          f"three dp_batch solves launched {launches}; expected {3 * nb} rows in 1 scan call (the warm-up) and 3 "
+          f"backtracks")
+    stats = eng.cache_stats()
+    check((stats["compiles"], stats["hits"], stats["misses"]) == (1, 2, 1), f"cache_stats {stats}")
+    (key, plan), = eng._cache.items()
+    check(plan.graph is not None, "the bucket's plan captured no CUDA graph")
+    for sol in sols:
+        check(np.array_equal(np.stack(sol.schedules), X), "the facade's schedules differ from phase 4's")
+        check(sol.k_last.shape == (batch.B, Tb + 1), f"k_last shape {sol.k_last.shape}")
+        check(np.array_equal(sol.k_last[:, : Tmax + 1].view(np.int32), K4.view(np.int32)),
+              "the facade's K_last differs from phase 4's")
+        check(sol.algorithms == ["dp_batch"] * batch.B, f"algorithms {set(sol.algorithms)}")
+    prof = device_ms_by(lambda: eng.dispatch(batch).result(), ("minplus_row_kernel", "minplus_backtrack_kernel"))
+    (rows_ms, rows), (bt_ms, bts) = prof["minplus_row_kernel"], prof["minplus_backtrack_kernel"]
+    check((rows, bts) == (nb, 1), f"the profiler saw {rows} row and {bts} backtrack kernels in one replay; expected "
+                                   f"{nb} and 1")
+    log(f"[facade] (a) Solver.solve(batch, algorithm='dp_batch') x 3 on bucket {eng._bucket_label(key)}: "
+        f"cache_stats {stats}; X identical to phase 4, K_last[:, :{Tmax + 1}] bit-identical; launches {launches}; "
+        f"one warm replay by the profiler: {rows} row kernels ({rows_ms:.4f} ms) and {bts} backtrack ({bt_ms:.4f} ms)")
+
+    # (b) a mixed batch through the regime split
+    mrng = np.random.default_rng(1)
+    regimes = [r for r in MIXED_TABLE2 for _ in range(4)]
+    mixed = [random_problem(mrng, n=N_MAIN, T=T_MAIN, regime=r, max_upper=U_MAIN) for r in regimes]
+    mp.launches = 0
+    t0 = time.perf_counter()
+    msol = solver.solve(mixed)
+    mixed_cold_ms = 1e3 * (time.perf_counter() - t0)
+    check(msol.algorithms == [MIXED_TABLE2[r] for r in regimes], f"algorithms {msol.algorithms}")
+    check(mp.launches == nb, f"the mixed batch's DP part launched {mp.launches} row kernels, expected {nb}")
+    t0 = time.perf_counter()
+    csol = Solver(device="cpu").solve(mixed)
+    cpu_s = time.perf_counter() - t0
+    check(csol.algorithms == msol.algorithms, "algorithms differ from the CPU's")
+    check(all(np.array_equal(a, b) for a, b in zip(msol.schedules, csol.schedules)), "schedules differ from the CPU's")
+    serial = {"marin": marin, "marco": marco, "mardecun": mardecun, "mardec": mardec, "dp": solve_schedule_dp}
+    gaps = {}
+    for p, obj, alg in zip(mixed, msol.objectives, msol.algorithms):
+        want = total_cost(p, serial[alg](p))
+        gaps[alg] = max(gaps.get(alg, 0.0), abs(obj - want) / abs(want))
+    check(max(gaps.values()) <= FACADE_RTOL, f"objectives against the serial float64 algorithms: {gaps}")
+    log(f"[facade] (b) mixed batch of 16 (4 x {list(MIXED_TABLE2)}, n={N_MAIN}, T={T_MAIN}): algorithms "
+        f"{sorted(set(msol.algorithms))} per paper Table 2, schedules identical to device='cpu' (its call took "
+        f"{cpu_s:.1f} s), largest relative objective gap to the serial float64 algorithm by algorithm {gaps} "
+        f"(limit {FACADE_RTOL})")
+
+    # (c) a 100-point deadline sweep of phase 4's instance 0 in one dispatch
+    p0 = batch.instance(0)
+    tt = time_tables(p0, SEED + 7)
+    grid = deadline_grid(p0, tt, SWEEP_POINTS)
+    check(len(grid) == SWEEP_POINTS, f"the grid has {len(grid)} points")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = eng.cache_stats()
+    t0 = time.perf_counter()
+    swp = solver.sweep(p0, tt, grid)  # check=True: each schedule is validated against its tightened instance
+    sweep_cold_ms = 1e3 * (time.perf_counter() - t0)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    skey = next(reversed(eng._cache))  # the sweep's bucket, the most recently used
+    after = eng.cache_stats()
+    check(after["hits"] + after["misses"] - before["hits"] - before["misses"] == 1, "the sweep took more than one dispatch")
+    t_star = int(p0.T - p0.lower.sum())
+    k_obj = swp.k_last[:, t_star]
+    check(bool(np.all(np.diff(k_obj) <= 0)), "the DP objective rises as a deadline loosens")
+    ends = [tighten_for_deadline(p0, tt, float(d)) for d in (grid[0], grid[-1])]
+    Xe = solve_schedule_dp_batch(ends, device="cuda")
+    check(np.array_equal(swp.schedules[0], Xe[0]) and np.array_equal(swp.schedules[-1], Xe[1]),
+          "the sweep's end points differ from solve_schedule_dp_batch of their tightened instances")
+    e = swp.objectives
+    log(f"[facade] (c) Solver.sweep over {len(grid)} deadlines [{grid[0]:.6f}, {grid[-1]:.6f}] s in one dispatch "
+        f"(bucket {eng._bucket_label(skey)}): every schedule feasible, the float32 DP "
+        f"objective never rises, float64 energy {e[0]:.6f} -> {e[-1]:.6f} (largest rise "
+        f"{max(0.0, float(np.max(np.diff(e)))):.3e}); end points identical to solve_schedule_dp_batch; peak device "
+        f"memory {peak_gb:.3f} GB")
+
+    # (d) the frontier over 64 deadlines; against the CPU at a cut size
+    fgrid = deadline_grid(p0, tt, FRONTIER_POINTS)
+    front = solver.frontier(p0, tt, fgrid)
+    tight = [tighten_for_deadline(p0, tt, float(d)) for d in fgrid]
+    want = assemble_frontier(p0, tt, fgrid, solve_schedule_dp_batch(tight, device="cuda"))
+    check(same_frontier(front, want), "the frontier differs from the one of solve_schedule_dp_batch's schedules")
+    crng = np.random.default_rng(SEED + 12)
+    pc = random_problem(crng, n=FRONTIER_CPU_N, T=FRONTIER_CPU_T, regime="arbitrary", max_upper=FRONTIER_CPU_U)
+    ttc = time_tables(pc, SEED + 13)
+    cgrid = deadline_grid(pc, ttc, FRONTIER_POINTS)
+    fc = solver.frontier(pc, ttc, cgrid)
+    check(same_frontier(fc, Solver(device="cpu").frontier(pc, ttc, cgrid)), "the frontier differs from the CPU's")
+    log(f"[facade] (d) Solver.frontier over {len(fgrid)} deadlines: {len(front)} points, the same as assembled from "
+        f"solve_schedule_dp_batch; at n={FRONTIER_CPU_N}, T={FRONTIER_CPU_T}, U<={FRONTIER_CPU_U}: {len(fc)} points, "
+        f"the same as device='cpu'")
+
+    # (e) times
+    log(f"[facade] (e) {card}")
+    with torch.cuda.stream(eng._stream):
+        eager_ms = median_wall_ms(lambda: plan.body(*plan.inputs), reps=1)
+    graph = torch.cuda.CUDAGraph()  # the plan's capture once more, timed
+
+    def capture():
+        with torch.cuda.graph(graph, stream=eng._stream, capture_error_mode="thread_local"):
+            plan.body(*plan.inputs)
+
+    capture_ms = median_wall_ms(capture, reps=1)
+    del graph
+    new = lambda: eng.dispatch(batch).result()  # noqa: E731
+    prev = lambda: solve_schedule_dp_batch(batch, device="cuda")  # noqa: E731
+    walls = {"new": [], "previous": []}
+    for name, fn in (("previous", prev), ("new", new), ("new", new), ("previous", prev)):
+        walls[name].append(median_wall_ms(fn, reps=5))
+    warm_ms, prev_ms = (statistics.mean(walls[k]) for k in ("new", "previous"))
+    split = dispatch_split(plan, batch, key[1:])
+    facade_ms = median_wall_ms(lambda: solver.solve(batch, algorithm="dp_batch"), reps=5)
+    plist = [batch.instance(b) for b in range(batch.B)]
+    host = facade_host_split(plist, np.stack(sols[0].schedules))
+    log(f"[facade] (e) cold plan build: the first dp_batch solve {cold_ms:.3f} ms (host clock); of it, an eager run of "
+        f"the plan's body (the warm-up) takes {eager_ms:.3f} ms and a capture of it {capture_ms:.3f} ms (each timed "
+        f"alone, warm), the facade's host work the rest")
+    log(f"[facade] (e) warm bucketed DP solve (engine.dispatch(batch).result()) {warm_ms:.3f} ms against "
+        f"solve_schedule_dp_batch {prev_ms:.3f} ms (host clock, mean of two medians of 5, in turns: {walls}); "
+        f"step by step (medians of 5, synchronized after each): " + split_text(split)
+        + f"; the replay's {rows} row kernels {rows_ms:.4f} ms and its backtrack {bt_ms:.4f} ms by the profiler")
+    log(f"[facade] (e) warm Solver.solve(batch, algorithm='dp_batch') {facade_ms:.3f} ms = the dispatch above + "
+        f"k_last to the host + the facade's host work: " + ", ".join(f"{k} {v:.3f} ms" for k, v in host.items()))
+
+    mb = ProblemBatch.from_problems(mixed)
+    parts = {alg: [b for b, a in enumerate(msol.algorithms) if a == alg] for alg in ("dp", "marin", "marco", "mardec")}
+    sel = parts["marin"] + parts["marco"]
+    mixed_ms = median_wall_ms(lambda: solver.solve(mixed), reps=3)
+    split_ms = {
+        "batch and Table 2": median_wall_ms(lambda: select_algorithm_batch(mixed), reps=3),
+        "DP plan": median_wall_ms(lambda: eng.dispatch(eng._take(mb, parts["dp"])).result(), reps=3),
+        "selection plan": median_wall_ms(lambda: eng._dispatch_selection(eng._take(mb, sel)).result(), reps=3),
+        "MarDec on the host": median_wall_ms(lambda: eng._host_part(eng._take(mb, parts["mardec"]), "mardec"), reps=1),
+    }
+    log(f"[facade] (e) warm mixed solve (Solver.solve) {mixed_ms:.3f} ms (first {mixed_cold_ms:.3f} ms); by part: "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in split_ms.items()))
+
+    splan = eng._cache[skey]
+    sweep_ms = median_wall_ms(lambda: solver.sweep(p0, tt, grid), reps=3)
+    tighten_ms = median_wall_ms(lambda: [tighten_for_deadline(p0, tt, float(d)) for d in grid], reps=3)
+    tight = [tighten_for_deadline(p0, tt, float(d)) for d in grid]
+    tbatch = ProblemBatch.from_problems(tight)
+    sweep_split = dispatch_split(splan, tbatch, skey[1:], reps=3)
+    sweep_host = facade_host_split(tight, np.stack(swp.schedules), reps=3)
+    log(f"[facade] (e) warm {len(grid)}-point sweep (Solver.sweep) {sweep_ms:.3f} ms (first {sweep_cold_ms:.3f} ms) = "
+        f"tightening {tighten_ms:.3f} ms + " + ", ".join(f"{k} {v:.3f} ms" for k, v in sweep_host.items())
+        + " + the dispatch on bucket " + eng._bucket_label(skey) + ": " + split_text(sweep_split)
+        + " + k_last to the host and the rest")
+    return launches
+
+
 def main() -> int:
     # -- phase 1: device ---------------------------------------------------
     if not torch.cuda.is_available():
@@ -1333,8 +1635,8 @@ def main() -> int:
 
     # -- phases 3-5: the min-plus kernels, the solver's main path, times ------
     minplus_main, max_abs_err = minplus_phase(mp, dev)
-    batch, X, launches_main, bt_err = solver_phase(mp, fa, dev)
-    st = solver_times(mp, minplus_main, batch, X, dev, card)
+    solver_batch, X, launches_main, bt_err = solver_phase(mp, fa, dev)
+    st = solver_times(mp, minplus_main, solver_batch, X, dev, card)
 
     # -- phases 6-8: the flash kernel and the gemma2-2b prefill -------------
     flash_main, flash_err_max = flash_phase(fa, dev)
@@ -1348,6 +1650,11 @@ def main() -> int:
     cfg, tokens, launches_train, _ = train_phase(fa, mp, dev, card)
     train_f32_check(fa, dev, cfg, tokens)
     dq_t, dkv_t = flash_bwd_times(fa, bwd_main, card)
+    del bwd_main
+    torch.cuda.empty_cache()
+
+    # -- phase 12: the scheduler layers through the Solver facade ------------
+    launches_facade = facade_phase(mp, dev, card, solver_batch, X)
 
     kernels = [{
         "name": "minplus_cuda",
@@ -1355,6 +1662,7 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/minplus.cu",
         "replaces": "src/repro/kernels/minplus.py:76",
         "launches": launches_main["row"],
+        "engine_launches": launches_facade["row"],
         "max_abs_err": max_abs_err,
         **st["row"],
     }, {
@@ -1363,6 +1671,7 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/minplus.cu",
         "replaces": "none: no TPU kernel (src/repro/core/jax_dp.py:148 _backtrack_batch is a plain jnp lax.scan)",
         "launches": launches_main["backtrack"],
+        "engine_launches": launches_facade["backtrack"],
         "max_abs_err": bt_err,
         **st["backtrack"],
     }, {

@@ -17,13 +17,15 @@ All generators return dense tables ``C_i(0..U_i)`` with ``C_i`` monotone
 non-decreasing (energy cannot shrink with more work) except the ``measured``
 family, which may be arbitrary (the general problem allows it).
 
-A numpy copy of the generators of ``repro.core.costs``: from the same
-``np.random.Generator`` state they draw the same instances, so the port's
-own scripts build real-size instances without the JAX package.
+A numpy copy of ``repro.core.costs``: from the same ``np.random.Generator``
+state the generators draw the same instances, so the port's own scripts
+build real-size instances without the JAX package; :class:`CostWindows` and
+:func:`carbon_cost_table` reweight tables for time-varying objectives.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Sequence
 
 import numpy as np
@@ -31,6 +33,9 @@ import numpy as np
 from .problem import Problem
 
 __all__ = [
+    "CostWindows",
+    "JOULES_PER_KWH",
+    "carbon_cost_table",
     "linear_cost",
     "superlinear_cost",
     "sublinear_cost",
@@ -39,6 +44,9 @@ __all__ = [
     "device_fleet_problem",
     "DEVICE_CLASSES",
 ]
+
+JOULES_PER_KWH = 3.6e6
+
 
 def linear_cost(u: int, per_task: float, base: float = 0.0) -> np.ndarray:
     j = np.arange(u + 1, dtype=np.float64)
@@ -119,6 +127,90 @@ def device_fleet_problem(
         lower = [0] * n
     tables = tuple(_table_for_class(c, int(u), flops_scale) for c, u in zip(classes, upper))
     return Problem(T=T, lower=np.asarray(lower), upper=np.asarray(upper), cost_tables=tables)
+
+
+# ---------------------------------------------------------------------------
+# Time-varying objectives: the paper's algorithms minimize ANY tabulated cost
+# (§6), so carbon-aware or tariff-aware scheduling is just a reweighting of
+# the energy tables — and a DAY of grid conditions is a stack of reweighted
+# instances the sweep engine solves in one dispatch
+# (repro_torch.core.pareto.frontier_by_window).
+# ---------------------------------------------------------------------------
+
+
+def carbon_cost_table(
+    energy_table: np.ndarray, carbon_intensity: float, unit: float = 1000.0
+) -> np.ndarray:
+    """Reweights an energy table (Joules) into emissions:
+    ``gCO2e(j) = intensity[g/kWh] * E(j)[J] / 3.6e6``; the default
+    ``unit=1000`` returns mgCO2e (readable magnitudes for per-round
+    fleets)."""
+    e = np.asarray(energy_table, dtype=np.float64)
+    return e * (float(carbon_intensity) / JOULES_PER_KWH) * float(unit)
+
+
+@dataclasses.dataclass(frozen=True)
+class CostWindows:
+    """Window-indexed per-device cost multipliers: carbon-intensity periods,
+    tariff windows, demand-response slots.
+
+    ``multipliers[w, i]`` scales device ``i``'s whole cost table inside
+    window ``w`` (labelled ``labels[w]``). Multipliers must be positive:
+    positive scaling preserves each instance's marginal-cost regime, so
+    windowed instances keep riding the same fast paths as the base problem.
+    :meth:`apply` yields one reweighted :class:`Problem` per window —
+    identical shape envelope, so a whole day of windows batches into ONE
+    engine dispatch.
+    """
+
+    labels: tuple
+    multipliers: np.ndarray  # (num_windows, n) positive float64
+
+    def __post_init__(self):
+        m = np.asarray(self.multipliers, dtype=np.float64)
+        object.__setattr__(self, "multipliers", m)
+        object.__setattr__(self, "labels", tuple(self.labels))
+        if m.ndim != 2 or m.shape[0] != len(self.labels):
+            raise ValueError("multipliers must be (num_windows, n) with one row per label")
+        if not np.all(m > 0):
+            raise ValueError("multipliers must be positive (regime-preserving)")
+
+    @property
+    def num_windows(self) -> int:
+        return len(self.labels)
+
+    @classmethod
+    def from_carbon_intensities(
+        cls, labels, intensities, unit: float = 1000.0
+    ) -> "CostWindows":
+        """Windows from per-window, per-device grid carbon intensities
+        (g/kWh), ``(num_windows, n)`` — broadcast a ``(num_windows, 1)``
+        column for a single-region fleet. Applying these to energy-Joule
+        tables yields emission tables in ``unit``-gCO2e (default mg), the
+        same conversion as :func:`carbon_cost_table`."""
+        m = np.asarray(intensities, dtype=np.float64) * float(unit) / JOULES_PER_KWH
+        return cls(labels=tuple(labels), multipliers=m)
+
+    def apply(self, problem: Problem):
+        """One reweighted :class:`Problem` per window (limits and ``T``
+        untouched — only the objective changes)."""
+        if self.multipliers.shape[1] != problem.n:
+            raise ValueError(
+                f"multipliers cover {self.multipliers.shape[1]} devices, "
+                f"problem has {problem.n}"
+            )
+        return [
+            Problem(
+                T=problem.T,
+                lower=problem.lower,
+                upper=problem.upper,
+                cost_tables=tuple(
+                    np.asarray(tbl, np.float64) * self.multipliers[w, i]
+                    for i, tbl in enumerate(problem.cost_tables)
+                ),
+            )
+            for w in range(self.num_windows)
+        ]
 
 
 def random_problem(

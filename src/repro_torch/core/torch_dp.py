@@ -43,6 +43,7 @@ __all__ = [
     "solve_schedule_dp_torch",
     "solve_schedule_dp_batch",
     "solve_fused_batch_torch",
+    "solve_fused_batch_ring",
     "dp_tables_batch",
     "pack_batch",
     "pack_problem",
@@ -113,7 +114,9 @@ def _pack_on_device(costs: torch.Tensor, lower: torch.Tensor, upper: torch.Tenso
     base = costs.gather(2, lower[:, :, None])  # C(L)
     shifted = costs.gather(2, src.clamp_(max=W - 1)) - base
     packed = torch.where(valid, shifted, PACK_BIG)
-    return torch.minimum(packed, packed.new_tensor(float(BIG))).to(torch.float32)
+    # a scalar bound, not a tensor made from one: no host-to-device copy, so
+    # the pack can be captured into a CUDA graph
+    return packed.clamp(max=float(BIG)).to(torch.float32)
 
 
 def _dp_scan_from(k0: torch.Tensor, costs: torch.Tensor, I: torch.Tensor, backend: str = "ref"):
@@ -188,6 +191,15 @@ def solve_fused_batch_torch(costs: torch.Tensor, t_star, T: int, backend: str = 
     if t_star.device.type == "cpu" and t_star.numel() and not (0 <= int(t_star.min()) <= int(t_star.max()) <= T):
         raise ValueError(f"t_star must lie in [0, T={T}], got [{int(t_star.min())}, {int(t_star.max())}]")
     return _solve_fused_batch(costs.to(torch.float32), t_star.to(costs.device), T, backend=backend)
+
+
+def solve_fused_batch_ring(*args, **kwargs):
+    """Not ported: the JAX package's class-axis ring over several devices
+    needs ``torch.distributed`` (ROADMAP Queue 1, item 2)."""
+    raise NotImplementedError(
+        "solve_fused_batch_ring (the class-axis ring over several cards) is not "
+        "ported yet: ROADMAP Queue 1, item 2 (torch.distributed)"
+    )
 
 
 def solve_schedule_dp_torch(problem: Problem, backend: str = "auto", device="cuda") -> np.ndarray:

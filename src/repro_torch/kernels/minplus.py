@@ -18,7 +18,10 @@ backtrack replace the reference's ``lax.scan``s, which are plain jnp.
 Counters, each raised only where its kernels are launched, so a run shows
 what it went through by reading them before and after: ``launches`` (row
 kernel launches, ``n`` per scan), ``launches_scan`` (host calls into the
-scan) and ``launches_backtrack`` (backtrack launches).
+scan) and ``launches_backtrack`` (backtrack launches). A call made while
+its stream is being captured into a CUDA graph launches nothing and counts
+nothing; whoever replays the graph adds the launches it holds
+(``core/sweep.py``).
 """
 
 from __future__ import annotations
@@ -221,7 +224,8 @@ def minplus_cuda_batch(
         stream = torch.cuda.current_stream().cuda_stream
         rc = fns.band(kprev.data_ptr(), cost.data_ptr(), out.data_ptr(), iout.data_ptr(), B, Tp, W, BT, BW, stream)
     _raise_on(rc, "minplus_band_launch", B=B, Tp=Tp, W=W, BT=BT, BW=BW)
-    launches += 1
+    if not torch.cuda.is_current_stream_capturing():
+        launches += 1
     return out, iout
 
 
@@ -298,10 +302,11 @@ def minplus_scan_cuda(
             n, B, Tp, W, *costs.stride(), BT, BW, stream,
         )
     _raise_on(rc, "minplus_scan_launch", n=n, B=B, Tp=Tp, W=W, BT=BT, BW=BW)
-    launches += n
-    launches_scan += 1
-    if X is not None and n > 0:
-        launches_backtrack += 1
+    if not torch.cuda.is_current_stream_capturing():
+        launches += n
+        launches_scan += 1
+        if X is not None and n > 0:
+            launches_backtrack += 1
     return (k0 if n % 2 == 0 else kbuf), X
 
 

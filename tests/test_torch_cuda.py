@@ -9,7 +9,11 @@ kernels at the reference's gradient tolerance (rtol 3e-4, atol 3e-5) for
 float32 and, on the tensor cores, within 2^-8 relative of the plain
 version's float32 gradients for bfloat16 I/O; the prefill and a training
 step of a SMOKE model on the kernel route against the plain route, and the
-launches of a step.
+launches of a step; the sweep engine's bucket plans (eager first call, then
+CUDA-graph replays) against the CPU engine bit for bit, with shared static
+buffers under interleaved and concurrent dispatches, and the launches a
+replay counts; the selection's signed-zero order and the facade's regime
+split against the CPU.
 
 Every test here needs a CUDA card and ``nvcc`` (the kernel has no CPU mode),
 is marked ``cuda`` and skips without them. The file imports no JAX, so it
@@ -22,7 +26,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import ProblemBatch, random_problem, remove_lower_limits
+from repro_torch.core import Problem, ProblemBatch, random_problem, remove_lower_limits
 from repro_torch.core.torch_dp import (
     _backtrack_batch,
     dp_tables_batch,
@@ -476,3 +480,131 @@ def test_cuda_head_dim_80_runs_the_flash_kernels(cuda, dtype):
             torch.testing.assert_close(g, w, rtol=3e-4, atol=3e-5)
         else:
             torch.testing.assert_close(g.float(), w, rtol=2.0 ** -8, atol=1e-5 * w.abs().max().item())
+
+
+# ---------------------------------------------------------------------------
+# the sweep engine on the card: one CUDA graph per bucket
+# ---------------------------------------------------------------------------
+
+
+def engine_batch(seed, B=4, n=12, T=500, regime="arbitrary"):
+    rng = np.random.default_rng(seed)
+    return ProblemBatch.from_problems([random_problem(rng, n=n, T=T, regime=regime, max_upper=100) for _ in range(B)])
+
+
+def test_cuda_engine_replay_matches_eager_and_plain(cuda):
+    """The plan's first call (eager) and its replays give the same X and
+    K_last bits as the CPU engine's plain path."""
+    from repro_torch.core.sweep import SweepEngine
+
+    eng, ref = SweepEngine(device="cuda"), SweepEngine(device="cpu")
+    assert eng.backend == "cuda"
+    batch = engine_batch(0)
+    want = ref.dispatch(batch)
+    for _ in range(3):  # eager warm-up and capture, then two replays
+        h = eng.dispatch(batch)
+        np.testing.assert_array_equal(h.result(), want.result())
+        np.testing.assert_array_equal(h.k_last().view(np.int32), want.k_last().view(np.int32))
+        assert h.done()
+    s = eng.cache_stats()
+    assert (s["compiles"], s["hits"], s["misses"]) == (1, 2, 1)
+    assert eng._cache[next(iter(eng._cache))].graph is not None
+
+
+def test_cuda_engine_interleaved_dispatches_keep_separate_answers(cuda):
+    """Two dispatches to one bucket share its static buffers; each handle
+    keeps its own batch's answer, whichever is read first."""
+    from repro_torch.core.sweep import SweepEngine
+
+    eng = SweepEngine(device="cuda")
+    a, b = engine_batch(1), engine_batch(2)
+    from repro_torch.core.sweep import request_bucket
+
+    assert request_bucket(a) == request_bucket(b)
+    want_a, want_b = (solve_schedule_dp_batch(x, device="cpu") for x in (a, b))
+    eng.dispatch(a).result()  # the bucket is warm: later calls replay
+    ha, hb = eng.dispatch(a), eng.dispatch(b)
+    np.testing.assert_array_equal(hb.result(), want_b)
+    np.testing.assert_array_equal(ha.result(), want_a)
+    hb2, ha2 = eng.dispatch(b), eng.dispatch(a)
+    np.testing.assert_array_equal(ha2.result(), want_a)
+    np.testing.assert_array_equal(hb2.result(), want_b)
+    assert eng.cache_stats()["compiles"] == 1
+
+
+def test_cuda_engine_replay_counts_its_row_and_backtrack_launches(cuda):
+    """A replay adds the n_b row launches and the backtrack launch the graph
+    holds to the counters; the capture itself launches and counts nothing."""
+    from repro_torch.core.sweep import SweepEngine, request_bucket
+
+    eng, batch = SweepEngine(device="cuda"), engine_batch(3)
+    nb = request_bucket(batch)[0]
+    before = (mp.launches, mp.launches_scan, mp.launches_backtrack)
+    eng.dispatch(batch).result()  # warm-up (one eager scan) and capture
+    assert (mp.launches, mp.launches_scan, mp.launches_backtrack) == (before[0] + nb, before[1] + 1, before[2] + 1)
+    eng.dispatch(batch).result()  # one replay: no host call into the scan
+    assert (mp.launches, mp.launches_scan, mp.launches_backtrack) == (before[0] + 2 * nb, before[1] + 1, before[2] + 2)
+
+
+def test_cuda_engine_eight_producers_on_one_bucket(cuda):
+    import threading
+
+    from repro_torch.core.sweep import SweepEngine
+
+    eng = SweepEngine(device="cuda")
+    batches = [engine_batch(10 + i) for i in range(8)]
+    wants = [solve_schedule_dp_batch(x, device="cpu") for x in batches]
+    eng.dispatch(batches[0]).result()
+    errors = []
+
+    def producer(i):
+        try:
+            for _ in range(4):
+                assert np.array_equal(eng.dispatch(batches[i]).result(), wants[i]), i
+        except BaseException as e:
+            errors.append(e)
+
+    threads = [threading.Thread(target=producer, args=(i,)) for i in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+        assert not t.is_alive()
+    assert not errors, errors
+    assert eng.cache_stats()["compiles"] == 1
+
+
+def test_cuda_marginal_select_keeps_the_heap_order_on_signed_zeros(cuda):
+    """The card's sort orders the float's bits; the selection's + 0.0 turns
+    every -0.0 marginal into +0.0, so ties keep the lower resource first."""
+    from repro_torch.core.marginal_torch import marginal_select
+
+    neg = np.array([0.0, -0.0, -0.0, 3.0])
+    pos = np.array([0.0, 0.0, 0.0, 3.0])
+    probs = [Problem(T=T, lower=[0, 0, 0], upper=[3, 3, 3], cost_tables=(pos, neg, pos.copy())) for T in (1, 2, 3, 7)]
+    b0 = remove_lower_limits(ProblemBatch.from_problems(probs))
+    got = marginal_select(pack_problem(b0, cuda), torch.from_numpy(b0.upper).to(cuda), torch.from_numpy(b0.T).to(cuda))
+    want = marginal_select(pack_problem(b0, "cpu"), torch.from_numpy(b0.upper), torch.from_numpy(b0.T))
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+    assert got[0][:, 0].tolist() == [1, 2, 2, 3]
+
+
+def test_cuda_solver_mixed_batch_matches_the_cpu(cuda):
+    """The facade's regime split on the card (DP plan, selection plan, host
+    MarDecUn/MarDec) gives the CPU's schedules and algorithms; selection
+    objectives within rtol 1e-6."""
+    from repro_torch.core.solver import Solver
+    from repro_torch.core.sweep import SweepEngine
+
+    rng = np.random.default_rng(4)
+    probs = [random_problem(rng, n=10, T=200, regime=r, max_upper=60)
+             for r in ("increasing", "linear", "decreasing", "arbitrary") for _ in range(2)]
+    got = Solver(engine=SweepEngine(device="cuda")).solve(probs)
+    want = Solver(engine=SweepEngine(device="cpu")).solve(probs)
+    for x, y in zip(got.schedules, want.schedules):
+        np.testing.assert_array_equal(x, y)
+    assert got.algorithms == want.algorithms
+    np.testing.assert_array_equal(got.objectives, want.objectives)
+    hg = SweepEngine(device="cuda").dispatch(probs, split_regimes=True)
+    hw = SweepEngine(device="cpu").dispatch(probs, split_regimes=True)
+    np.testing.assert_allclose(hg.objectives(), hw.objectives(), rtol=1e-6)

@@ -29,6 +29,9 @@ def test_importing_every_port_module_pulls_in_no_jax():
         "repro_torch.kernels.flash_attention", "repro_torch.configs", "repro_torch.models.dense",
         "repro_torch.models.layers", "repro_torch.models.model", "repro_torch.models.convert",
         "repro_torch.launch.steps", "repro_torch.optim", "repro_torch.optim.optimizers",
+        "repro_torch.core.marginal", "repro_torch.core.marginal_torch", "repro_torch.core.sweep",
+        "repro_torch.core.scheduler", "repro_torch.core.solver", "repro_torch.core.pareto",
+        "repro_torch.core.resilience", "repro_torch.core.baselines", "repro_torch.core._deprecation",
     } <= set(mods)
     code = (
         "import importlib, sys\n"
