@@ -118,6 +118,30 @@ Phases, in order; any failure ends the run with a non-zero exit code:
                 in turns with ``solve_schedule_dp_batch`` split into host
                 pad, copy and replay, the warm mixed solve by part, and the
                 warm 100-point sweep.
+13. serve and fleet — (a) ``SchedulerService(max_batch=16,
+                max_delay_s=0.002)`` over ``SweepEngine(device="cuda")``:
+                ``warm`` of the production bucket over the pow2 ladder (5 plan
+                builds), then 64 requests of the main shape (numpy seeds
+                100-163) from 4 producer threads: schedules, ``k_last`` and
+                objectives bit-identical to ``engine.dispatch`` of each alone,
+                no plan build after ``warm``, no flush over 16 rows, no
+                failed, retried or degraded flush, one flush of 16 rows = 128
+                row kernels and 1 backtrack (profiler); the serial baseline
+                and the saturated leg in turns, requests/s, a paced Poisson
+                leg at half that rate (p50, p99 latency), one flush step by
+                step, the warmed ladder's peak memory; (b)
+                benchmarks/bench_serve.py's 200-request stream, plain and
+                regime-split, each served schedule the one solved alone; (c)
+                benchmarks/bench_fleet.py's throughput instance (n = 2,048,
+                T = 8,192, U <= 64) through ``Solver(device="cuda").solve_fleet``:
+                valid, the reference's cluster and quantum rules, k-means
+                labels as on the CPU, the same through
+                ``service.submit_fleet``; the flat exact DP of the instance in
+                one host call (2,048 row launches), the fleet within its
+                certified gap of it; the card identical to ``device="cpu"``
+                at n = 512 (the CPU leg cut to bench_fleet.py::run's size);
+                bench_fleet.py's gap cases (singleton clusters at q = 1
+                exact); the warm fleet solve by stage and the warm flat DP.
 
 The line before the last is a JSON object of every kernel with its launch
 count and times; the last line is ``{"ok": true, "device": {...}}``.
@@ -217,6 +241,27 @@ MIXED_TABLE2 = {"increasing": "marin", "linear": "marco", "decreasing": "mardec"
 SWEEP_POINTS, FRONTIER_POINTS = 100, 64
 FRONTIER_CPU_N, FRONTIER_CPU_T, FRONTIER_CPU_U = 100, 1_000, 100
 FACADE_RTOL = 1e-6
+# Phase 13: (a) production traffic through the scheduling service: requests
+# of the main shape (one instance each, numpy seeds SERVE_SEED0, +1, ...)
+# from SERVE_PRODUCERS threads, flushed at SERVE_MAX_BATCH rows or
+# SERVE_DELAY_S; (b) benchmarks/bench_serve.py's three request families, a
+# stream of SERVE_STREAM requests (numpy seed 0); (c)
+# benchmarks/bench_fleet.py's throughput instance (n = FLEET_N clients, T =
+# 4n, U <= FLEET_UPPER, numpy seed FLEET_SEED, k-means seed 0), its CPU
+# comparison cut to bench_fleet.py::run's n = FLEET_CPU_N (at n = 2,048 the
+# CPU's DP would take most of a minute), and bench_fleet.py's gap cases
+# (seed, n, T, clusters, quantum).
+SERVE_REQUESTS, SERVE_PRODUCERS, SERVE_SEED0 = 64, 4, 100
+SERVE_MAX_BATCH, SERVE_DELAY_S = 16, 0.002
+SERVE_FAMILIES = (
+    dict(n=8, T_lo=65, T_hi=128, u_lo=16, u_hi=31),
+    dict(n=16, T_lo=33, T_hi=64, u_lo=4, u_hi=15),
+    dict(n=4, T_lo=65, T_hi=128, u_lo=32, u_hi=63),
+)
+SERVE_STREAM = 200
+FLEET_N, FLEET_CPU_N, FLEET_SEED, FLEET_UPPER = 2048, 512, 42, 64
+FLEET_GAP_CASES = ((0, 16, 40, 16, 1), (1, 32, 80, None, None), (2, 48, 120, 6, 2), (3, 64, 160, None, None),
+                   (4, 64, 192, 8, 3))
 
 
 def check(cond, msg):
@@ -1556,6 +1601,396 @@ def facade_phase(mp, dev, card, batch, X):
     return launches
 
 
+class DispatchLog:
+    """An engine proxy for phase 13: it records every dispatch (its rows,
+    whether regime-split, the host time of the call) and how long the
+    caller then waits on each handle, and passes everything else through."""
+
+    def __init__(self, engine):
+        self._engine = engine
+        self.calls = []  # [rows, split, dispatch ms, wait ms]
+
+    def dispatch(self, problems, split_regimes=False):
+        t0 = time.perf_counter()
+        handle = self._engine.dispatch(problems, split_regimes=split_regimes)
+        rows = problems.B if hasattr(problems, "B") else len(problems)
+        self.calls.append([rows, split_regimes, 1e3 * (time.perf_counter() - t0), 0.0])
+        return _TimedHandle(handle, self.calls[-1])
+
+    def __getattr__(self, name):
+        return getattr(self._engine, name)
+
+
+class _TimedHandle:
+    def __init__(self, handle, record):
+        self._handle, self._record = handle, record
+
+    def done(self):
+        return self._handle.done()
+
+    def _timed(self, name):
+        t0 = time.perf_counter()
+        out = getattr(self._handle, name)()
+        self._record[3] += 1e3 * (time.perf_counter() - t0)
+        return out
+
+    def result(self):
+        return self._timed("result")
+
+    def k_last(self):
+        return self._timed("k_last")
+
+    def objectives(self):
+        return self._timed("objectives")
+
+
+def replay_launches(before, after):
+    """The row and backtrack launches the DP replays between two
+    ``cache_stats()`` snapshots hold: each warm hit on a ``dp`` bucket is one
+    replay of n_b row kernels and one backtrack."""
+    rows = bts = 0
+    for label, hits in after["per_bucket_hits"].items():
+        delta = hits - before["per_bucket_hits"].get(label, 0)
+        if label.startswith("dp:") and delta:
+            rows += delta * int(label.split(":")[2][1:])
+            bts += delta
+    return rows, bts
+
+
+def family_problem(rng, fam, regime, Problem, costs):
+    """One request of a benchmarks/bench_serve.py family, drawn as it draws
+    them (its module imports the JAX package, so the draws are copied)."""
+    n = fam["n"]
+    upper = rng.integers(fam["u_lo"], fam["u_hi"] + 1, size=n)
+    upper[0] = fam["u_hi"]
+    T = int(min(rng.integers(fam["T_lo"], fam["T_hi"] + 1), upper.sum()))
+    tables = []
+    for u in (int(v) for v in upper):
+        if regime == "arbitrary":
+            tables.append(costs.measured_cost(u, rng))
+        elif regime == "linear":
+            tables.append(costs.linear_cost(u, float(rng.uniform(0.2, 5.0))))
+        elif regime == "increasing":
+            tables.append(costs.superlinear_cost(u, float(rng.uniform(0.2, 3.0)), float(rng.uniform(0.01, 0.6))))
+        else:
+            tables.append(costs.sublinear_cost(u, float(rng.uniform(5.0, 40.0)), float(rng.uniform(2.0, 20.0))))
+    return Problem(T=T, lower=np.zeros(n, dtype=np.int64), upper=upper, cost_tables=tuple(tables))
+
+
+def serve_saturated(svc, batches, producers):
+    """Submits every batch from ``producers`` threads (request i from thread
+    i mod producers) and waits for all: (futures in request order, ms, the
+    ms the producers spent in ``submit``, summed)."""
+    import threading
+
+    futs = [None] * len(batches)
+    errors, submit_ms = [], [0.0] * producers
+
+    def produce(k):
+        try:
+            for i in range(k, len(batches), producers):
+                t0 = time.perf_counter()
+                futs[i] = svc.submit(batches[i])
+                submit_ms[k] += 1e3 * (time.perf_counter() - t0)
+        except BaseException as e:  # noqa: BLE001 - re-raised below
+            errors.append(e)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=produce, args=(k,)) for k in range(producers)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    check(not errors and all(not t.is_alive() for t in threads), f"a producer failed: {errors}")
+    for f in futs:
+        f.result(timeout=300)
+    return futs, 1e3 * (time.perf_counter() - t0), sum(submit_ms)
+
+
+def service_phase(mp, card):
+    """Phase 13 (a) and (b): the scheduling service on the card. Returns the
+    row and backtrack launches of (a)'s first saturated leg, counted from 0."""
+    import gc
+
+    from repro_torch.core import Problem, ProblemBatch, SweepEngine, costs, random_problem
+    from repro_torch.core.sweep import request_bucket, reset_default_engines
+    from repro_torch.serve import SchedulerService, combine_batches, pow2_ladder
+
+    reset_default_engines()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+
+    # (a) production traffic
+    eng = SweepEngine(device="cuda")
+    logged = DispatchLog(eng)
+    svc = SchedulerService(engine=logged, max_batch=SERVE_MAX_BATCH, max_delay_s=SERVE_DELAY_S,
+                           max_pending=16 * SERVE_REQUESTS)
+    try:
+        t0 = time.perf_counter()
+        built = svc.warm([(N_MAIN, T_MAIN, U_MAIN + 1)])
+        warm_ms = 1e3 * (time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+        ladder = pow2_ladder(SERVE_MAX_BATCH)
+        check(built == len(ladder), f"warm built {built} plans, expected {len(ladder)} (the ladder {ladder})")
+        labels = sorted(eng._bucket_label(k) for k in eng._cache)
+        compiles = eng.cache_stats()["compiles"]
+        probs = [random_problem(np.random.default_rng(SERVE_SEED0 + i), n=N_MAIN, T=T_MAIN, regime="arbitrary",
+                                max_upper=U_MAIN) for i in range(SERVE_REQUESTS)]
+        batches = [ProblemBatch.from_problems([p]) for p in probs]
+        check({request_bucket(b) for b in batches} == {(128, 16384, 1024)},
+              f"the requests' buckets {sorted({request_bucket(b) for b in batches})}")
+
+        def serial():
+            t0 = time.perf_counter()
+            hs = []
+            for b in batches:
+                hs.append(eng.dispatch(b))
+                hs[-1].result()
+            return hs, 1e3 * (time.perf_counter() - t0)
+
+        logged.calls.clear()
+        alone, serial_ms = serial()
+        mp.launches = mp.launches_scan = mp.launches_backtrack = 0
+        stats0 = eng.cache_stats()
+        futs, sat_ms, submit_ms = serve_saturated(svc, batches, SERVE_PRODUCERS)
+        st = svc.stats()
+        sat_calls = [list(c) for c in logged.calls]  # before the checks below read k_last through the handles
+        launches = {"row": mp.launches, "scan": mp.launches_scan, "backtrack": mp.launches_backtrack}
+        flushes = st["flushes"]
+        check(launches == {"row": 128 * flushes, "scan": 0, "backtrack": flushes},
+              f"the saturated leg's {flushes} flushes launched {launches}; expected {128 * flushes} rows and "
+              f"{flushes} backtracks, all in graph replays")
+        check(replay_launches(stats0, eng.cache_stats()) == (launches["row"], launches["backtrack"]),
+              "the launches differ from the replays the cache counted")
+        for i, (h, f) in enumerate(zip(alone, futs)):
+            check(np.array_equal(f.result(timeout=60), h.result()), f"request {i}: served schedule != solved alone")
+            check(np.array_equal(f.k_last(timeout=60).view(np.int32), h.k_last().view(np.int32)),
+                  f"request {i}: served k_last != solved alone")
+            check(np.array_equal(f.objectives(timeout=60), h.objectives()), f"request {i}: served objective != alone")
+        sat_flushes = flushes
+        walls = {"serial": [serial_ms], "saturated": [sat_ms]}
+        for name in ("saturated", "serial"):
+            if name == "serial":
+                walls[name].append(serial()[1])
+            else:
+                f2, ms, _ = serve_saturated(svc, batches, SERVE_PRODUCERS)
+                check(all(np.array_equal(a.result(timeout=60), b.result(timeout=60)) for a, b in zip(f2, futs)),
+                      "a second saturated leg gave other schedules")
+                walls[name].append(ms)
+        serial_mean, sat_mean = (statistics.mean(walls[k]) for k in ("serial", "saturated"))
+        rps = SERVE_REQUESTS / (sat_mean / 1e3)
+        # paced: Poisson arrivals at half the saturated rate, from one thread
+        gaps = np.random.default_rng(SEED + 13).exponential(2.0 / rps, size=SERVE_REQUESTS)
+        paced = []
+        t0 = time.perf_counter()
+        for b, gap in zip(batches, gaps):
+            time.sleep(gap)
+            paced.append(svc.submit(b))
+        for f, h in zip(paced, alone):
+            check(np.array_equal(f.result(timeout=60), h.result()), "a paced request's schedule != solved alone")
+        paced_ms = 1e3 * (time.perf_counter() - t0)
+        lat = np.array([1e3 * (f.completed_at - f.submitted_at) for f in paced])
+        # the profiler: one flush of 16 rows is one replay
+        big = ProblemBatch.from_problems(probs[:SERVE_MAX_BATCH])
+        prof = device_ms_by(lambda: svc.submit(big).result(timeout=60),
+                            ("minplus_row_kernel", "minplus_backtrack_kernel"))
+        (rows_ms, rows), (bt_ms, bts) = prof["minplus_row_kernel"], prof["minplus_backtrack_kernel"]
+        check((rows, bts) == (128, 1), f"the profiler saw {rows} row and {bts} backtrack kernels in one flush")
+        st = svc.stats()
+        check(eng.cache_stats()["compiles"] == compiles, f"steady state built {eng.cache_stats()['compiles'] - compiles}"
+              " plans after warm")
+        check(max(c[0] for c in logged.calls) <= SERVE_MAX_BATCH, f"a flush of {max(c[0] for c in logged.calls)} rows")
+        check(st["flush_failures"] == st["retries"] == st["degraded_flushes"] == 0, f"service stats {st}")
+        key = ("dp", SERVE_MAX_BATCH, 128, 16384, 1024)
+        combine_ms = median_wall_ms(lambda: combine_batches(batches[:SERVE_MAX_BATCH]), reps=5)
+        combined, _ = combine_batches(batches[:SERVE_MAX_BATCH])
+        with torch.cuda.stream(eng._stream):
+            split = dispatch_split(eng._cache[key], combined, key[1:])
+    finally:
+        svc.close(timeout=120)
+    log(f"[serve] (a) {card}")
+    log(f"[serve] (a) SchedulerService(max_batch={SERVE_MAX_BATCH}, max_delay_s={SERVE_DELAY_S}) over "
+        f"SweepEngine(device='cuda'): warm of (n={N_MAIN}, T={T_MAIN}, W={U_MAIN + 1}) over the ladder {ladder} built "
+        f"{built} plans {labels} in {warm_ms:.3f} ms; peak device memory of the warmed ladder {peak_gb:.3f} GB "
+        f"(above the {base / 1e9:.3f} GB held before)")
+    log(f"[serve] (a) {SERVE_REQUESTS} requests (numpy seeds {SERVE_SEED0}..{SERVE_SEED0 + SERVE_REQUESTS - 1}) from "
+        f"{SERVE_PRODUCERS} producers: schedules, k_last and objectives bit-identical to engine.dispatch of each "
+        f"alone; the first saturated leg: {sat_flushes} flushes of {[c[0] for c in sat_calls]} rows, launches {launches}; "
+        f"compiles {compiles} after warm and after every leg; flush_failures, retries, degraded_flushes 0; one flush "
+        f"of {SERVE_MAX_BATCH} rows by the profiler: {rows} row kernels ({rows_ms:.4f} ms) and {bts} backtrack "
+        f"({bt_ms:.4f} ms)")
+    log(f"[serve] (a) serial baseline (one dispatch per request) {serial_mean:.3f} ms, saturated {sat_mean:.3f} ms "
+        f"(host clock, mean of two in turns: {walls}): {rps:.1f} requests/s, {serial_mean / sat_mean:.3f}x the "
+        f"serial baseline; paced at {rps / 2:.1f} requests/s (Poisson, {paced_ms:.3f} ms in all): latency p50 "
+        f"{np.percentile(lat, 50):.3f} ms, p99 {np.percentile(lat, 99):.3f} ms, max {lat.max():.3f} ms (host clock); "
+        f"service stats {st}")
+    log(f"[serve] (a) one flush of {SERVE_MAX_BATCH} rows step by step (medians of 5, synchronized after each): "
+        f"combine {combine_ms:.3f} ms + " + split_text(split))
+    log(f"[serve] (a) the first saturated leg, {sat_ms:.3f} ms: the producers spent {submit_ms:.3f} ms in submit "
+        f"(summed over {SERVE_PRODUCERS} threads); the coalescer's engine.dispatch calls (host pad, copy in, replay "
+        f"launch) {sum(c[2] for c in sat_calls):.3f} ms ({', '.join(f'{c[2]:.3f}' for c in sat_calls)}); the "
+        f"completer's waits on the flush events and copies {sum(c[3] for c in sat_calls):.3f} ms "
+        f"({', '.join(f'{c[3]:.3f}' for c in sat_calls)}) (host clock)")
+
+    # (b) bench_serve.py's stream, plain and regime-split
+    rng = np.random.default_rng(0)
+    regimes = ("arbitrary", "linear", "increasing", "decreasing")
+    stream = [family_problem(rng, SERVE_FAMILIES[int(rng.integers(len(SERVE_FAMILIES)))], regimes[i % 4],
+                             Problem, costs) for i in range(SERVE_STREAM)]
+    sbatches = [ProblemBatch.from_problems([p]) for p in stream]
+    buckets = sorted({request_bucket(b) for b in sbatches})
+    eng = SweepEngine(device="cuda")
+    svc = SchedulerService(engine=eng, max_batch=SERVE_MAX_BATCH, max_delay_s=SERVE_DELAY_S,
+                           max_pending=4 * SERVE_STREAM)
+    try:
+        for split in (False, True):
+            built = svc.warm(buckets, split_regimes=split)
+            compiles = eng.cache_stats()["compiles"]
+            t0 = time.perf_counter()
+            want = [eng.dispatch(b, split_regimes=split).result()[0] for b in sbatches]
+            serial_ms = 1e3 * (time.perf_counter() - t0)
+            f0 = svc.stats()["flushes"]
+            t0 = time.perf_counter()
+            futs = [svc.submit(b, split_regimes=split) for b in sbatches]
+            got = [f.result(timeout=120) for f in futs]
+            sat_ms = 1e3 * (time.perf_counter() - t0)
+            for i, (g, w) in enumerate(zip(got, want)):
+                check(np.array_equal(g[0], w), f"stream request {i} (split_regimes={split}): served != solved alone")
+            st = svc.stats()
+            steady = eng.cache_stats()["compiles"] - compiles
+            if not split:
+                check(steady == 0, f"the plain stream built {steady} plans after warm")
+            check(st["flush_failures"] == st["degraded_flushes"] == 0, f"service stats {st}")
+            log(f"[serve] (b) bench_serve.py's stream, {SERVE_STREAM} requests in buckets {buckets}, "
+                f"split_regimes={split}: every served schedule equals the request solved alone; warm built {built} "
+                f"plans, {steady} built after it; serial {serial_ms:.3f} ms, coalesced {sat_ms:.3f} ms = "
+                f"{SERVE_STREAM / (sat_ms / 1e3):.1f} requests/s, {serial_ms / sat_ms:.3f}x, "
+                f"{st['flushes'] - f0} flushes (host clock)")
+    finally:
+        svc.close(timeout=120)
+    return launches
+
+
+def fleet_phase(mp, card):
+    """Phase 13 (c): the fleet solve on the card. Returns the row and
+    backtrack launches of the warm fleet solve and of the flat DP, each
+    counted from 0."""
+    from repro_torch.core import Solver, random_problem, solve_fleet, solve_schedule_dp_batch, total_cost
+    from repro_torch.core import fleet as tfleet
+    from repro_torch.core import validate_schedule
+    from repro_torch.core.sweep import reset_default_engines
+    from repro_torch.serve import SchedulerService
+
+    reset_default_engines()
+    p = random_problem(np.random.default_rng(FLEET_SEED), n=FLEET_N, T=4 * FLEET_N, max_upper=FLEET_UPPER)
+    Tp = int(p.T - p.lower.sum())
+    check(np.array_equal(tfleet.cluster_clients(p, seed=0, device="cuda"),
+                         tfleet.cluster_clients(p, seed=0, device="cpu")),
+          "k-means on the card labels otherwise than on the CPU")
+    solver = Solver(device="cuda")
+    eng = solver.engine
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sol = solver.solve_fleet(p)
+    cold_ms = 1e3 * (time.perf_counter() - t0)
+    x = np.asarray(sol.schedule)
+    validate_schedule(p, x)
+    check(int(x.sum()) == p.T, "the fleet schedule does not sum to T")
+    caps = [int((p.upper - p.lower)[sol.labels == c].sum()) for c in range(sol.num_clusters)]
+    check(sol.num_clusters == len(np.unique(sol.labels)) <= tfleet._auto_clusters(FLEET_N)
+          and sol.quantum == tfleet._auto_quantum(max(caps), Tp),
+          f"num_clusters {sol.num_clusters}, quantum {sol.quantum}: not the reference's rules")
+    mp.launches = mp.launches_scan = mp.launches_backtrack = 0
+    before = eng.cache_stats()
+    warm = solver.solve_fleet(p)
+    launches = {"row": mp.launches, "scan": mp.launches_scan, "backtrack": mp.launches_backtrack}
+    check(np.array_equal(warm.schedule, sol.schedule), "a warm fleet solve gave another schedule")
+    expect = replay_launches(before, eng.cache_stats())
+    check(launches["scan"] == 0 and (launches["row"], launches["backtrack"]) == expect and expect[1] >= 2,
+          f"the warm fleet solve launched {launches}; its replays hold {expect}")
+    warm_ms = median_wall_ms(lambda: solver.solve_fleet(p), reps=3)
+    logged = DispatchLog(eng)
+    feats_ms = median_wall_ms(lambda: tfleet._client_features(p), reps=3)
+    cluster_ms = median_wall_ms(lambda: tfleet.cluster_clients(p, seed=0, device="cuda"), reps=3)
+    t0 = time.perf_counter()
+    staged = Solver(engine=logged).solve_fleet(p)
+    staged_ms = 1e3 * (time.perf_counter() - t0)
+    check(np.array_equal(staged.schedule, sol.schedule), "the timed fleet solve gave another schedule")
+    stages = ("curves", "top level", "schedules")
+    dispatch_ms = sum(c[2] + c[3] for c in logged.calls)
+    svc = SchedulerService(engine=eng, max_batch=16, max_delay_s=0.002)
+    try:
+        served = svc.submit_fleet(p).result(timeout=300)
+    finally:
+        svc.close(timeout=120)
+    for f in ("schedule", "labels", "allocations"):
+        check(np.array_equal(getattr(served, f), getattr(sol, f)), f"the served fleet solve's {f} differ")
+
+    # the flat exact DP of the same instance, one host call
+    mp.launches = mp.launches_scan = mp.launches_backtrack = 0
+    Xf = solve_schedule_dp_batch([p], device="cuda")
+    flat_launches = {"row": mp.launches, "scan": mp.launches_scan, "backtrack": mp.launches_backtrack}
+    check(flat_launches == {"row": FLEET_N, "scan": 1, "backtrack": 1}, f"the flat DP launched {flat_launches}")
+    validate_schedule(p, Xf[0])
+    opt = total_cost(p, Xf[0])
+    rel = (sol.objective - opt) / opt
+    check(sol.objective >= opt * (1 - 1e-9), f"the fleet objective {sol.objective} beats the flat DP's {opt}")
+    check(rel <= sol.gap_bound + 1e-6, f"the fleet's gap {rel} exceeds its certificate {sol.gap_bound}")
+    flat_ms = median_wall_ms(lambda: solve_schedule_dp_batch([p], device="cuda"), reps=3)
+
+    # the CPU at bench_fleet.py::run's size
+    pc = random_problem(np.random.default_rng(FLEET_SEED), n=FLEET_CPU_N, T=4 * FLEET_CPU_N, max_upper=FLEET_UPPER)
+    on_card = solver.solve_fleet(pc)
+    t0 = time.perf_counter()
+    wc = Solver(device="cpu").solve_fleet(pc)
+    cpu_s = time.perf_counter() - t0
+    for f in ("labels", "allocations", "schedule"):
+        check(np.array_equal(getattr(on_card, f), getattr(wc, f)), f"n={FLEET_CPU_N}: the card's {f} differ from the CPU's")
+    check(np.array_equal(np.asarray(on_card.curves).view(np.int32), np.asarray(wc.curves).view(np.int32))
+          and on_card.gap_bound == wc.gap_bound and on_card.objective == wc.objective,
+          f"n={FLEET_CPU_N}: the card's curves, gap_bound or objective differ from the CPU's")
+
+    # bench_fleet.py's gap cases
+    rows = []
+    for seed, n, T, k, q in FLEET_GAP_CASES:
+        pg = random_problem(np.random.default_rng(seed), n=n, T=T)
+        fs = solve_fleet(pg, engine=eng, clusters=k, quantum=q)
+        flat = float(Solver(engine=eng).solve([pg], algorithm="dp_batch").objectives[0])
+        scale = max(abs(flat), 1.0)
+        check(fs.objective >= flat - 1e-6 * scale, f"gap case n={n}: the fleet beats the flat DP")
+        check(fs.objective <= flat * (1.0 + fs.gap_bound) + 1e-6 * scale, f"gap case n={n}: outside its certificate")
+        if k == n and q == 1:
+            check(fs.objective == flat, f"gap case n={n}: singleton clusters at q = 1 are not exact")
+        rows.append(f"n={n} k={fs.num_clusters} q={fs.quantum}: gap {100 * (fs.objective - flat) / scale:.4f}% "
+                    f"(bound {100 * fs.gap_bound:.4f}%)")
+
+    log(f"[fleet] (c) {card}")
+    log(f"[fleet] (c) bench_fleet.py's throughput instance n={FLEET_N}, T={p.T} (T'={Tp}), U<={FLEET_UPPER}, "
+        f"seed {FLEET_SEED}: Solver(device='cuda').solve_fleet: {sol.num_clusters} clusters, quantum {sol.quantum}, "
+        f"gap_bound {sol.gap_bound:.6f}; valid; k-means labels identical on the card and the CPU; "
+        f"service.submit_fleet gives the same schedule, labels and allocations; warm-solve launches {launches} "
+        f"(the replays of {[c[0] for c in logged.calls]}-row dispatches, split {[c[1] for c in logged.calls]})")
+    log(f"[fleet] (c) flat DP of the same instance (solve_schedule_dp_batch, one host call): launches "
+        f"{flat_launches}, argmin slab {FLEET_N * (Tp + 1) * 4 / 1e6:.1f} MB; OPT {opt:.6f}, the fleet "
+        f"{sol.objective:.6f}: relative gap {rel:.6e} within its gap_bound {sol.gap_bound:.6e}")
+    log(f"[fleet] (c) n={FLEET_CPU_N}, T={pc.T}: the card's labels, allocations, schedule, curves, gap_bound and "
+        f"objective identical to device='cpu' (its solve took {cpu_s:.3f} s); gap cases: " + "; ".join(rows))
+    log(f"[fleet] (c) warm solve_fleet {warm_ms:.3f} ms = {FLEET_N / (warm_ms / 1e3):.1f} clients/s (first "
+        f"{cold_ms:.3f} ms); warm flat DP {flat_ms:.3f} ms, {warm_ms / flat_ms:.3f}x faster than the fleet solve "
+        f"(host clock, medians of 3)")
+    log(f"[fleet] (c) one warm fleet solve {staged_ms:.3f} ms by stage: clustering (cluster_clients, medians of 3) "
+        f"{cluster_ms:.3f} ms, of it the client features on the host {feats_ms:.3f} ms and k-means on the card the "
+        f"rest; " + "; ".join(f"{name}: dispatch {c[2]:.3f} ms, wait and copy to the host {c[3]:.3f} ms"
+                             for name, c in zip(stages, logged.calls))
+        + f"; the host work around them (cluster problems, curve sampling, repair, validation, objective) "
+          f"{staged_ms - cluster_ms - dispatch_ms:.3f} ms")
+    return launches, flat_launches
+
+
 def main() -> int:
     # -- phase 1: device ---------------------------------------------------
     if not torch.cuda.is_available():
@@ -1656,6 +2091,10 @@ def main() -> int:
     # -- phase 12: the scheduler layers through the Solver facade ------------
     launches_facade = facade_phase(mp, dev, card, solver_batch, X)
 
+    # -- phase 13: the scheduling service and the fleet solve ---------------
+    launches_serve = service_phase(mp, card)
+    launches_fleet, launches_flat = fleet_phase(mp, card)
+
     kernels = [{
         "name": "minplus_cuda",
         "route": "cuda",
@@ -1663,6 +2102,9 @@ def main() -> int:
         "replaces": "src/repro/kernels/minplus.py:76",
         "launches": launches_main["row"],
         "engine_launches": launches_facade["row"],
+        "service_launches": launches_serve["row"],
+        "fleet_launches": launches_fleet["row"],
+        "flat_launches": launches_flat["row"],
         "max_abs_err": max_abs_err,
         **st["row"],
     }, {
@@ -1672,6 +2114,9 @@ def main() -> int:
         "replaces": "none: no TPU kernel (src/repro/core/jax_dp.py:148 _backtrack_batch is a plain jnp lax.scan)",
         "launches": launches_main["backtrack"],
         "engine_launches": launches_facade["backtrack"],
+        "service_launches": launches_serve["backtrack"],
+        "fleet_launches": launches_fleet["backtrack"],
+        "flat_launches": launches_flat["backtrack"],
         "max_abs_err": bt_err,
         **st["backtrack"],
     }, {

@@ -6,13 +6,16 @@ unless the caller passes ``device="cpu"``. Importing the package builds no
 kernel: ``kernels/csrc/*.cu`` are compiled by ``nvcc`` at their first launch.
 
 The public facade grows toward the JAX package's slice by slice: the
-:class:`Solver` verbs, their result types and the resilience policy types
-are here; the fleet, serving and FL-runtime names come with their slices.
+:class:`Solver` verbs, their result types, the resilience policy types, the
+fleet solve, the scheduling service and the fault injection are here; the
+drift names come with the FL runtime's slice.
 """
 
 from .core import (
     CircuitBreaker,
+    FleetSolution,
     ParetoFrontier,
+    PlanPolicy,
     Problem,
     ProblemBatch,
     RetryPolicy,
@@ -23,13 +26,20 @@ from .core import (
     solve_schedule_dp_batch,
     solve_schedule_dp_torch,
 )
+from .fl import FaultInjector, FaultPlan
+from .serve import SchedulerService
 
 __all__ = [
     "CircuitBreaker",
+    "FaultInjector",
+    "FaultPlan",
+    "FleetSolution",
     "ParetoFrontier",
+    "PlanPolicy",
     "Problem",
     "ProblemBatch",
     "RetryPolicy",
+    "SchedulerService",
     "Solution",
     "SolutionBatch",
     "Solver",

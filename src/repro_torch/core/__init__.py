@@ -4,7 +4,7 @@ Minimal Cost FL Schedule problem (Def. 1), the (MC)^2MKP knapsack problem and
 its DP solution (Alg. 1) on the host in float64 and on the device in float32,
 the monotone-regime algorithms MarIn/MarCo/MarDecUn/MarDec (Algs. 2-7) and
 their batched forms, cost-function families, baselines, the shape-bucketed
-sweep engine and the Pareto frontiers.
+sweep engine, the Pareto frontiers and the two-level fleet solve.
 
 The supported solve entrypoint is the :class:`Solver` facade:
 ``Solver().solve(...)`` / ``.sweep(...)`` / ``.frontier(...)``. The legacy
@@ -26,6 +26,7 @@ from .costs import (
     sublinear_cost,
     superlinear_cost,
 )
+from .fleet import FleetSolution, PlanPolicy, cluster_clients, solve_fleet
 from .marginal import marco, mardec, mardecun, marin
 from .marginal_torch import (
     marco_batch,
@@ -100,11 +101,13 @@ __all__ = [
     "CircuitBreaker",
     "CostWindows",
     "DEVICE_CLASSES",
+    "FleetSolution",
     "ItemClass",
     "JOULES_PER_KWH",
     "MC2MKPSolution",
     "ParetoFrontier",
     "ParetoPoint",
+    "PlanPolicy",
     "Problem",
     "ProblemBatch",
     "RetryPolicy",
@@ -118,6 +121,7 @@ __all__ = [
     "candidate_deadlines",
     "carbon_cost_table",
     "classify_regimes",
+    "cluster_clients",
     "deadline_grid",
     "deadline_sweep",
     "default_engine",
@@ -153,6 +157,7 @@ __all__ = [
     "select_algorithm",
     "select_algorithm_batch",
     "solve_dp_batch_cached",
+    "solve_fleet",
     "solve_fused_batch_ring",
     "solve_fused_batch_torch",
     "solve_mc2mkp",

@@ -11,7 +11,9 @@ dispatch. This module turns that observation into a first-class capability:
 
   * :func:`pareto_frontier` — the EXACT Pareto set over
     ``(makespan, energy)`` from one
-    :class:`~repro_torch.core.sweep.SweepEngine` dispatch. Exactness: any
+    :class:`~repro_torch.core.sweep.SweepEngine` dispatch (or one
+    :class:`~repro_torch.serve.service.SchedulerService` request, which
+    coalesces with other same-bucket traffic). Exactness: any
     schedule's makespan is ``max_i time_i(x_i)`` — some time-table entry —
     so sweeping the ε-constraint over every feasible table value
     (:func:`candidate_deadlines`) hits every attainable frontier time, and
@@ -31,9 +33,7 @@ Monotone-regime rows ride the marginal selection per frontier point
 (``split_regimes=True``, the default); arbitrary-regime rows batch into the
 fused DP. The facade entrypoint is
 :meth:`repro_torch.core.solver.Solver.frontier`. The port of
-``repro.core.pareto`` (numpy around the engine); serving a frontier through
-the scheduling service (``service=``) is not ported yet and raises
-``NotImplementedError``.
+``repro.core.pareto`` (numpy around the engine).
 """
 
 from __future__ import annotations
@@ -62,7 +62,6 @@ __all__ = [
 ]
 
 _BIG_CUTOFF = 1e29  # anything above is an infeasible (BIG-saturated) DP entry
-_SERVICE = "serving a frontier is not ported yet: ROADMAP Queue 1, item 4"
 
 
 # ---------------------------------------------------------------------------
@@ -306,7 +305,7 @@ def deadline_grid(problem: Problem, time_tables, points: int) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# frontier extraction: one engine dispatch
+# frontier extraction: one engine dispatch (or one service request)
 # ---------------------------------------------------------------------------
 
 
@@ -358,11 +357,12 @@ def assemble_frontier(
 
 
 def _solve_sweep(tight, engine, backend, service, split_regimes, device) -> np.ndarray:
-    """ONE dispatch for the whole tightened batch, straight through the
-    engine (the given one, else the shared default for ``backend`` on
-    ``device``)."""
+    """ONE dispatch for the whole tightened batch: through the serve layer
+    when a service is given (the request coalesces with other same-bucket
+    traffic), else straight through the engine (the given one, else the
+    shared default for ``backend`` on ``device``)."""
     if service is not None:
-        raise NotImplementedError(_SERVICE)
+        return np.asarray(service.submit(tight, split_regimes=split_regimes).result())
     if engine is None:
         engine = default_engine(backend or "auto", device)
     return engine.solve(tight, split_regimes=split_regimes)
@@ -387,9 +387,11 @@ def pareto_frontier(
     making the returned frontier the EXACT Pareto set; pass an explicit grid
     (e.g. :func:`deadline_grid`) to bound the batch size instead. With
     ``split_regimes=True`` (default) monotone-regime rows ride the marginal
-    fast path; ``False`` forces every point through the fused DP. Without
-    an ``engine`` the shared default for ``backend`` on ``device`` runs it.
-    ``service`` (the serving layer) is not ported and raises.
+    fast path; ``False`` forces every point through the fused DP.
+    ``service`` routes the sweep through a
+    :class:`~repro_torch.serve.service.SchedulerService` as one coalescable
+    request; without it or an ``engine`` the shared default for ``backend``
+    on ``device`` runs it.
     """
     problem.validate()
     if deadlines is None:

@@ -174,6 +174,13 @@ class CircuitBreaker:
             self._opened_at = None
             self._probing = False
 
+    def release(self) -> None:
+        """The admitted call failed for a reason that says nothing of the
+        engine's health (a non-transient error): free the half-open probe
+        without changing the state or the failure count."""
+        with self._lock:
+            self._probing = False
+
     def record_failure(self) -> None:
         with self._lock:
             self._consecutive += 1

@@ -16,11 +16,11 @@ verbs:
     ε-constraint queries from that one dispatch.
 
 Construction picks the execution substrate once — an explicit
-:class:`~repro_torch.core.sweep.SweepEngine`, or a ``backend`` name and a
+:class:`~repro_torch.core.sweep.SweepEngine`, a ``backend`` name and a
 ``device`` (the shared default engine there; ``"cuda"`` unless the caller
-asks for the CPU) — and every verb uses it. The port of
-``repro.core.solver``; the serving layer (``service=``) and the fleet solve
-are not ported yet and raise ``NotImplementedError``.
+asks for the CPU), or a :class:`~repro_torch.serve.service.SchedulerService`
+(batch solves become coalescable served requests) — and every verb uses
+it. The port of ``repro.core.solver``.
 """
 
 from __future__ import annotations
@@ -42,9 +42,6 @@ from .scheduler import (
 from .sweep import _resolve_engine
 
 __all__ = ["Solution", "SolutionBatch", "Solver"]
-
-_SERVICE = "the serving layer is not ported yet: ROADMAP Queue 1, item 4"
-_FLEET = "the fleet solve is not ported yet: ROADMAP Queue 1, item 3 (fleet)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,7 +126,10 @@ class Solver:
       backend: kernel backend name ("auto" per-device dispatch when
         ``None``). Naming both an engine and a contradicting backend raises
         ValueError (same rule as the engine layer).
-      service: the serving layer; not ported, raises ``NotImplementedError``.
+      service: a :class:`~repro_torch.serve.service.SchedulerService`; when
+        set, batch solves and sweeps are submitted as served requests
+        (coalescing with other same-bucket traffic) instead of direct engine
+        dispatches. The service's engine supplies cache stats.
       retry: a :class:`~repro_torch.core.resilience.RetryPolicy`; when set,
         every engine-facing dispatch is retried with exponential backoff on
         TRANSIENT failures (``is_transient``) before the error propagates.
@@ -137,15 +137,21 @@ class Solver:
         retries.
       device: the device of the default engine and of single-instance
         device solves (``"cuda"``, which raises without a card, unless the
-        caller asks for ``"cpu"``); an explicit ``engine`` brings its own.
+        caller asks for ``"cpu"``); an explicit ``engine`` (or a service's)
+        brings its own.
     """
 
     def __init__(
         self, engine=None, backend: Optional[str] = None, service=None, retry=None, device="cuda"
     ):
-        if service is not None:
-            raise NotImplementedError(_SERVICE)
+        self.service = service
+        if service is not None and engine is None:
+            engine = service.engine
         self.engine = _resolve_engine(backend, engine, device)
+        if service is not None and service.engine is not self.engine:
+            raise ValueError(
+                "engine conflicts with service.engine; pass one or the other"
+            )
         self.retry = retry
         self._retry_rng = None if retry is None else retry.make_rng()
 
@@ -202,28 +208,46 @@ class Solver:
         deadlines = None if deadline is None else [float(deadline)] * len(plist)
         return self._solve_batch(plist, algorithm, check, deadlines)
 
-    def _dp_dispatch(self, engine, plist, check):
-        """One pure-DP dispatch (not ``.solve()``, to keep the free
-        ``k_last`` rows): schedules trimmed per instance, and the rows."""
-
-        def _direct_dp():
-            handle = engine.dispatch(plist, split_regimes=False)
-            return handle.result(), handle.k_last()
-
-        X, k_last = self._guard(_direct_dp)
+    @staticmethod
+    def _trimmed(X, plist, check):
+        """Each instance's schedule cut to its own ``n``, validated when asked."""
         schedules = [np.asarray(X[b, : p.n], np.int64) for b, p in enumerate(plist)]
         if check:
             for p, x in zip(plist, schedules):
                 validate_schedule(p, x)
-        return schedules, k_last
+        return schedules
+
+    def _dp_dispatch(self, plist, check, engine=None):
+        """One pure-DP dispatch (not ``.solve()``, to keep the free
+        ``k_last`` rows): a served request when the solver has a service,
+        else straight through ``engine`` (the solver's own by default).
+        Returns the trimmed schedules and the rows."""
+
+        def _served_dp():
+            fut = self.service.submit(plist, split_regimes=False)
+            return np.asarray(fut.result()), np.asarray(fut.k_last())
+
+        def _direct_dp():
+            handle = (engine or self.engine).dispatch(plist, split_regimes=False)
+            return handle.result(), handle.k_last()
+
+        X, k_last = self._guard(_served_dp if self.service is not None else _direct_dp)
+        return self._trimmed(X, plist, check), k_last
 
     def _solve_batch(self, plist, algorithm, check, deadlines) -> SolutionBatch:
         regimes = [p.regime() for p in plist]
         k_last = None
-        if plist and algorithm in _DP_ALGORITHMS:
-            backend = "cuda" if algorithm == "dp_torch_cuda" else None
-            engine = _resolve_engine(backend, None if backend else self.engine, self.engine.device)
-            schedules, k_last = self._dp_dispatch(engine, plist, check)
+        if plist and algorithm == "auto" and self.service is not None:
+            X = self._guard(
+                lambda: self.service.submit(plist, split_regimes=True).result()
+            )
+            schedules = self._trimmed(np.asarray(X), plist, check)
+            algorithms = list(select_algorithm_batch(plist))
+        elif plist and algorithm in _DP_ALGORITHMS:
+            engine = None
+            if self.service is None and algorithm == "dp_torch_cuda":
+                engine = _resolve_engine("cuda", None, self.engine.device)
+            schedules, k_last = self._dp_dispatch(plist, check, engine)
             algorithms = ["dp_batch"] * len(plist)
         else:
             schedules = self._guard(
@@ -263,7 +287,7 @@ class Solver:
                 tight.append(tighten_for_deadline(problem, time_tables, d))
             except ValueError as e:
                 raise ValueError(f"sweep point {d}: {e}") from e
-        schedules, k_last = self._dp_dispatch(self.engine, tight, check)
+        schedules, k_last = self._dp_dispatch(tight, check)
         return SolutionBatch(
             schedules=schedules,
             objectives=[total_cost(p, x) for p, x in zip(tight, schedules)],
@@ -276,9 +300,54 @@ class Solver:
 
     # ---- fleet ---------------------------------------------------------
 
-    def solve_fleet(self, problem: Problem, **kwargs):
-        """Two-level fleet solve: not ported yet."""
-        raise NotImplementedError(_FLEET)
+    def solve_fleet(
+        self,
+        problem: Problem,
+        *,
+        clusters=None,
+        quantum: Optional[int] = None,
+        seed: Optional[int] = None,
+        time_tables=None,
+        policy=None,
+        check: bool = True,
+    ):
+        """Two-level fleet solve (DESIGN.md §16): cluster the clients, solve
+        every cluster's workload-Pareto curve in one batched dispatch, run an
+        exact top-level (MC)²MKP over the curves, then one regime-split
+        dispatch for the per-cluster schedules. Scales ``n`` into the
+        thousands; returns a :class:`~repro_torch.core.fleet.FleetSolution`
+        with a certified relative ``gap_bound`` (0 when ``quantum == 1`` —
+        the decomposition is exact then).
+
+        ``clusters``: cluster count (``None``/"auto" ≈ √n); ``quantum``:
+        top-level curve sampling step (``None`` = auto, 1 = exact);
+        ``seed``: k-means seed; ``time_tables``: optional per-client time
+        tables folded into the clustering features. A
+        :class:`~repro_torch.core.fleet.PlanPolicy` supplies defaults for any
+        argument not given explicitly. Runs over this solver's substrate:
+        direct engine dispatches, or coalescable served requests when the
+        solver was built over a
+        :class:`~repro_torch.serve.service.SchedulerService`.
+        """
+        from .fleet import FleetRun  # lazy: fleet imports sweep
+
+        if policy is not None:
+            clusters = clusters if clusters is not None else policy.fleet_clusters
+            quantum = quantum if quantum is not None else policy.fleet_quantum
+            seed = seed if seed is not None else policy.fleet_seed
+            time_tables = (
+                time_tables if time_tables is not None else policy.time_tables
+            )
+        return FleetRun(
+            problem,
+            engine=None if self.service is not None else self.engine,
+            service=self.service,
+            clusters=clusters,
+            quantum=quantum,
+            seed=0 if seed is None else int(seed),
+            time_tables=time_tables,
+            check=check,
+        ).finish()
 
     # ---- frontier ------------------------------------------------------
 
@@ -302,7 +371,11 @@ class Solver:
         points ride the marginal fast path unless ``split_regimes=False``."""
         from . import pareto  # lazy: pareto imports sweep and scheduler
 
-        kw = dict(engine=self.engine, split_regimes=split_regimes)
+        kw = dict(
+            engine=None if self.service is not None else self.engine,
+            service=self.service,
+            split_regimes=split_regimes,
+        )
         if windows is not None:
             return pareto.frontier_by_window(problem, time_tables, windows, deadlines, **kw)
         return pareto.pareto_frontier(problem, time_tables, deadlines, **kw)

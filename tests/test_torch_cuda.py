@@ -13,7 +13,8 @@ launches of a step; the sweep engine's bucket plans (eager first call, then
 CUDA-graph replays) against the CPU engine bit for bit, with shared static
 buffers under interleaved and concurrent dispatches, and the launches a
 replay counts; the selection's signed-zero order and the facade's regime
-split against the CPU.
+split against the CPU; the scheduling service and the fleet solve over a
+card engine against the CPU's.
 
 Every test here needs a CUDA card and ``nvcc`` (the kernel has no CPU mode),
 is marked ``cuda`` and skips without them. The file imports no JAX, so it
@@ -608,3 +609,62 @@ def test_cuda_solver_mixed_batch_matches_the_cpu(cuda):
     hg = SweepEngine(device="cuda").dispatch(probs, split_regimes=True)
     hw = SweepEngine(device="cpu").dispatch(probs, split_regimes=True)
     np.testing.assert_allclose(hg.objectives(), hw.objectives(), rtol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the scheduling service and the fleet solve on the card
+# ---------------------------------------------------------------------------
+
+
+def test_cuda_service_matches_the_cpu_service(cuda):
+    """Coalesced requests over a card engine: schedules, k_last and
+    objectives bit-identical to the same stream over a CPU engine; no plan
+    build after warm(), no degraded or failed flush."""
+    from repro_torch.core.sweep import SweepEngine, request_bucket
+    from repro_torch.serve import SchedulerService
+
+    rng = np.random.default_rng(5)
+    probs = [random_problem(rng, n=12, T=300, regime="arbitrary", max_upper=60) for _ in range(12)]
+    batches = [ProblemBatch.from_problems([p]) for p in probs]
+    got, want = [], []
+    for dev, out in (("cuda", got), ("cpu", want)):
+        eng = SweepEngine(device=dev)
+        svc = SchedulerService(engine=eng, max_batch=4, max_delay_s=0.002)
+        try:
+            svc.warm(sorted({request_bucket(b) for b in batches}))
+            before = eng.cache_stats()["compiles"]
+            futs = [svc.submit(b) for b in batches]
+            out.extend((f.result(timeout=120), f.k_last(timeout=120), f.objectives(timeout=120)) for f in futs)
+            assert eng.cache_stats()["compiles"] == before
+            st = svc.stats()
+            assert st["flush_failures"] == st["degraded_flushes"] == st["retries"] == 0
+        finally:
+            svc.close(timeout=60)
+    for (x, k, o), (xw, kw, ow) in zip(got, want):
+        np.testing.assert_array_equal(x, xw)
+        np.testing.assert_array_equal(k.view(np.int32), kw.view(np.int32))
+        np.testing.assert_array_equal(o, ow)
+
+
+def test_cuda_solve_fleet_matches_the_cpu(cuda):
+    """k-means on the card labels as on the CPU; the whole fleet solution
+    (labels, allocations, schedule, curves, gap_bound) is the CPU's, and
+    through a card service too."""
+    from repro_torch.core import Solver, cluster_clients
+    from repro_torch.core.sweep import SweepEngine
+    from repro_torch.serve import SchedulerService
+
+    p = random_problem(np.random.default_rng(42), n=256, T=1024, max_upper=64)
+    np.testing.assert_array_equal(cluster_clients(p, seed=0, device="cuda"), cluster_clients(p, seed=0, device="cpu"))
+    got = Solver(engine=SweepEngine(device="cuda")).solve_fleet(p)
+    want = Solver(engine=SweepEngine(device="cpu")).solve_fleet(p)
+    svc = SchedulerService(engine=SweepEngine(device="cuda"), max_batch=16, max_delay_s=0.002)
+    try:
+        served = svc.submit_fleet(p).result(timeout=300)
+    finally:
+        svc.close(timeout=60)
+    for sol in (got, served):
+        for f in ("labels", "allocations", "schedule"):
+            np.testing.assert_array_equal(getattr(sol, f), getattr(want, f))
+        np.testing.assert_array_equal(np.asarray(sol.curves).view(np.int32), np.asarray(want.curves).view(np.int32))
+        assert sol.gap_bound == want.gap_bound and sol.objective == want.objective

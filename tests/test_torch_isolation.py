@@ -32,6 +32,8 @@ def test_importing_every_port_module_pulls_in_no_jax():
         "repro_torch.core.marginal", "repro_torch.core.marginal_torch", "repro_torch.core.sweep",
         "repro_torch.core.scheduler", "repro_torch.core.solver", "repro_torch.core.pareto",
         "repro_torch.core.resilience", "repro_torch.core.baselines", "repro_torch.core._deprecation",
+        "repro_torch.core.fleet", "repro_torch.serve", "repro_torch.serve.coalesce", "repro_torch.serve.service",
+        "repro_torch.fl", "repro_torch.fl.faults", "repro_torch.fl.energy",
     } <= set(mods)
     code = (
         "import importlib, sys\n"
