@@ -142,6 +142,34 @@ Phases, in order; any failure ends the run with a non-zero exit code:
                 at n = 512 (the CPU leg cut to bench_fleet.py::run's size);
                 bench_fleet.py's gap cases (singleton clusters at q = 1
                 exact); the warm fleet solve by stage and the warm flat DP.
+14. FL runtime — (a) the FL launcher (``repro_torch.launch.train``) with its
+                defaults on gemma2-2b FULL (26 layers, bfloat16, remat "full",
+                random weights from ``torch.Generator`` seed 0): 6 clients,
+                10 rounds of Σ max_batches / 2 SGD steps of batch 4 x 32
+                tokens, clients one after another on the card: every round's
+                schedule, estimated and true energy and makespan identical to
+                the same campaign planned with ``SweepEngine(device="cpu")``,
+                finite losses, the first client's round-1 parameters from
+                ``local_train`` bit-identical to the same SGD steps written
+                out here, round 1's aggregate within one bfloat16 ulp of
+                Σ w_i p_i formed in float64 (the embedding and layer 0); the
+                round's wall time by stage (plan, train by CUDA events,
+                account, scenarios), client tokens/s, peak memory, min-plus
+                launches per round; (b) bench_async.py's campaign (toy LM, 12
+                clients, 6 rounds, 4 workloads and 4 dropouts of what-if
+                scenarios a round) serial, pipelined, pipelined, serial:
+                bit-identical schedules, losses, energies and scenario
+                reports, equal to the CPU's (losses within rtol 1e-5), no
+                plan build after round 1, the overlap fraction and the main
+                thread's waits; and a fresh engine's first plan built and
+                captured on another thread while the main thread enqueues a
+                round of client training (schedules as the CPU's, the round
+                bit-identical to one trained alone); (c) bench_faults.py's chaos campaign (10
+                clients, 10 rounds): serial and pipelined bit-identical,
+                every recovery the independent solve of its residual
+                instance, and a campaign killed after round 4 and resumed
+                from ``save_campaign_checkpoint`` bit-identical to the
+                uninterrupted one.
 
 The line before the last is a JSON object of every kernel with its launch
 count and times; the last line is ``{"ok": true, "device": {...}}``.
@@ -262,6 +290,24 @@ SERVE_STREAM = 200
 FLEET_N, FLEET_CPU_N, FLEET_SEED, FLEET_UPPER = 2048, 512, 42, 64
 FLEET_GAP_CASES = ((0, 16, 40, 16, 1), (1, 32, 80, None, None), (2, 48, 120, 6, 2), (3, 64, 160, None, None),
                    (4, 64, 192, 8, 3))
+# Phase 14: (a) the FL launcher with its defaults on gemma2-2b FULL (6
+# clients, seq 32, batch 4, max-batches 8, lr 0.1, sgd, algorithm "auto", seed
+# 0, 10 rounds); (b) benchmarks/bench_async.py's full configuration and (c)
+# benchmarks/bench_faults.py's, both on the toy LM of the JAX package's
+# fl/toy.py (vocabulary, width, sequence length as there, weights from
+# torch.Generator seed FL_TOY_PARAMS_SEED): (clients, max_batches, batch,
+# rounds, seed). (c) kills its campaign after FL_KILL_AFTER rounds and
+# resumes it from the checkpoint; its fault plan is bench_faults.py's.
+FL_LAUNCH_ARGV = ("--arch", "gemma2-2b", "--full")
+FL_TOY = (256, 64, 16)
+FL_TOY_PARAMS_SEED = 1
+FL_ASYNC = (12, 48, 8, 6, 0)
+FL_FAULTS = (10, 48, 8, 10, 0)
+FL_FAULT_RATES = dict(p_crash=0.25, p_straggle=0.2)
+FL_KILL_AFTER = 4
+# toy-LM losses, the card against the CPU (float32, no TF32, summed in
+# another order over some 200 SGD steps a round)
+FL_LOSS_RTOL = 1e-5
 
 
 def check(cond, msg):
@@ -644,7 +690,7 @@ def device_time_table(step, params, batch, top=8):
     kinds = {"flash kernels": 0.0, "cuBLAS (nvjet)": 0.0, "the rest": 0.0}
     for t, _, name in rows:
         kinds["flash kernels" if "flash_" in name else "cuBLAS (nvjet)" if "nvjet" in name else "the rest"] += t
-    return sum(r[0] for r in rows), rows[:top], kinds
+    return sum(r[0] for r in rows), rows[:top], kinds, sum(r[1] for r in rows)
 
 
 LIBRARY_MASK = {"causal": "", "sliding": ", boolean band mask"}
@@ -720,7 +766,7 @@ def flash_times(fa, main, cfg, params, batch, step, card):
     log(f"[times] warm prefill {ARCH} B={B_PREFILL} S={S_PREFILL}: {prefill_ms:.3f} ms (host clock, median of 3) = "
         f"{tokens / prefill_ms * 1e3:.1f} tokens/s; flash kernel {per_kind} x ms per launch = {kernel_ms:.3f} ms = "
         f"{kernel_ms / prefill_ms:.3f} of the prefill")
-    total, rows, kinds = device_time_table(step, params, batch)
+    total, rows, kinds, _ = device_time_table(step, params, batch)
     if total == 0:
         log("[times] torch.profiler recorded no device time")
     else:
@@ -928,7 +974,7 @@ def train_phase(fa, mp, dev, card):
         f"dK/dV launches, all on the tensor cores, min-plus 0; losses "
         f"{', '.join(f'{x:.5f}' for x in losses)}; peak device memory {peak_gb:.2f} GB; first step {secs[0]:.3f} s")
 
-    total, rows, kinds = device_time_table(lambda p, b: step(p, state, b), params, batch, top=12)
+    total, rows, kinds, _ = device_time_table(lambda p, b: step(p, state, b), params, batch, top=12)
     tokens = B_TRAIN * S_TRAIN
     log(f"[times] {card}")
     log(f"[times] warm train step {ARCH} B={B_TRAIN} S={S_TRAIN}: {warm_ms:.3f} ms (host clock, median of "
@@ -1991,6 +2037,483 @@ def fleet_phase(mp, card):
     return launches, flat_launches
 
 
+def _stage_timer(obj, name, times):
+    """Replaces ``obj.<name>`` with a wrapper that appends each call's
+    host-clock ms to ``times[name]``."""
+    fn = getattr(obj, name)
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        times[name].append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    setattr(obj, name, timed)
+
+
+def same_rounds(a, b, what, losses=True):
+    """Two campaign histories: schedules, energies, makespans, scenario
+    reports and recoveries identical (and losses, unless told not to)."""
+    check(len(a.rounds) == len(b.rounds), f"{what}: {len(a.rounds)} against {len(b.rounds)} rounds")
+    for ra, rb in zip(a.rounds, b.rounds):
+        r = ra.round_index
+        check(np.array_equal(ra.assignments, rb.assignments), f"{what}: round {r}'s schedules differ")
+        check((ra.energy_joules, ra.estimated_joules, ra.makespan_joules)
+              == (rb.energy_joules, rb.estimated_joules, rb.makespan_joules), f"{what}: round {r}'s energies differ")
+        check(not losses or ra.mean_loss == rb.mean_loss, f"{what}: round {r}'s losses differ")
+        check((ra.scenarios is None) == (rb.scenarios is None), f"{what}: round {r}'s scenario reports differ")
+        if ra.scenarios is not None:
+            check(ra.scenarios.labels == rb.scenarios.labels
+                  and np.array_equal(ra.scenarios.assignments, rb.scenarios.assignments)
+                  and np.array_equal(ra.scenarios.energies, rb.scenarios.energies),
+                  f"{what}: round {r}'s scenario reports differ")
+        check((ra.recovery is None) == (rb.recovery is None), f"{what}: round {r}'s recoveries differ")
+        if ra.recovery is not None:
+            check(np.array_equal(ra.recovery.recovery_assignments, rb.recovery.recovery_assignments)
+                  and ra.recovery.fallback == rb.recovery.fallback, f"{what}: round {r}'s recoveries differ")
+
+
+def same_params(pa, pb, what):
+    from repro_torch.optim import tree_leaves
+
+    check(all(torch.equal(a, b) for a, b in zip(tree_leaves(pa), tree_leaves(pb))), f"{what}: parameters differ")
+
+
+def ulp(ref: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """One ulp of ``dtype`` (bfloat16: 8 significant bits, float32: 24) at
+    each entry's magnitude."""
+    _, e = torch.frexp(ref.abs().clamp_min(2.0 ** -126))
+    return torch.ldexp(torch.full_like(ref, torch.finfo(dtype).eps), e - 1)
+
+
+def fl_launcher_phase(mp, card, dev):
+    """Phase 14 (a): the FL launcher on gemma2-2b FULL. Returns its min-plus
+    launches, counted from 0 over the campaign."""
+    import gc
+
+    from repro_torch.checkpoint import flatten_with_paths
+    from repro_torch.core.sweep import SweepEngine, reset_default_engines
+    from repro_torch.data import lm_round_batches
+    from repro_torch.fl import FederatedServer, PlanPolicy, local_train, run_campaign
+    from repro_torch.fl.client import train_steps
+    from repro_torch.launch import train as launcher
+    from repro_torch.models import init_params, loss_fn
+    from repro_torch.optim import sgd, tree_leaves, tree_map
+
+    reset_default_engines()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    args = launcher.parse_args([*FL_LAUNCH_ARGV, "--device", str(dev)])
+    t0 = time.perf_counter()
+    c = launcher.build_campaign(args, log=lambda m: log(f"[fl] (a) {m}"))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    cfg, server = c.cfg, c.server
+    check(cfg.attn_impl == "plain" and cfg.remat == "full" and cfg.vocab_size == 256000,
+          f"gemma2-2b FULL: attn_impl {cfg.attn_impl}, remat {cfg.remat}")
+
+    def watched(params):
+        return {"emb": params["emb"], **{f"layers/0/{k}": v for k, v in flatten_with_paths(params["layers"][0])}}
+
+    times = {k: [] for k in ("plan_round", "account_round", "solve_scenarios", "train_host")}
+    for name in ("plan_round", "account_round", "solve_scenarios"):
+        _stage_timer(server, name, times)
+    events = []
+    train_round = server.train_round
+
+    def timed_train(plan, batches):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        t = time.perf_counter()
+        out = train_round(plan, batches)
+        times["train_host"].append(1e3 * (time.perf_counter() - t))
+        e1.record()
+        events.append((e0, e1))
+        return out
+
+    server.train_round = timed_train
+    round1 = {}
+
+    def on_round(r):
+        if r.round_index == 0:
+            round1.update({k: v.clone() for k, v in watched(server.params).items()})
+
+    mp.launches = mp.launches_scan = mp.launches_backtrack = 0
+    t0 = time.perf_counter()
+    _, hist = launcher.run(args, campaign=c, on_round=on_round, log=lambda m: log(f"[fl] (a) {m.strip()}"))
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {"row": mp.launches, "scan": mp.launches_scan, "backtrack": mp.launches_backtrack}
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    train_ms = [a.elapsed_time(b) for a, b in events]
+    losses = hist.losses
+    check(len(hist.rounds) == args.rounds and np.isfinite(losses).all(), f"losses {losses}")
+
+    # the same campaign planned on the CPU: planning sees the estimator and
+    # the rng, never the model, so training is left out
+    est, examples, rng, T = launcher.make_world(args, cfg.vocab_size)
+    replay = FederatedServer(None, None, None, est, policy=PlanPolicy(algorithm=args.algorithm,
+                                                                      engine=SweepEngine(device="cpu")))
+    replay.train_round = lambda plan, batches: torch.zeros(())
+    h_cpu = run_campaign(replay, examples, args.rounds, round_T=T, batch_size=args.batch, rng=rng)
+    same_rounds(hist, h_cpu, "the card's campaign against the CPU-planned replay", losses=False)
+    check(T == c.round_T and all(int(r.assignments.sum()) == T for r in hist.rounds), f"round_T {T}")
+
+    # round 1 again, client by client, from the same starting point
+    server._buffers = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    params0 = init_params(cfg, args.seed, device=dev)
+    max_steps = max(d.max_batches for d in est.fleet)
+    tb = torch.from_numpy(lm_round_batches(examples, max_steps, args.batch, 0)).to(dev).long()
+    x = np.asarray(hist.rounds[0].assignments, dtype=np.int64)
+    w = x.astype(np.float32) / np.float32(max(int(x.sum()), 1))
+
+    def loss(p, b):
+        return loss_fn(p, cfg, {"tokens": b})
+
+    acc = {k: torch.zeros(v.shape, dtype=torch.float64, device=dev) for k, v in watched(params0).items()}
+    mag = {k: torch.zeros_like(v) for k, v in acc.items()}  # Σ |w_i p_i|
+    first = int(np.flatnonzero(x)[0])
+    for i in np.flatnonzero(x):
+        k = int(x[i])
+        p_i, _ = local_train(loss, sgd(args.lr), params0, tb[i, :k], k)
+        if i == first:
+            # the same SGD steps written out: p <- p + bf16(-lr) * g, in place
+            q = tree_map(lambda p: p.clone(), params0)
+            for s in range(k):
+                leaves = tree_leaves(q)
+                with torch.enable_grad():
+                    xs = [p.detach().requires_grad_() for p in leaves]
+                    it = iter(xs)
+                    grads = torch.autograd.grad(loss(tree_map(lambda _: next(it), q), tb[i, s]), xs)
+                with torch.no_grad():
+                    for p, g in zip(leaves, grads):
+                        p.add_(g * torch.tensor(-args.lr, dtype=g.dtype, device=dev))
+                del grads, xs
+            same_params(p_i, q, f"client {i}'s {k} steps of local_train against the written-out SGD steps")
+            del q
+        for name, v in watched(p_i).items():
+            acc[name] += float(w[i]) * v.double()
+            mag[name] += float(w[i]) * v.double().abs()
+        del p_i
+    # the server sums in float32 (one rounding a product and a sum, so at most
+    # (clients + 1) float32 ulps of Σ |w_i p_i|) and rounds once to the leaf's
+    # dtype (within one ulp of it)
+    terms, worst, over_one, entries = int(np.count_nonzero(x)) + 1, 0.0, 0, 0
+    for name, ref in acc.items():
+        got, dtype = round1[name].double(), round1[name].dtype
+        err = (got - ref).abs()
+        limit = ulp(ref, dtype) + terms * 2.0 ** -24 * mag[name]
+        worst = max(worst, (err / limit).max().item())
+        over_one += int((err > ulp(ref, dtype)).sum())
+        entries += ref.numel()
+        check(bool((err <= limit).all()), f"round 1's {name}: {(err / limit).max().item():.3f} times the limit "
+              "from the float64 sum of w_i p_i")
+    # one warm client step (forward, remat forward, backward, SGD) by the
+    # profiler: the device's busy time against the step's wall time
+    del acc, mag, round1
+    buf = tree_map(lambda p: p.clone(), params0)
+
+    def step():
+        train_steps(loss, sgd(args.lr), buf, tb[first, :1], 1)
+
+    step()
+    step_ms = median_wall_ms(step, 3)
+    step_dev_ms, step_top, step_kinds, step_launches = device_time_table(lambda p, b: step(), None, None, top=6)
+    del params0, buf, tb
+    server.params = None
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    tokens = [int(r.assignments.sum()) * args.batch * args.seq for r in hist.rounds]
+    walls = [1e3 * s for s in hist.pipeline_stats.round_wall_s]
+    log(f"[fl] (a) {card}")
+    log(f"[fl] (a) launcher defaults {vars(args)}: {len(hist.rounds)} rounds of T = {T} steps over "
+        f"{args.clients} clients, x {[r.assignments.tolist() for r in hist.rounds]}; schedules, estimated and true "
+        f"energies and makespans identical to the campaign planned with SweepEngine(device='cpu'); losses "
+        f"{[round(float(v), 4) for v in losses]} (round 1 {losses[0]:.4f} against ln 256000 = "
+        f"{math.log(256000):.4f}); client {first}'s round-1 parameters after {int(x[first])} steps of local_train "
+        f"bit-identical to the SGD steps written out; round 1's embedding and layer 0 ({entries} entries) within "
+        f"{worst:.3f} times the limit (one ulp of the leaf's dtype + {terms} float32 ulps of Σ|w_i p_i|) of the "
+        f"float64 sum of w_i p_i, {over_one} entries more than one ulp from it")
+    log(f"[fl] (a) model and server built in {build_s:.2f} s; campaign {wall_s:.2f} s; peak device memory "
+        f"{peak_gb:.3f} GB above the {base / 1e9:.3f} GB held before; min-plus launches {launches} in "
+        f"{len(hist.rounds)} rounds ({launches['row'] / len(hist.rounds):.1f} row, "
+        f"{launches['backtrack'] / len(hist.rounds):.1f} backtrack a round: 'auto' plans this arbitrary-regime "
+        f"round on the host's float64 DP, as the reference does)")
+    for r in range(len(hist.rounds)):
+        log(f"[fl] (a) round {r + 1}: wall {walls[r]:.3f} ms = plan {times['plan_round'][r]:.3f} + train "
+            f"{train_ms[r]:.3f} (CUDA events; its host enqueue {times['train_host'][r]:.3f}) + account "
+            f"{times['account_round'][r]:.3f} + scenarios {times['solve_scenarios'][r]:.3f} ms + the rest; "
+            f"{tokens[r]} client tokens = {tokens[r] / (train_ms[r] / 1e3):.1f} tokens/s")
+    log(f"[fl] (a) one warm client step (batch {args.batch} x {args.seq}, SGD) {step_ms:.3f} ms (host clock, "
+        f"median of 3); by the profiler the card is busy {step_dev_ms:.3f} ms of it ({step_launches} kernel launches, "
+        f"idle share {1 - step_dev_ms / step_ms:.3f}); by kind {', '.join(f'{k} {v:.3f} ms' for k, v in step_kinds.items())}; "
+        f"top: " + "; ".join(f"{n[:60]} x{c} {t:.3f} ms" for t, c, n in step_top))
+    warm = slice(1, None)
+    log(f"[fl] (a) rounds 2-{len(hist.rounds)}: wall {statistics.mean(walls[warm]):.3f} ms, train "
+        f"{statistics.mean(train_ms[warm]):.3f} ms, plan {statistics.mean(times['plan_round'][warm]):.3f} ms, account "
+        f"{statistics.mean(times['account_round'][warm]):.3f} ms (means); client training "
+        f"{sum(tokens[warm]) / (sum(train_ms[warm]) / 1e3):.1f} tokens/s")
+    return launches
+
+
+def toy_campaign(device, clients, max_batches, seed, scenarios, engine=None):
+    """bench_async.py's / bench_faults.py's ``build_campaign`` in the port:
+    ``(server, examples, rng, T)``; the toy LM's starting weights are drawn
+    on the CPU and copied, so every device trains from the same ones."""
+    from repro_torch.core.sweep import SweepEngine
+    from repro_torch.data import client_corpora, make_lm_examples
+    from repro_torch.fl import EnergyEstimator, FederatedServer, PlanPolicy, make_fleet
+    from repro_torch.fl.toy import make_tiny_lm
+    from repro_torch.optim import sgd
+
+    vocab, dim, seq = FL_TOY
+    init, loss = make_tiny_lm(vocab, dim)
+    rng = np.random.default_rng(seed)
+    fleet = make_fleet(rng, clients, max_batches=max_batches)
+    est = EnergyEstimator(fleet)
+    est.calibrate(rng)
+    examples = [make_lm_examples(cc, seq) for cc in client_corpora(rng, clients, 4000, vocab)]
+    T = sum(d.max_batches for d in fleet) // 2
+    kw = dict(scenario_T_candidates=[int(0.6 * T), int(0.8 * T), T, int(1.2 * T)],
+              scenario_dropouts=[[0], [1], [2], [3]]) if scenarios else {}
+    params = {k: v.to(device) for k, v in init(FL_TOY_PARAMS_SEED, device="cpu").items()}
+    policy = PlanPolicy(algorithm="auto", engine=engine if engine is not None else SweepEngine(device=device), **kw)
+    return FederatedServer(loss, params, sgd(0.3), est, policy=policy), examples, rng, T
+
+
+def fl_async_phase(mp, card, dev):
+    """Phase 14 (b): bench_async.py's campaign, serial and pipelined, on the
+    card. Returns the min-plus launches of the first pipelined campaign."""
+    import threading
+
+    from repro_torch.core import sweep
+    from repro_torch.fl import run_campaign
+
+    clients, max_batches, batch, rounds, seed = FL_ASYNC
+    runs, launches, after_round1, builds = {}, None, {}, {}
+    plan_call = sweep._Plan.__call__
+    for k, mode in enumerate(("serial", "pipelined", "pipelined", "serial")):
+        server, examples, rng, T = toy_campaign(dev, clients, max_batches, seed, scenarios=True)
+        seen, trained, built = [], [], []
+        train_round = server.train_round
+
+        def timed_train(plan, batches, train_round=train_round, trained=trained):
+            out = train_round(plan, batches)
+            trained.append(torch.cuda.Event())
+            trained[-1].record()
+            return out
+
+        def first_call(plan, *arrays, trained=trained, built=built):
+            # a plan's first call runs it eagerly and captures its graph: note
+            # the thread, and whether the clients' last training work was
+            # still running on the card when it began
+            if plan.graph is None:
+                built.append((threading.current_thread().name, bool(trained) and not trained[-1].query()))
+            return plan_call(plan, *arrays)
+
+        def on_round(r, server=server, seen=seen):
+            if r.round_index == 0:
+                seen.append(server.engine.cache_stats()["compiles"])
+
+        server.train_round = timed_train
+        if k == 1:
+            mp.launches = mp.launches_scan = mp.launches_backtrack = 0
+        torch.cuda.synchronize()
+        sweep._Plan.__call__ = first_call
+        try:
+            t0 = time.perf_counter()
+            h = run_campaign(server, examples, rounds, round_T=T, batch_size=batch, rng=rng,
+                             pipelined=mode == "pipelined", on_round=on_round)
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        finally:
+            sweep._Plan.__call__ = plan_call
+        builds[k] = built
+        if k == 1:
+            launches = {"row": mp.launches, "scan": mp.launches_scan, "backtrack": mp.launches_backtrack}
+        after_round1[k] = h.dp_cache_stats["compiles"] - seen[0]
+        check(after_round1[k] == 0, f"{mode} campaign {k}: {after_round1[k]} plan builds after round 1")
+        runs[k] = (mode, h, server.params, wall_ms)
+    _, h0, p0, _ = runs[0]
+    for k in (1, 2, 3):
+        same_rounds(h0, runs[k][1], f"bench_async campaign {k} ({runs[k][0]}) against campaign 0 (serial)")
+        same_params(p0, runs[k][2], f"bench_async campaign {k} ({runs[k][0]}) against campaign 0 (serial)")
+    check(launches["row"] > 0 and launches["backtrack"] > 0, f"the pipelined campaign launched {launches}")
+
+    server, examples, rng, T = toy_campaign("cpu", clients, max_batches, seed, scenarios=True)
+    h_cpu = run_campaign(server, examples, rounds, round_T=T, batch_size=batch, rng=rng)
+    same_rounds(h0, h_cpu, "bench_async's campaign on the card against the CPU", losses=False)
+    rel = np.abs(h0.losses - h_cpu.losses) / np.abs(h_cpu.losses)
+    check(rel.max() <= FL_LOSS_RTOL, f"losses on the card against the CPU: relative {rel.max():.3e}")
+
+    log(f"[fl] (b) {card}")
+    pipe = [runs[k] for k in (1, 2)]
+    ser = [runs[k] for k in (0, 3)]
+    waits = [sum(1 for t in r[1].pipeline_stats.tasks if t["blocked_s"] > 0) for r in pipe]
+    log(f"[fl] (b) bench_async.py's campaign ({clients} clients, max_batches {max_batches}, batch {batch}, {rounds} "
+        f"rounds, T = {T}, {len(h0.rounds[0].scenarios.labels)} scenarios a round {h0.rounds[0].scenarios.labels}): "
+        f"serial, pipelined, pipelined, serial bit-identical in schedules, losses, energies, scenario reports and "
+        f"parameters; equal to the CPU's in schedules, energies and scenario reports, losses within "
+        f"{rel.max():.3e} relative; plan builds after round 1: {list(after_round1.values())}; min-plus launches of "
+        f"the first pipelined campaign {launches}; engine {h0.dp_cache_stats}")
+    for mode, h, _, wall_ms in (runs[k] for k in range(4)):
+        ps = h.pipeline_stats
+        log(f"[fl] (b) {mode}: campaign {wall_ms:.3f} ms, rounds {[round(1e3 * v, 3) for v in ps.round_wall_s]} ms "
+            f"(mean {1e3 * statistics.mean(ps.round_wall_s):.3f}); planner busy {1e3 * ps.planner_busy_s:.3f} ms, "
+            f"blocked {1e3 * ps.planner_blocked_s:.3f} ms, overlap fraction {ps.overlap_fraction:.4f}; waiting on "
+            f"the losses {1e3 * ps.train_block_s:.3f} ms")
+    for k in (1, 2):
+        check(builds[k] and all(name.startswith("fl-planner") for name, _ in builds[k]),
+              f"pipelined campaign {k}'s plans were built on {builds[k]}")
+    log(f"[fl] (b) the main thread waited on the planner {waits} times in the two pipelined campaigns (of "
+        f"{len(pipe[0][1].pipeline_stats.tasks)} tasks each); their plan builds (eager call and graph capture) "
+        f"ran on the planner thread: {[[n for n, _ in builds[k]] for k in (1, 2)]}, with the clients' training "
+        f"still running on the card at the start of {[sum(f for _, f in builds[k]) for k in (1, 2)]} of them; "
+        f"the serial campaigns' on {[[n for n, _ in builds[k]] for k in (0, 3)]}")
+    capture_while_training(dev, clients, max_batches, batch, seed)
+    return launches
+
+
+def capture_while_training(dev, clients, max_batches, batch, seed):
+    """A bucket's first plan (eager call and CUDA-graph capture on the
+    engine's stream) built on another thread while the main thread launches
+    a round of client training: the schedules equal the CPU engine's, the
+    trained parameters equal the same round trained alone, and the two
+    threads' spans overlap."""
+    import threading
+
+    from repro_torch.core.sweep import SweepEngine
+    from repro_torch.data import lm_round_batches
+
+    runs = []
+    for concurrent in (True, False):
+        server, examples, rng, T = toy_campaign(dev, clients, max_batches, seed, scenarios=True)
+        problems, _ = server.build_scenarios(T)
+        plan = server.plan_round(0, T)
+        batches = lm_round_batches(examples, max(d.max_batches for d in server.estimator.fleet), batch, 0)
+        out, spans, errors = {}, {}, []
+
+        def build():
+            t0 = time.perf_counter()
+            try:
+                out["X"] = server.engine.dispatch(problems, split_regimes=True).result()
+            except BaseException as e:  # noqa: BLE001 - reported by the check below
+                errors.append(e)
+            spans["plan"] = (t0, time.perf_counter())
+
+        torch.cuda.synchronize()
+        thread = threading.Thread(target=build, name="fl-planner-capture")
+        t0 = time.perf_counter()
+        if concurrent:
+            thread.start()
+        loss = server.train_round(plan, batches)
+        spans["train"] = (t0, time.perf_counter())
+        if not concurrent:
+            thread.start()
+        thread.join(timeout=120)
+        check(not thread.is_alive() and not errors, f"the plan build on another thread failed: {errors}")
+        runs.append((float(loss), server.params, out["X"], spans, server.engine.cache_stats()["compiles"]))
+    (loss_c, params_c, x_c, spans, compiles), (loss_a, params_a, x_a, _, _) = runs
+    want = SweepEngine(device="cpu").dispatch(problems, split_regimes=True).result()
+    check(np.array_equal(x_c, want) and np.array_equal(x_a, want), "the plan built beside training differs from the CPU's")
+    check(loss_c == loss_a, f"training beside a plan build: loss {loss_c} against {loss_a} alone")
+    same_params(params_c, params_a, "training beside a plan build against training alone")
+    (p0, p1), (t0, t1) = spans["plan"], spans["train"]
+    check(compiles == 1 and p0 < t1 and t0 < p1, f"spans: plan {spans['plan']}, train {spans['train']}")
+    log(f"[fl] (b) a fresh engine's first plan ({len(problems)} scenarios, regime split; eager call and CUDA-graph "
+        f"capture on the engine's stream) built on another thread from {1e3 * (p0 - t0):.3f} to {1e3 * (p1 - t0):.3f} "
+        f"ms while the main thread enqueued a round of client training from 0 to {1e3 * (t1 - t0):.3f} ms (host "
+        f"clock): schedules equal the CPU engine's, the loss and the trained parameters bit-identical to the round "
+        f"trained alone")
+
+
+def fl_faults_phase(mp, card, dev):
+    """Phase 14 (c): bench_faults.py's chaos campaign on the card, serial,
+    pipelined, and killed and resumed. Returns the min-plus launches of the
+    serial campaign."""
+    import tempfile
+
+    from repro_torch.core import Solver, validate_schedule
+    from repro_torch.core.sweep import SweepEngine
+    from repro_torch.fl import FaultPlan, run_campaign
+
+    clients, max_batches, batch, rounds, seed = FL_FAULTS
+    plan = FaultPlan.generate(seed=seed + 100, num_rounds=rounds, n_clients=clients, **FL_FAULT_RATES)
+    server_s, ex, rng, T = toy_campaign(dev, clients, max_batches, seed, scenarios=False)
+    mp.launches = mp.launches_scan = mp.launches_backtrack = 0
+    t0 = time.perf_counter()
+    h_s = run_campaign(server_s, ex, rounds, round_T=T, batch_size=batch, rng=rng, faults=plan)
+    torch.cuda.synchronize()
+    serial_ms = 1e3 * (time.perf_counter() - t0)
+    launches = {"row": mp.launches, "scan": mp.launches_scan, "backtrack": mp.launches_backtrack}
+    server_p, ex, rng, _ = toy_campaign(dev, clients, max_batches, seed, scenarios=False)
+    t0 = time.perf_counter()
+    h_p = run_campaign(server_p, ex, rounds, round_T=T, batch_size=batch, rng=rng, faults=plan, pipelined=True)
+    torch.cuda.synchronize()
+    pipe_ms = 1e3 * (time.perf_counter() - t0)
+    same_rounds(h_s, h_p, "the pipelined chaos campaign against the serial one")
+    same_params(server_s.params, server_p.params, "the pipelined chaos campaign against the serial one")
+
+    recovered = [r for r in h_s.rounds if r.recovery is not None]
+    check(recovered, "the chaos plan recovered no round")
+    auditor = Solver(engine=SweepEngine(device="cpu"))
+    for r in recovered:
+        ri = r.recovery
+        y = np.asarray(auditor.solve([ri.residual_problem]).schedules[0], np.int64)
+        validate_schedule(ri.residual_problem, ri.recovery_assignments)
+        check(not ri.fallback and np.array_equal(ri.recovery_assignments, y)
+              and np.array_equal(r.assignments, ri.completed + y),
+              f"round {r.round_index}'s recovery is not the independent solve of its residual instance")
+
+    class Kill(Exception):
+        pass
+
+    def killer(res):
+        if res.round_index == FL_KILL_AFTER - 1:
+            raise Kill()
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fl_") as ckpt:
+        server_b, ex, rng, _ = toy_campaign(dev, clients, max_batches, seed, scenarios=False)
+        try:
+            run_campaign(server_b, ex, rounds, round_T=T, batch_size=batch, rng=rng, faults=plan,
+                         checkpoint_dir=ckpt, on_round=killer)
+            check(False, "the campaign was not killed")
+        except Kill:
+            pass
+        server_c, ex, rng, _ = toy_campaign(dev, clients, max_batches, seed, scenarios=False)
+        h_c = run_campaign(server_c, ex, rounds, round_T=T, batch_size=batch, rng=rng, faults=plan,
+                           checkpoint_dir=ckpt)
+    same_rounds(h_s, h_c, f"the campaign resumed after round {FL_KILL_AFTER} against the uninterrupted one")
+    same_params(server_s.params, server_c.params, "the resumed campaign against the uninterrupted one")
+    check(launches["row"] > 0 and launches["backtrack"] > 0, f"the chaos campaign launched {launches}")
+    summ = h_s.summary()
+    log(f"[fl] (c) {card}")
+    log(f"[fl] (c) bench_faults.py's chaos campaign ({clients} clients, max_batches {max_batches}, batch {batch}, "
+        f"{rounds} rounds, T = {T}, {len(plan.client_faults)} client faults planned): serial {serial_ms:.3f} ms, "
+        f"pipelined {pipe_ms:.3f} ms, bit-identical; {len(recovered)} recovered rounds "
+        f"{[r.round_index for r in recovered]}, each the independent solve of its residual instance, no fallback; "
+        f"recovery overhead {summ['recovery_overhead_J']:.6f} J estimated; killed after round {FL_KILL_AFTER} and "
+        f"resumed from the checkpoint: bit-identical to the uninterrupted campaign; min-plus launches of the serial "
+        f"campaign {launches}")
+    return launches
+
+
+def fl_phase(mp, card, dev):
+    """Phase 14: the FL runtime on the card. Returns each part's min-plus
+    launches."""
+    parts = {"launcher": fl_launcher_phase(mp, card, dev), "async": fl_async_phase(mp, card, dev),
+             "faults": fl_faults_phase(mp, card, dev)}
+    total = {k: sum(p[k] for p in parts.values()) for k in ("row", "backtrack")}
+    check(total["row"] > 0 and total["backtrack"] > 0, f"phase 14 launched {parts}")
+    return parts, total
+
+
 def main() -> int:
     # -- phase 1: device ---------------------------------------------------
     if not torch.cuda.is_available():
@@ -2095,6 +2618,9 @@ def main() -> int:
     launches_serve = service_phase(mp, card)
     launches_fleet, launches_flat = fleet_phase(mp, card)
 
+    # -- phase 14: the FL runtime --------------------------------------------
+    launches_fl_parts, launches_fl = fl_phase(mp, card, dev)
+
     kernels = [{
         "name": "minplus_cuda",
         "route": "cuda",
@@ -2105,6 +2631,8 @@ def main() -> int:
         "service_launches": launches_serve["row"],
         "fleet_launches": launches_fleet["row"],
         "flat_launches": launches_flat["row"],
+        "fl_launches": launches_fl["row"],
+        "fl_launches_by_part": {k: v["row"] for k, v in launches_fl_parts.items()},
         "max_abs_err": max_abs_err,
         **st["row"],
     }, {
@@ -2117,6 +2645,8 @@ def main() -> int:
         "service_launches": launches_serve["backtrack"],
         "fleet_launches": launches_fleet["backtrack"],
         "flat_launches": launches_flat["backtrack"],
+        "fl_launches": launches_fl["backtrack"],
+        "fl_launches_by_part": {k: v["backtrack"] for k, v in launches_fl_parts.items()},
         "max_abs_err": bt_err,
         **st["backtrack"],
     }, {

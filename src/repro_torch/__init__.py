@@ -5,10 +5,10 @@ never ``jax`` and nothing of ``repro``. Entry points run on the CUDA device
 unless the caller passes ``device="cpu"``. Importing the package builds no
 kernel: ``kernels/csrc/*.cu`` are compiled by ``nvcc`` at their first launch.
 
-The public facade grows toward the JAX package's slice by slice: the
+The public facade holds every name of the JAX package's: the
 :class:`Solver` verbs, their result types, the resilience policy types, the
-fleet solve, the scheduling service and the fault injection are here; the
-drift names come with the FL runtime's slice.
+fleet solve, the scheduling service, the fault injection and the drift
+injection of the FL runtime; and the two solver entry points of the port.
 """
 
 from .core import (
@@ -26,11 +26,13 @@ from .core import (
     solve_schedule_dp_batch,
     solve_schedule_dp_torch,
 )
-from .fl import FaultInjector, FaultPlan
+from .fl import DriftInjector, DriftPlan, FaultInjector, FaultPlan
 from .serve import SchedulerService
 
 __all__ = [
     "CircuitBreaker",
+    "DriftInjector",
+    "DriftPlan",
     "FaultInjector",
     "FaultPlan",
     "FleetSolution",

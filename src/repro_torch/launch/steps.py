@@ -7,28 +7,19 @@ step comes with its slice (ROADMAP.md, Queue 1).
 
 from __future__ import annotations
 
-import torch
-
 from ..configs.base import ModelConfig
+from ..fl.client import loss_and_grads
 from ..models.model import loss_fn, prefill_fn
-from ..optim.optimizers import apply_updates, get_optimizer, tree_leaves, tree_map
+from ..optim.optimizers import apply_updates, get_optimizer
 
 __all__ = ["build_prefill_step", "build_train_step", "value_and_grad"]
 
 
 def value_and_grad(params, cfg: ModelConfig, batch):
-    """``(loss, grads)`` of :func:`repro_torch.models.loss_fn`, as the
-    reference's ``jax.value_and_grad``: the gradients, a tree shaped like
-    ``params``, come from ``torch.autograd.grad`` over aliases of the
-    parameter leaves, so no ``.grad`` is kept on them. ``loss`` is
-    detached."""
-    leaves = tree_leaves(params)
-    with torch.enable_grad():
-        xs = iter([p.detach().requires_grad_() for p in leaves])
-        aliased = tree_map(lambda _: next(xs), params)
-        loss = loss_fn(aliased, cfg, batch)
-        grads = iter(torch.autograd.grad(loss, tree_leaves(aliased)))
-    return loss.detach(), tree_map(lambda _: next(grads), params)
+    """``(loss, grads)`` of :func:`repro_torch.models.loss_fn`
+    (:func:`repro_torch.fl.client.loss_and_grads`): no ``.grad`` is kept on
+    the parameters; ``loss`` is detached."""
+    return loss_and_grads(lambda p, b: loss_fn(p, cfg, b), params, batch)
 
 
 def build_train_step(cfg: ModelConfig):

@@ -1,5 +1,5 @@
-"""AdamW on trees of tensors (dicts and lists), after the JAX package's
-``optim/optimizers.py``.
+"""SGD, momentum and AdamW on trees of tensors (dicts and lists), after the
+JAX package's ``optim/optimizers.py``.
 
 The interface is the reference's: ``opt = adamw(lr)``; ``state =
 opt.init(params)``; ``updates, state = opt.update(grads, state, params)``;
@@ -25,7 +25,10 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
-__all__ = ["AdamState", "Optimizer", "adamw", "apply_updates", "get_optimizer", "tree_leaves", "tree_map"]
+__all__ = [
+    "AdamState", "Optimizer", "adamw", "apply_updates", "get_optimizer", "momentum", "sgd", "tree_leaves",
+    "tree_map",
+]
 
 
 def tree_map(fn, tree, *rest):
@@ -64,6 +67,37 @@ def _as(x: float, dtype: torch.dtype) -> float:
     """``x`` rounded to ``dtype``: the value a weakly typed JAX scalar takes
     against a tensor of that dtype."""
     return torch.tensor(x, dtype=dtype).item()
+
+
+def sgd(lr: float) -> Optimizer:
+    def init(params):
+        return ()
+
+    def update(grads, state, params=None):
+        with torch.no_grad():
+            return tree_map(lambda g: _as(-lr, g.dtype) * g, grads), state
+
+    return Optimizer(init, update)
+
+
+def momentum(lr: float, beta: float = 0.9, nesterov: bool = False) -> Optimizer:
+    """Heavy-ball momentum; the state (one tree like the parameters) is
+    updated in place and returned."""
+
+    def init(params):
+        return tree_map(torch.zeros_like, params)
+
+    def update(grads, state, params=None):
+        with torch.no_grad():
+            def upd(m, g):
+                m.mul_(_as(beta, m.dtype)).add_(g)
+                if nesterov:
+                    return _as(-lr, m.dtype) * (_as(beta, m.dtype) * m + g)
+                return _as(-lr, m.dtype) * m
+
+            return tree_map(upd, state, grads), state
+
+    return Optimizer(init, update)
 
 
 class AdamState(NamedTuple):
@@ -106,11 +140,11 @@ def adamw(
 
 
 def get_optimizer(name: str, lr: float, **kw) -> Optimizer:
-    if name == "adamw":
-        return adamw(lr, **kw)
-    if name in ("sgd", "momentum", "adafactor"):
+    makers = {"sgd": sgd, "momentum": momentum, "adamw": adamw}
+    if name in makers:
+        return makers[name](lr, **kw)
+    if name == "adafactor":
         raise NotImplementedError(
-            f"optimizer {name!r} is not ported yet: sgd and momentum come with the FL runtime, adafactor "
-            "with the MoE slice (ROADMAP.md, Queue 1)"
+            "optimizer 'adafactor' is not ported yet: it comes with the MoE family (ROADMAP.md, Queue 1)"
         )
     raise ValueError(f"unknown optimizer {name!r}")

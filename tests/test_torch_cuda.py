@@ -14,7 +14,8 @@ CUDA-graph replays) against the CPU engine bit for bit, with shared static
 buffers under interleaved and concurrent dispatches, and the launches a
 replay counts; the selection's signed-zero order and the facade's regime
 split against the CPU; the scheduling service and the fleet solve over a
-card engine against the CPU's.
+card engine against the CPU's; a toy-LM FL campaign trained and planned on
+the card against the CPU's, and pipelined against serial.
 
 Every test here needs a CUDA card and ``nvcc`` (the kernel has no CPU mode),
 is marked ``cuda`` and skips without them. The file imports no JAX, so it
@@ -668,3 +669,100 @@ def test_cuda_solve_fleet_matches_the_cpu(cuda):
             np.testing.assert_array_equal(getattr(sol, f), getattr(want, f))
         np.testing.assert_array_equal(np.asarray(sol.curves).view(np.int32), np.asarray(want.curves).view(np.int32))
         assert sol.gap_bound == want.gap_bound and sol.objective == want.objective
+
+
+def _toy_fl_server(device):
+    """``(server, examples, rng, T)``: a toy-LM FL server with what-if
+    scenarios (5 clients) training on ``device`` and planning on an engine
+    there, from weights drawn on the CPU."""
+    from repro_torch.core.sweep import SweepEngine
+    from repro_torch.data import client_corpora, make_lm_examples
+    from repro_torch.fl import EnergyEstimator, FederatedServer, PlanPolicy, make_fleet
+    from repro_torch.fl.toy import make_tiny_lm
+    from repro_torch.optim import sgd
+
+    init, loss = make_tiny_lm(64, 16)
+    rng = np.random.default_rng(0)
+    fleet = make_fleet(rng, 5, max_batches=8)
+    est = EnergyEstimator(fleet)
+    est.calibrate(rng)
+    examples = [make_lm_examples(c, 8) for c in client_corpora(rng, 5, 400, 64)]
+    T = sum(d.max_batches for d in fleet) // 2
+    params = {k: v.to(device) for k, v in init(0, device="cpu").items()}
+    policy = PlanPolicy(engine=SweepEngine(device=device), scenario_T_candidates=[T // 2, T],
+                        scenario_dropouts=[[0], [1]])
+    return FederatedServer(loss, params, sgd(0.3), est, policy=policy), examples, rng, T
+
+
+def _toy_fl_campaign(device, pipelined=False, rounds=3):
+    from repro_torch.fl import run_campaign
+
+    server, examples, rng, T = _toy_fl_server(device)
+    return server, run_campaign(server, examples, rounds, round_T=T, batch_size=4, rng=rng, pipelined=pipelined)
+
+
+def test_cuda_fl_campaign_matches_the_cpu(cuda):
+    """Clients trained and rounds planned on the card: schedules, energies
+    and scenario reports as on the CPU, losses within rtol 1e-5, parameters
+    within atol 1e-5; the scenario solves launch the min-plus kernels."""
+    mp.launches = mp.launches_backtrack = 0
+    server, h = _toy_fl_campaign(cuda)
+    launches = (mp.launches, mp.launches_backtrack)
+    server_c, h_c = _toy_fl_campaign(torch.device("cpu"))
+    assert launches[0] > 0 and launches[1] > 0
+    for a, b in zip(h.rounds, h_c.rounds):
+        np.testing.assert_array_equal(a.assignments, b.assignments)
+        assert (a.energy_joules, a.estimated_joules, a.makespan_joules) == (
+            b.energy_joules, b.estimated_joules, b.makespan_joules)
+        np.testing.assert_array_equal(a.scenarios.assignments, b.scenarios.assignments)
+        np.testing.assert_array_equal(a.scenarios.energies, b.scenarios.energies)
+    np.testing.assert_allclose(h.losses, h_c.losses, rtol=1e-5, atol=0)
+    for k in server.params:
+        assert server.params[k].device.type == "cuda"
+        torch.testing.assert_close(server.params[k].cpu(), server_c.params[k], rtol=0, atol=1e-5)
+
+
+def test_cuda_fl_pipelined_campaign_is_bit_identical_to_serial(cuda):
+    server_s, h_s = _toy_fl_campaign(cuda)
+    server_p, h_p = _toy_fl_campaign(cuda, pipelined=True)
+    for a, b in zip(h_s.rounds, h_p.rounds):
+        np.testing.assert_array_equal(a.assignments, b.assignments)
+        assert a.mean_loss == b.mean_loss and a.energy_joules == b.energy_joules
+        np.testing.assert_array_equal(a.scenarios.assignments, b.scenarios.assignments)
+    for k in server_s.params:
+        assert torch.equal(server_s.params[k], server_p.params[k])
+
+
+def test_cuda_plan_capture_beside_client_training(cuda):
+    """A fresh engine's first plan (eager call, then CUDA-graph capture on the
+    engine's stream) built on another thread while the main thread launches
+    a round of client training: the schedules are the CPU engine's and the
+    round is bit-identical to the same round trained alone."""
+    import threading
+
+    from repro_torch.core.sweep import SweepEngine
+    from repro_torch.data import lm_round_batches
+
+    runs = []
+    for concurrent in (True, False):
+        server, examples, _, T = _toy_fl_server(cuda)
+        problems, _ = server.build_scenarios(T)
+        plan = server.plan_round(0, T)
+        batches = lm_round_batches(examples, 8, 4, 0)
+        out = {}
+        thread = threading.Thread(target=lambda: out.update(X=server.engine.dispatch(problems, True).result()))
+        if concurrent:
+            thread.start()
+        loss = server.train_round(plan, batches)
+        if not concurrent:
+            thread.start()
+        thread.join(timeout=120)
+        assert not thread.is_alive() and "X" in out
+        runs.append((float(loss), {k: v.clone() for k, v in server.params.items()}, out["X"]))
+    want = SweepEngine(device="cpu").dispatch(problems, True).result()
+    (loss_c, params_c, x_c), (loss_a, params_a, x_a) = runs
+    np.testing.assert_array_equal(x_c, want)
+    np.testing.assert_array_equal(x_a, want)
+    assert loss_c == loss_a
+    for k in params_c:
+        assert torch.equal(params_c[k], params_a[k])

@@ -1,7 +1,8 @@
 """The port's two-level fleet solve (``core/fleet.py``) on the CPU: the
 cases of the reference's ``tests/test_fleet.py`` (exactness, the certified
 gap against the flat DP, determinism, the facade, the service front-end,
-``PlanPolicy``), and parity with the JAX package.
+``PlanPolicy``, the FL server's legacy kwargs and fleet-mode round
+planning), and parity with the JAX package.
 
 The JAX package seeds k-means with ``jax.random.choice``, the port with
 numpy (``_initial_centres``), so the same ``seed`` clusters differently.
@@ -243,6 +244,80 @@ def test_plan_policy_validation():
     assert pol.scenario_T_candidates == (3, 4) and pol.scenario_dropouts == ((0,), (1, 2))
     assert pol.time_tables[0].dtype == np.float64
     assert PlanPolicy(scenario_dropouts=[[0]]) == PlanPolicy(scenario_dropouts=((0,),))
+
+
+# ---------------------------------------------------------------------------
+# PlanPolicy: legacy FederatedServer kwargs are bit-identical warn-once shims
+# ---------------------------------------------------------------------------
+
+
+def _make_server(**kwargs):
+    import torch
+
+    from repro_torch.fl import EnergyEstimator, FederatedServer, make_fleet
+    from repro_torch.optim import sgd
+
+    if "policy" not in kwargs:
+        kwargs.setdefault("engine", _engine())  # the default engine is the card's
+    est = EnergyEstimator(make_fleet(np.random.default_rng(0), 6))
+    est.calibrate(np.random.default_rng(1))
+    loss = lambda params, batch: torch.mean((params["w"] - batch) ** 2)  # noqa: E731
+    return FederatedServer(loss, {"w": torch.ones(())}, sgd(1e-2), est, **kwargs)
+
+
+def _make_ref_server(**kwargs):
+    import jax.numpy as jnp
+
+    from repro.fl import EnergyEstimator, FederatedServer, make_fleet
+    from repro.optim.optimizers import sgd
+
+    est = EnergyEstimator(make_fleet(np.random.default_rng(0), 6))
+    est.calibrate(np.random.default_rng(1))
+    loss = lambda params, batch: jnp.mean((params["w"] - batch) ** 2)  # noqa: E731
+    return FederatedServer(loss, {"w": jnp.ones(())}, sgd(1e-2), est, **kwargs)
+
+
+def test_legacy_server_kwargs_bit_identical_to_policy():
+    s_old = _make_server(round_T=12, algorithm="auto")
+    s_new = _make_server(policy=PlanPolicy(round_T=12, algorithm="auto", engine=_engine()))
+    po, pn = s_old.plan_round(0, 12), s_new.plan_round(0, 12)
+    assert np.array_equal(po.assignments, pn.assignments)
+    assert po.est_cost == pn.est_cost
+    pj = _make_ref_server(round_T=12, algorithm="auto").plan_round(0, 12)
+    assert np.array_equal(po.assignments, pj.assignments) and po.est_cost == pj.est_cost
+
+
+def test_legacy_server_kwargs_warn_once_per_kwarg():
+    reset_deprecation_warnings()
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        _make_server(round_T=12, algorithm="auto")
+        _make_server(round_T=12)  # second use: already warned
+    msgs = [str(w.message) for w in rec if issubclass(w.category, DeprecationWarning)]
+    # round_T, algorithm and the CPU engine each warn once
+    assert len(msgs) == 3
+    assert any("FederatedServer(round_T=...)" in m for m in msgs)
+    assert any("FederatedServer(algorithm=...)" in m for m in msgs)
+    assert any("FederatedServer(engine=...)" in m for m in msgs)
+    assert all("PlanPolicy" in m and m.startswith("repro_torch.fl.") for m in msgs)
+
+
+def test_policy_and_legacy_kwargs_are_mutually_exclusive():
+    with pytest.raises(ValueError, match="not both"):
+        _make_server(policy=PlanPolicy(), round_T=5)
+
+
+def test_fleet_mode_round_plan_is_a_valid_schedule(monkeypatch):
+    s = _make_server(policy=PlanPolicy(fleet_clusters=3, round_T=12, engine=_engine()))
+    plan = s.plan_round(0, 12)
+    assert int(plan.assignments.sum()) == 12
+    assert plan.est_cost >= 0.0
+    # under JAX's initial k-means centres, the reference's round plan
+    monkeypatch.setattr(tfleet, "_initial_centres", _jax_centres)
+    got = _make_server(policy=PlanPolicy(fleet_clusters=3, round_T=12, engine=_engine())).plan_round(0, 12)
+    want = _make_ref_server(policy=jfleet.PlanPolicy(fleet_clusters=3, round_T=12)).plan_round(0, 12)
+    np.testing.assert_array_equal(got.assignments, want.assignments)
+    assert got.est_cost == want.est_cost
 
 
 # ---------------------------------------------------------------------------

@@ -34,6 +34,10 @@ def test_importing_every_port_module_pulls_in_no_jax():
         "repro_torch.core.resilience", "repro_torch.core.baselines", "repro_torch.core._deprecation",
         "repro_torch.core.fleet", "repro_torch.serve", "repro_torch.serve.coalesce", "repro_torch.serve.service",
         "repro_torch.fl", "repro_torch.fl.faults", "repro_torch.fl.energy",
+        "repro_torch.fl.server", "repro_torch.fl.client", "repro_torch.fl.pipeline", "repro_torch.fl.rounds",
+        "repro_torch.fl.adaptive", "repro_torch.fl.toy", "repro_torch.optim.schedules",
+        "repro_torch.data", "repro_torch.data.synthetic", "repro_torch.data.partition", "repro_torch.data.pipeline",
+        "repro_torch.checkpoint", "repro_torch.checkpoint.checkpoint", "repro_torch.launch.train",
     } <= set(mods)
     code = (
         "import importlib, sys\n"

@@ -4,7 +4,9 @@
 max-delay flushes, backpressure, shutdown, failure propagation, ``warm``),
 and parity with the JAX package: the coalescing primitives give the
 reference's keys, batches and ladders, and served schedules, ``k_last``
-rows and objectives equal the reference engine's on the same requests.
+rows and objectives equal the reference engine's on the same requests; an
+FL campaign's scenario batch served through the service equals the direct
+engine path and the reference's.
 
 Every wait is bounded (``result(timeout=...)``, ``close(timeout=...)``).
 """
@@ -446,3 +448,47 @@ def test_submit_frontier_matches_pareto_frontier():
         assert fut.completed_at >= fut.submitted_at
     want = pareto_frontier(p, tt, engine=eng)
     assert [(q.time, q.energy, q.deadline) for q in front] == [(q.time, q.energy, q.deadline) for q in want]
+
+
+# ---------------------------------------------------------------------------
+# FL campaign planning through the service
+# ---------------------------------------------------------------------------
+
+
+def _scenario_server(est, cap, **policy):
+    from repro_torch.fl import FederatedServer, PlanPolicy
+
+    return FederatedServer(None, None, None, est, policy=PlanPolicy(
+        round_T=cap // 2, scenario_T_candidates=[cap // 3, cap // 2], scenario_dropouts=[(0,), (1,)], **policy))
+
+
+def test_campaign_scenarios_via_service_match_engine_path():
+    import repro.fl as jfl
+    from repro_torch.fl import EnergyEstimator, make_fleet
+
+    rng = np.random.default_rng(10)
+    fleet = make_fleet(rng, 4, max_batches=6)
+    est = EnergyEstimator(fleet)
+    est.calibrate(rng)
+    cap = sum(d.max_batches for d in fleet)
+
+    srv = _scenario_server(est, cap, engine=_engine())
+    direct = srv.solve_scenarios(*srv.build_scenarios(cap // 2))
+    with serving(engine=_engine(), max_batch=8, max_delay_s=0.005) as svc:
+        srv2 = _scenario_server(est, cap, service=svc)
+        assert srv2.engine is svc.engine  # the service's engine becomes the default
+        served = srv2.solve_scenarios(*srv2.build_scenarios(cap // 2))
+    np.testing.assert_array_equal(direct.assignments, served.assignments)
+    np.testing.assert_array_equal(direct.energies, served.energies)
+    assert svc.stats()["requests"] == 1 and svc.stats()["flushes"] == 1
+
+    jrng = np.random.default_rng(10)
+    jest = jfl.EnergyEstimator(jfl.make_fleet(jrng, 4, max_batches=6))
+    jest.calibrate(jrng)
+    jsrv = jfl.FederatedServer(None, None, None, jest, policy=jfl.PlanPolicy(
+        round_T=cap // 2, scenario_T_candidates=[cap // 3, cap // 2], scenario_dropouts=[(0,), (1,)],
+        engine=JSweepEngine()))
+    want = jsrv.solve_scenarios(*jsrv.build_scenarios(cap // 2))
+    assert want.labels == served.labels
+    np.testing.assert_array_equal(want.assignments, served.assignments)
+    np.testing.assert_allclose(served.energies, want.energies, rtol=1e-6)

@@ -632,15 +632,15 @@ def test_solve_batch_on_the_cpu_takes_the_plain_dp():
 
 
 def test_public_facade_grows_toward_the_reference():
-    """The port's ``__all__`` holds the reference facade's names ported so
-    far (the drift names come with the FL runtime's slice), each defined in
-    the port, plus the solver entry points."""
+    """The port's ``__all__`` holds every name of the reference facade (the
+    drift names came with the FL runtime's slice), each defined in the port,
+    plus the solver entry points."""
     import repro
     import repro_torch
 
-    ported = {"CircuitBreaker", "FaultInjector", "FaultPlan", "FleetSolution", "ParetoFrontier", "PlanPolicy",
-              "Problem", "ProblemBatch", "RetryPolicy", "SchedulerService", "Solution", "SolutionBatch", "Solver",
-              "TransientEngineError"}
+    ported = {"CircuitBreaker", "DriftInjector", "DriftPlan", "FaultInjector", "FaultPlan", "FleetSolution",
+              "ParetoFrontier", "PlanPolicy", "Problem", "ProblemBatch", "RetryPolicy", "SchedulerService", "Solution",
+              "SolutionBatch", "Solver", "TransientEngineError"}
     assert set(repro_torch.__all__) & set(repro.__all__) == ported
     assert set(repro_torch.__all__) - ported == {"solve_schedule_dp_batch", "solve_schedule_dp_torch"}
     assert sorted(repro_torch.__all__) == list(repro_torch.__all__)

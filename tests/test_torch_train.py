@@ -124,9 +124,11 @@ def test_adamw_matches_jax_over_three_steps(dtype):
 
 def test_get_optimizer_names_what_is_not_ported():
     assert get_optimizer("adamw", 1e-3).init({"w": torch.zeros(2)}).step.dtype == torch.int32
-    for name in ("sgd", "momentum", "adafactor"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_optimizer(name, 1e-3)
+    # sgd and momentum came with the FL runtime; adafactor waits for the MoE family
+    assert get_optimizer("sgd", 1e-3).init({"w": torch.zeros(2)}) == ()
+    assert torch.equal(get_optimizer("momentum", 1e-3).init({"w": torch.ones(2)})["w"], torch.zeros(2))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        get_optimizer("adafactor", 1e-3)
     with pytest.raises(ValueError):
         get_optimizer("lion", 1e-3)
 
