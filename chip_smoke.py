@@ -47,7 +47,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
                 the plain backtrack).
 6. flash      — ``flash_attention`` against ``flash_attention_ref`` on the
                 card over mask kinds, softcaps, GQA ratios, head dims and
-                lengths (ragged ones included), and at the main path's
+                lengths (ragged ones included; at D = 128 also phase 15's
+                head counts, H = 48 with Hkv = 1 and H = 16 with Hkv =
+                16; and every shape phase 15 launches), and at the main path's
                 causal and sliding shapes: float32 (CUDA cores) at rtol =
                 atol = 2e-5; bfloat16 I/O (tensor cores: wgmma, TMA) within
                 2e-2 of the plain output and within the limit the kernel's
@@ -170,11 +172,43 @@ Phases, in order; any failure ends the run with a non-zero exit code:
                 instance, and a campaign killed after round 4 and resumed
                 from ``save_campaign_checkpoint`` bit-identical to the
                 uninterrupted one.
+15. LM serve  — (a) ``launch/serve.py``'s loop at its defaults (B = 4,
+                prompt 32, gen 16) on gemma2-2b FULL (bfloat16, random
+                weights from ``torch.Generator`` seed 0): no flash launch
+                in decode; a teacher-forced decode of the prompt and the
+                generated tokens against the kernel-route prefill of the
+                same tokens, each position within DECODE_REL_L2 (relative
+                L2 over the vocabulary), the greedy tokens equal to the
+                prefill's argmax wherever its top-2 gap exceeds twice the
+                largest deviation, the cache on the same storage every
+                step; a 2-layer float32 cut within rtol = atol = 2e-3;
+                (b) a cache of 8,320 slots filled by a kernel prefill of
+                B = 4 x 8,192 tokens (26 launches), 128 greedy steps (the
+                sliding layers on their windowed slice) against a kernel
+                prefill of all 8,320 tokens: decode ms a token and tokens/s
+                at steady state, the profiler's device time and launches of
+                one step, the cache's size, peak memory, the bound;
+                (c) olmoe-1b-7b FULL: a kernel prefill of B = 2 x 4,096
+                (16 launches, every expert on every token), the launcher's
+                loop with the einsum dispatch and (a)'s checks, the
+                (position, layer) pairs whose experts differ between decode
+                and prefill, the decode against a prefill routed to the
+                decode's experts, a 2-layer float32 cut; (d)
+                deepseek-v3-671b at full width cut to 2 layers (1 dense
+                prefix): a prefill of 1,024 tokens (MLA on the plain route),
+                16 absorbed-decode steps at the last positions against it;
+                (e) granite-20b and minitron-8b FULL: a kernel prefill of
+                8,192 tokens (52 and 32 launches; G = 48 and 4) and 16
+                teacher-forced decode steps against it; in every part, the
+                first flash launch of each shape held against the plain
+                version on its own inputs (a shape phase 6 did not hold
+                fails); the phase's wall time.
 
 The line before the last is a JSON object of every kernel with its launch
 count and times; the last line is ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
 import json
 import math
 import re
@@ -200,6 +234,23 @@ FLASH_GRID_D = (64, 128, 256)
 # which the wrapper runs on the next built instance on zero-padded inputs:
 # (B, GQA group, S, D, kind, window, softcap), H = 8.
 HEAD_DIM_CASES = ((2, 2, 640, 80, "causal", 0, 0.0), (1, 4, 1024, 80, "sliding", 37, 50.0))
+# The head counts phase 15 prefills through the kernel at D = 128: granite-20b
+# (H = 48, MQA: G = 48) and olmoe-1b-7b (H = 16, G = 1): (B, H, Hkv, S, kind).
+SERVE_HEAD_CASES = ((1, 48, 1, 1024, "causal"), (2, 48, 1, 200, "bidirectional"), (2, 16, 16, 1024, "causal"),
+                    (1, 16, 16, 200, "causal"))
+# Every forward launch phase 15 makes, (B, H, Hkv, S, D, kind, window,
+# softcap) as the models pass them: gemma2-2b (H = 8, Hkv = 4, D = 256,
+# softcap 50; its global layers pass the window too, which "causal" ignores)
+# at (a)'s 4 x 48 tokens and (b)'s cache-filling 4 x 8,192 and check 4 x
+# 8,320; olmoe-1b-7b (c) at 2 x 4,096 and 4 x 48; deepseek-v3's dense prefix
+# layer (d), H = Hkv = 128 at 1 x 1,024; granite-20b (G = 48) and
+# minitron-8b (G = 4) (e) at 1 x 8,192. Phase 6 holds the kernel at each, in
+# bfloat16 and float32; phase 15 fails on a launch at a shape not listed.
+SERVE_FLASH_CASES = tuple(
+    (B, 8, 4, S, 256, kind, 4096, 50.0) for B, S in ((4, 48), (4, 8192), (4, 8320)) for kind in ("sliding", "causal")
+) + ((2, 16, 16, 4096, 128, "causal", 0, 0.0), (4, 16, 16, 48, 128, "causal", 0, 0.0),
+     (1, 128, 128, 1024, 128, "causal", 4096, 0.0), (1, 48, 1, 8192, 128, "causal", 4096, 0.0),
+     (1, 32, 8, 8192, 128, "causal", 4096, 0.0))
 # Training: gemma2-2b FULL (remat "full", AdamW), one batch of B_TRAIN prompts
 # of S_TRAIN tokens (S > window, so the sliding layers cut), one cold and
 # TRAIN_STEPS - 1 warm steps; the float32 check runs F32_LAYERS layers of it.
@@ -234,6 +285,13 @@ F32_TOL = 2e-5
 BF16_O_RTOL = 2.0 ** -8
 BF16_P_RTOL = 2.0 ** -8
 BF16_GRID_TOL = 2e-2
+# The profiler's device times (phases 5, 12, 13): the wrapper counter
+# (repro_torch.kernels.minplus) that counts each profiled kernel's launches,
+# the sessions a measurement may take when the profiler misses records
+# (device_ms_by), and the sessions run again per kernel, for the kernels line.
+PROFILED_COUNTERS = {"minplus_row_kernel": "launches", "minplus_backtrack_kernel": "launches_backtrack"}
+PROFILER_SESSIONS = 3
+PROFILER_RERUNS = dict.fromkeys(PROFILED_COUNTERS, 0)
 # The min-plus row update: lane instructions per candidate (an add, a
 # compare, a select of the value and one of the index), issued by 4
 # schedulers x 32 lanes per SM each clock.
@@ -308,6 +366,33 @@ FL_KILL_AFTER = 4
 # toy-LM losses, the card against the CPU (float32, no TF32, summed in
 # another order over some 200 SGD steps a round)
 FL_LOSS_RTOL = 1e-5
+# Phase 15: (a) launch/serve.py's defaults (B, prompt, gen) on ARCH FULL; (b)
+# long context: B sequences, a cache filled by a kernel prefill of S tokens,
+# G greedy steps (S + G > 2 x window, so the sliding layers take their
+# windowed slice); (c) MOE_ARCH FULL, a prefill of (B, S); (d) MLA_ARCH at
+# full width cut to MLA_CUT (671 B parameters fit no single card), prefill
+# of MLA_S tokens; (e) DENSE_ARCHS FULL, prefill of DENSE_S tokens; (d) and
+# (e) decode the last TF_STEPS positions teacher-forced against the prefill.
+SERVE_SHAPE = (4, 32, 16)
+LONG_SHAPE = (4, 8192, 128)
+MOE_ARCH, MOE_PREFILL = "olmoe-1b-7b", (2, 4096)
+MLA_ARCH, MLA_CUT, MLA_S = "deepseek-v3-671b", dict(num_layers=2, dense_prefix_layers=1), 1024
+DENSE_ARCHS, DENSE_S = ("granite-20b", "minitron-8b"), 8192
+TF_STEPS = 16
+# Decode logits against prefill logits of the same positions, bfloat16:
+# relative L2 over the vocabulary at each position. The two compute the same
+# function with different roundings: the decode step's products run at M = B
+# rows, the prefill's at M = B x S (cuBLAS picks other tilings and summation
+# orders), the decode attention rounds the probabilities to bfloat16 before
+# the value product where the kernel rounds P per tile, and each bfloat16
+# output rounds once; so each sublayer's output differs by about one
+# bfloat16 ulp (2^-8 relative), and over 2L sublayers these add as a random
+# walk: sqrt(52) x 2^-8 = 0.028 for gemma2-2b, sqrt(104) x 2^-8 = 0.040 for
+# granite-20b. The limit leaves a factor 2.5 over the deepest; a wrong
+# position, cache slot, window slice or mask moves the logits by O(1).
+DECODE_REL_L2 = 0.1
+# The float32 cut: the reference's test_decode_matches_prefill tolerance.
+DECODE_F32_TOL = 2e-3
 
 
 def check(cond, msg):
@@ -509,7 +594,7 @@ def flash_inputs(gen, B, H, Hkv, S, D, dtype, dev):
     return tuple((torch.randn((B, h, S, D), generator=gen, device=dev) * 0.5).to(dtype) for h in (H, Hkv, Hkv))
 
 
-def flash_err(fa, got, q, k, v, kind, window, softcap):
+def flash_err(fa, got, q, k, v, kind, window, softcap, scale=None):
     """Holds the kernel's ``(o, lse)`` against the plain version on the same
     inputs. Returns (ok, max |o - o_plain|, max |o - o_plain32|, max |lse -
     lse_plain|), where o_plain is the plain version's output in q's dtype and
@@ -523,13 +608,13 @@ def flash_err(fa, got, q, k, v, kind, window, softcap):
     o, lse = got
     # the plain version widens its inputs to float32 first, so on the widened
     # inputs it gives o_plain32 and the same lse
-    o32, lse32 = fa.flash_attention_ref(q.float(), k.float(), v.float(), kind, window, softcap)
+    o32, lse32 = fa.flash_attention_ref(q.float(), k.float(), v.float(), kind, window, softcap, scale)
     o, o_plain = o.float(), o32.to(q.dtype).float()
     close_lse = bool(torch.allclose(lse, lse32, rtol=F32_TOL, atol=F32_TOL))
     if q.dtype == torch.float32:
         ok = close_lse and bool(torch.allclose(o, o32, rtol=F32_TOL, atol=F32_TOL))
     else:
-        pv_abs = fa.flash_attention_ref(q.float(), k.float(), v.float().abs(), kind, window, softcap)[0]
+        pv_abs = fa.flash_attention_ref(q.float(), k.float(), v.float().abs(), kind, window, softcap, scale)[0]
         limit = pv_abs.mul_(BF16_P_RTOL).add_(o32.abs(), alpha=BF16_O_RTOL).add_(F32_TOL)
         ok = (close_lse and bool(torch.allclose(o, o_plain, rtol=BF16_GRID_TOL, atol=BF16_GRID_TOL))
               and bool(((o - o32).abs() <= limit).all()))
@@ -560,6 +645,8 @@ def flash_phase(fa, dev):
         cases += [(1, 2, 1, 8192, 256, "causal", 0, 50.0, dtype), (1, 2, 1, 8192, 256, "sliding", 4096, 50.0, dtype),
                   (1, 2, 2, 8192, 128, "bidirectional", 0, 0.0, dtype)]
         cases += [(B, 8, 8 // G, S, D, kind, window, softcap, dtype) for B, G, S, D, kind, window, softcap in HEAD_DIM_CASES]
+        cases += [(B, H, Hkv, S, 128, kind, 0, 0.0, dtype) for B, H, Hkv, S, kind in SERVE_HEAD_CASES]
+        cases += [(*case, dtype) for case in SERVE_FLASH_CASES]
     worst = {torch.float32: [0.0] * 3, torch.bfloat16: [0.0] * 3}
     for B, H, Hkv, S, D, kind, window, softcap, dtype in cases:
         q, k, v = flash_inputs(gen, B, H, Hkv, S, D, dtype, dev)
@@ -569,8 +656,12 @@ def flash_phase(fa, dev):
         check(ok, f"flash kernel != plain at B={B} H={H} Hkv={Hkv} S={S} D={D} {kind} w={window} "
                   f"softcap={softcap} {dtype} (max |do|, |do32|, |dlse| {errs})")
         worst[dtype] = [max(a, b) for a, b in zip(worst[dtype], errs)]
+        del q, k, v, got
+        if S >= 4096:
+            torch.cuda.empty_cache()
     f32, b16 = worst[torch.float32], worst[torch.bfloat16]
-    log(f"[flash] {len(cases)} cases ({padded_head_dims(fa)} among them) within tolerance of the plain version: "
+    log(f"[flash] {len(cases)} cases ({padded_head_dims(fa)} among them; phase 15's {len(SERVE_FLASH_CASES)} launch "
+        f"shapes in both dtypes) within tolerance of the plain version: "
         f"float32 rtol=atol={F32_TOL} on o and "
         f"lse (largest |do| {f32[1]:.3e}, |dlse| {f32[2]:.3e}); bfloat16 I/O o within {BF16_GRID_TOL} of the plain "
         f"output (largest {b16[0]:.3e}) and within {BF16_O_RTOL:.3e} |o32| + {BF16_P_RTOL:.3e} (P|V|)/l + {F32_TOL} "
@@ -1243,25 +1334,47 @@ def solver_phase(mp, fa, dev):
 
 def device_ms_by(fn, kernels, calls=1):
     """The profiler's device time of the kernels whose name holds each of
-    ``kernels`` over ``calls`` calls of ``fn`` after one warm-up call:
-    {kernel: (total ms, launches)}. Unlike CUDA events around back-to-back
-    calls, it does not count the gaps a host-bound caller leaves between
-    launches."""
+    ``kernels`` (keys of PROFILED_COUNTERS) over ``calls`` calls of ``fn``
+    after one warm-up call: {kernel: (total ms, launches)}. Unlike CUDA
+    events around back-to-back calls, it does not count the gaps a
+    host-bound caller leaves between launches.
+
+    Each session reads the wrappers' launch counters over the same calls. A
+    session whose profiler counts equal them is taken, so a launch that
+    really is missing (or extra) shows in the first session and fails the
+    caller's own count check. The profiler can miss a kernel's record
+    (sessions on the card have seen 18 of 20 and 4 of 5 row-kernel launches
+    that the counters saw): such a session is logged, counted in
+    ``PROFILER_RERUNS`` for the kernels line, and run again, up to
+    PROFILER_SESSIONS in all; if the last one still disagrees, this fails."""
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import minplus as mp
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    out = {k: (0.0, 0) for k in kernels}
-    for e in prof.key_averages():
+    for session in range(1, PROFILER_SESSIONS + 1):
+        before = {k: getattr(mp, PROFILED_COUNTERS[k]) for k in kernels}
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        launched = {k: getattr(mp, PROFILED_COUNTERS[k]) - before[k] for k in kernels}
+        out = {k: (0.0, 0) for k in kernels}
+        for e in prof.key_averages():
+            for k in kernels:
+                if k in e.key:
+                    ms, count = out[k]
+                    out[k] = (ms + (getattr(e, "device_time_total", None) or e.cuda_time_total) / 1e3, count + e.count)
+        counts = {k: c for k, (_, c) in out.items()}
+        if counts == launched:
+            return out
         for k in kernels:
-            if k in e.key:
-                ms, count = out[k]
-                out[k] = (ms + (getattr(e, "device_time_total", None) or e.cuda_time_total) / 1e3, count + e.count)
-    return out
+            PROFILER_RERUNS[k] += counts[k] != launched[k]
+        log(f"[profiler] session {session} of {PROFILER_SESSIONS} saw launches {counts} over {calls} calls; the "
+            f"launch counters saw {launched}")
+    check(False, f"the profiler's launch counts {counts} differ from the launch counters' {launched} in all "
+                 f"{PROFILER_SESSIONS} sessions")
 
 
 def device_ms(fn, kernel, calls=1):
@@ -2514,6 +2627,509 @@ def fl_phase(mp, card, dev):
     return parts, total
 
 
+# -- phase 15: serving the LM zoo ---------------------------------------------
+
+
+def cache_tensors(cache) -> list:
+    """The tensors of a dense ``(k, v)`` or MoE ``{"moe", "dense"}`` cache."""
+    if isinstance(cache, dict):
+        return [t for pair in cache.values() for t in pair]
+    return list(cache)
+
+
+def cache_gb(cache) -> float:
+    return sum(t.numel() * t.element_size() for t in cache_tensors(cache)) / 1e9
+
+
+@contextlib.contextmanager
+def patched(module, name, make):
+    """While open, ``module.<name>`` is ``make(original)``; the original is
+    put back on exit."""
+    inner = getattr(module, name)
+    setattr(module, name, make(inner))
+    try:
+        yield
+    finally:
+        setattr(module, name, inner)
+
+
+def spying(module, name, record):
+    """:func:`patched` with a function that calls the original and then
+    ``record(result, *args)``."""
+
+    def make(inner):
+        def spy(*args, **kw):
+            out = inner(*args, **kw)
+            record(out, *args, **kw)
+            return out
+
+        return spy
+
+    return patched(module, name, make)
+
+
+def run_with_launches_held(fa, what, part, *args):
+    """Runs ``part(*args)`` while recording, for each distinct signature
+    (B, H, Hkv, S, D, kind, window, softcap, dtype) of the flash forward
+    launches the models make, the first launch's inputs and its ``(o,
+    lse)``. Then holds each recorded output against the plain version on
+    the same inputs (:func:`flash_err`, no further launch) and checks that
+    phase 6 held the kernel at that shape. Returns ``part``'s result."""
+    from repro_torch.models import layers
+
+    seen = {}
+
+    def record(out, q, k, v, kind="causal", window=0, softcap=0.0, scale=None):
+        key = (q.shape[0], q.shape[1], k.shape[1], q.shape[2], q.shape[3], kind, window, softcap, q.dtype)
+        if key not in seen:
+            seen[key] = [t.detach().clone() for t in (q, k, v, *out)] + [scale]
+
+    with spying(layers, "flash_attention", record):
+        result = part(*args)
+    torch.cuda.empty_cache()
+    worst = {}
+    with torch.inference_mode():
+        for key in list(seen):
+            q, k, v, o, lse, scale = seen.pop(key)
+            *shape, dtype = key
+            check(tuple(shape) in SERVE_FLASH_CASES, f"{what}: a flash launch at {tuple(shape)}, which phase 6 "
+                                                     f"did not hold against the plain version")
+            ok, *errs = flash_err(fa, (o, lse), q, k, v, *shape[5:], scale)
+            check(ok, f"{what}: the flash launch at {key} != plain on its inputs (max |do|, |do32|, |dlse| {errs})")
+            worst[str(dtype).replace("torch.", "")] = max(worst.get(str(dtype).replace("torch.", ""), 0.0), errs[0])
+            log(f"[lm] {what}: launch (B, H, Hkv, S, D, kind, window, softcap) {tuple(shape)} {dtype}, the first "
+                f"of its shape: within phase 6's tolerance of the plain version on its own inputs (max |do| "
+                f"{errs[0]:.3e}, |do32| {errs[1]:.3e}, |dlse| {errs[2]:.3e})")
+            del q, k, v, o, lse
+            torch.cuda.empty_cache()
+    return result
+
+
+def routing_flips(dec_idx, pre_idx, B, n) -> torch.Tensor:
+    """``(B, n)``: at each position, the layers where the experts the
+    teacher-forced decode chose (``dec_idx``: one ``(B, k)`` per step and
+    layer, step-major) differ as a set from the prefill's (``pre_idx``: one
+    ``(B x n, k)`` per layer)."""
+    L = len(pre_idx)
+    dec = torch.stack(dec_idx).reshape(n, L, B, -1).permute(1, 2, 0, 3).sort(dim=-1).values
+    pre = torch.stack(pre_idx).reshape(L, B, n, -1).sort(dim=-1).values
+    return (dec != pre).any(dim=-1).sum(dim=0)
+
+
+def teacher_forced(decode_fn, params, cfg, cache, tokens, start):
+    """Decodes ``tokens[:, i]`` at position ``start + i`` for every i and
+    returns the float32 logits ``(B, n, V)``; checks after every step that
+    the cache is the same tensors on the same storage."""
+    ptrs = [t.data_ptr() for t in cache_tensors(cache)]
+    outs = []
+    for i in range(tokens.shape[1]):
+        lg, new = decode_fn(params, cfg, cache, tokens[:, i:i + 1], start + i)
+        check([t.data_ptr() for t in cache_tensors(new)] == ptrs, f"the cache moved at decode step {start + i}")
+        outs.append(lg[:, 0])
+    return torch.stack(outs, dim=1)
+
+
+def decode_vs_prefill(what, got, want, tokens=None, flips=None):
+    """Holds decode logits against prefill logits of the same positions
+    ``(B, n, V)``: every position within DECODE_REL_L2 (relative L2 over the
+    vocabulary). With ``tokens (B, n)`` (the greedy tokens those positions
+    produced), each must be the prefill's argmax wherever the prefill's
+    top-2 gap exceeds twice the largest |decode - prefill| at that position
+    (there no deviation that small can swap the two). With ``flips (B, n)``
+    (:func:`routing_flips`), the log splits the distances by positions
+    whose experts differ in some layer and positions where they agree."""
+    check(bool(torch.isfinite(got).all()), f"{what}: non-finite decode logits")
+    rel = (got - want).norm(dim=-1) / want.norm(dim=-1)
+    dev = (got - want).abs().amax(dim=-1)
+    worst = float(rel.max())
+    msg = (f"{what}: relative L2 per position max {worst:.3e}, mean {float(rel.mean()):.3e} (limit {DECODE_REL_L2}); "
+           f"max |dlogit| {float(dev.max()):.3e}")
+    check(worst <= DECODE_REL_L2, msg)
+    if flips is not None:
+        same = flips == 0
+        split = lambda m: f"max {float(rel[m].max()):.3e}" if bool(m.any()) else "none"  # noqa: E731
+        msg += (f"; the experts differ in {int(flips.sum())} (position, layer) pairs, at {int((~same).sum())} of "
+                f"{same.numel()} positions: relative L2 there {split(~same)}, at the {int(same.sum())} positions "
+                f"routed alike {split(same)}")
+    if tokens is not None:
+        top2 = want.topk(2, dim=-1).values
+        decided = (top2[..., 0] - top2[..., 1]) > 2 * dev
+        agree = tokens == want.argmax(dim=-1)
+        check(bool((agree | ~decided).all()), f"{what}: a greedy token differs from the prefill's argmax at a "
+                                               f"position whose top-2 gap exceeds 2 max|dlogit|")
+        msg += (f"; greedy tokens equal to the prefill's argmax at {int(agree.sum())} of {agree.numel()} positions, "
+                f"at all {int(decided.sum())} whose top-2 gap exceeds 2 max|dlogit|")
+    log(f"[lm] {msg}")
+
+
+def decode_bound_ms(params, cfg, B, slots_per_layer) -> float:
+    """Least time of one decode step: the parameters read once and the
+    attended cache slots (k and v of ``slots_per_layer[i]`` positions of
+    layer i) read once, over HBM bandwidth; the logits' write is negligible."""
+    from repro_torch.optim import tree_leaves
+
+    w = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    kv = sum(2 * B * n * cfg.num_kv_heads * cfg.hd * torch.finfo(cfg.cdtype()).bits // 8 for n in slots_per_layer)
+    return 1e3 * (w + kv) / PEAK_BYTES_PER_S
+
+
+def serve_launcher_part(fa, dev, card):
+    """Phase 15 (a): the serve launcher's loop at its defaults on gemma2-2b
+    FULL, against the prefill of the same tokens; the float32 2-layer cut.
+    Returns (params, cfg, flash launches)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import decode_fn, init_cache, init_params, param_count, prefill_fn
+
+    cfg = serve.serve_config(get_config(ARCH))
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED))
+    B, P, G = SERVE_SHAPE
+    prompts = torch.from_numpy(np.random.default_rng(SEED).integers(0, cfg.vocab_size, (B, P))).long().to(dev)
+    fa.launches = fa.launches_fwd_tc = 0
+    out, _, (t_pre, t_gen) = serve.generate(params, cfg, prompts, G)
+    check(fa.launches == 0, f"the decode loop launched the flash kernel {fa.launches} times")
+    log(f"[lm] (a) {ARCH} FULL ({param_count(params)} parameters, {cfg.param_dtype}) through launch/serve.py's "
+        f"loop, B={B} prompt {P} gen {G}: teacher-forced prompt {1e3 * t_pre:.3f} ms ({1e3 * t_pre / P:.3f} ms a step), "
+        f"decode {1e3 * t_gen:.3f} ms = {B * G / t_gen:.1f} tokens/s on {card}")
+
+    full = torch.cat([prompts, out], dim=1)
+    tf = teacher_forced(decode_fn, params, cfg, init_cache(cfg, B, P + G), full, 0)
+    fa.launches = fa.launches_fwd_tc = 0
+    want = prefill_fn(params, cfg.replace(attn_impl="flash"), {"tokens": full})
+    launches = fa.launches
+    check(launches == cfg.num_layers and fa.launches_fwd_tc == cfg.num_layers,
+          f"the check prefill launched {launches} flash kernels ({fa.launches_fwd_tc} tensor-core)")
+    decode_vs_prefill(f"(a) teacher-forced decode of all {P + G} positions vs the kernel-route prefill",
+                      tf, want)
+    decode_vs_prefill("(a) the loop's greedy tokens", tf[:, P - 1:P + G - 1], want[:, P - 1:P + G - 1], out)
+    del tf, want
+
+    cfg32 = cfg.replace(num_layers=F32_LAYERS, param_dtype="float32", compute_dtype="float32", attn_impl="flash")
+    p32 = init_params(cfg32, torch.Generator(device=dev).manual_seed(SEED))
+    tf32 = teacher_forced(decode_fn, p32, cfg32, init_cache(cfg32, B, P + G), full, 0)
+    n0 = fa.launches
+    want32 = prefill_fn(p32, cfg32, {"tokens": full})
+    launches += fa.launches - n0
+    err = float((tf32 - want32).abs().max())
+    check(bool(torch.allclose(tf32, want32, rtol=DECODE_F32_TOL, atol=DECODE_F32_TOL)),
+          f"(a) float32 decode vs prefill: max |dlogit| {err}")
+    log(f"[lm] (a) float32, {F32_LAYERS} layers at full width: {P + G} teacher-forced steps within rtol=atol="
+        f"{DECODE_F32_TOL} of the kernel-route prefill (max |dlogit| {err:.3e})")
+    del p32, tf32, want32
+    return params, cfg, launches
+
+
+def serve_long_part(fa, dev, card, params, cfg):
+    """Phase 15 (b): a cache filled by a kernel prefill of LONG_S tokens,
+    then LONG_G greedy steps, the sliding layers on their windowed slice.
+    Returns its flash launches."""
+    from repro_torch.models import decode_fn, init_cache
+    from repro_torch.models.dense import _embed, _logits, attn_pattern, stack_forward
+
+    B, S, G = LONG_SHAPE
+    cfg = cfg.replace(attn_impl="flash")
+    tokens = torch.from_numpy(np.random.default_rng(SEED + 1).integers(0, cfg.vocab_size, (B, S))).long().to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = fa.launches_fwd_tc = 0
+    with torch.inference_mode():
+        h, (k, v) = stack_forward(cfg, params["layers"], _embed(cfg, params, tokens), collect_cache=True)
+        first = _logits(cfg, params, h[:, -1:]).argmax(dim=-1)
+        del h
+    check(fa.launches == cfg.num_layers, f"the cache-filling prefill launched {fa.launches} flash kernels")
+    cache = init_cache(cfg, B, S + G)
+    check(S + G > 2 * cfg.window, "the long shape does not reach the sliding layers' windowed slice")
+    cache[0][:, :, :S].copy_(k)
+    cache[1][:, :, :S].copy_(v)
+    del k, v
+    ptrs = [t.data_ptr() for t in cache]
+
+    logits = torch.empty((B, G, cfg.vocab_size), device=dev)
+    toks = torch.empty((B, G), dtype=torch.long, device=dev)
+    tok = first
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    warm = G // 8
+    for i in range(G):
+        if i == warm:
+            start.record()
+            t0 = time.perf_counter()
+        toks[:, i:i + 1] = tok
+        lg, cache = decode_fn(params, cfg, cache, tok, S + i)
+        logits[:, i] = lg[:, 0]
+        tok = lg[:, -1].argmax(dim=-1, keepdim=True)
+    end.record()
+    end.synchronize()
+    host_ms = 1e3 * (time.perf_counter() - t0) / (G - warm)
+    step_ms = start.elapsed_time(end) / (G - warm)
+    check([t.data_ptr() for t in cache] == ptrs, "the long cache moved")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+
+    pos = S + G - 1
+    total, rows, kinds, n_kernels = device_time_table(lambda p, b: decode_fn(p, cfg, cache, tok, pos), params, None)
+    wall = median_wall_ms(lambda: decode_fn(params, cfg, cache, tok, pos), reps=5)
+    pattern = attn_pattern(cfg)
+    slots = [min(pos + 1, cfg.window) if pattern[i % len(pattern)] == "sliding" else pos + 1
+             for i in range(cfg.num_layers)]
+    b_ms = decode_bound_ms(params, cfg, B, slots)
+
+    n0 = fa.launches
+    full = torch.cat([tokens, toks], dim=1)
+    with torch.inference_mode():
+        h, _ = stack_forward(cfg, params["layers"], _embed(cfg, params, full))
+        want = _logits(cfg, params, h[:, S:])
+        del h
+    check(fa.launches - n0 == cfg.num_layers, "the check prefill did not launch the kernel once per layer")
+    launches = fa.launches
+    log(f"[lm] (b) {ARCH} FULL, B={B}: cache filled by a kernel prefill of {S} tokens ({cfg.num_layers} flash "
+        f"launches), copied into a cache of {S + G} slots ({cache_gb(cache):.3f} GB; > 2 x window {cfg.window}, so "
+        f"the sliding layers attend to their windowed slice), {G} greedy steps; peak device memory {peak:.2f} GB")
+    decode_vs_prefill(f"(b) {G} greedy decode steps at positions {S}-{S + G - 1} vs a kernel-route prefill of all "
+                      f"{S + G} tokens", logits, want)
+    kinds_text = ", ".join(f"{k} {t:.3f} ms" for k, t in kinds.items())
+    log(f"[lm] {card}")
+    log(f"[lm] (b) decode at steady state (steps {warm}-{G - 1}): {step_ms:.4f} ms a token by CUDA events "
+        f"({host_ms:.4f} ms host clock) = {B * 1e3 / step_ms:.1f} tokens/s at B={B}; one step at position {pos}: "
+        f"{wall:.4f} ms alone (host clock to a sync, median of 5); by the profiler the card is busy {total:.4f} ms "
+        f"a step ({n_kernels} kernel launches), a share {total / step_ms:.3f} of the steady-state step (idle share "
+        f"{1 - total / step_ms:.3f}); by kind {kinds_text}; bound {b_ms:.4f} ms (bytes: "
+        f"the parameters and the attended k, v slots once at {PEAK_BYTES_PER_S / 1e12:.2f} TB/s), step at "
+        f"{step_ms / b_ms:.2f}x the bound")
+    for t, n, name in rows:
+        log(f"[lm]   {t:10.4f} ms  x{n:<5d} {name[:90]}")
+    del logits, want, cache
+    torch.cuda.empty_cache()
+    return launches
+
+
+def tf_step_ms(decode_fn, params, cfg, cache, tok, pos, reps=5):
+    """One decode step's time by CUDA events (median of ``reps`` runs of 3
+    steps at position ``pos``, which rewrite the same cache slot)."""
+    return median_event_ms(lambda: decode_fn(params, cfg, cache, tok, pos), reps=reps, per_rep=3, warmup=1)
+
+
+def routed_decode_and_prefill(params, scfg, cfg, tokens):
+    """Teacher-forced decode of ``tokens`` under ``scfg``, a prefill of them
+    under ``cfg``, and a prefill whose router takes, in every layer, the
+    experts the decode chose for each token (its gate weights from its own
+    probabilities at those experts, normalised as ``route`` does): their
+    float32 logits ``(B, n, V)`` and :func:`routing_flips` between the
+    decode's experts and the first prefill's."""
+    from repro_torch.models import decode_fn, init_cache, moe_dispatch, prefill_fn
+
+    B, n = tokens.shape
+    dec_idx, pre_idx = [], []
+    with spying(moe_dispatch, "route", lambda out, *args: dec_idx.append(out[1])):
+        tf = teacher_forced(decode_fn, params, scfg, init_cache(scfg, B, n), tokens, 0)
+    with spying(moe_dispatch, "route", lambda out, *args: pre_idx.append(out[1])):
+        want = prefill_fn(params, cfg, {"tokens": tokens})
+    L = len(pre_idx)
+    by_layer = iter(torch.stack(dec_idx).reshape(n, L, B, -1).permute(1, 2, 0, 3).reshape(L, B * n, -1))
+
+    def make(inner):
+        def routed_as_decoded(cfg_, x2d, router_w):
+            _, _, aux = inner(cfg_, x2d, router_w)
+            idx = next(by_layer)
+            w = torch.softmax(x2d.float() @ router_w.float(), dim=-1).gather(1, idx)
+            return w / w.sum(-1, keepdim=True).clamp_min(1e-9), idx, aux
+
+        return routed_as_decoded
+
+    with patched(moe_dispatch, "route", make):
+        alike = prefill_fn(params, cfg, {"tokens": tokens})
+    check(next(by_layer, None) is None, "the prefill routed as decoded did not route every layer")
+    return tf, want, alike, routing_flips(dec_idx, pre_idx, B, n)
+
+
+def serve_moe_part(fa, dev):
+    """Phase 15 (c): olmoe-1b-7b FULL: a kernel-route prefill with the dense
+    expert dispatch, the serve launcher's loop with the einsum dispatch, and
+    teacher-forced decode against the prefill. Returns flash launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import decode_fn, init_cache, init_params, param_count, prefill_fn
+    from repro_torch.models.moe_dispatch import einsum_capacity
+
+    cfg = get_config(MOE_ARCH).replace(attn_impl="flash")
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    B, S = MOE_PREFILL
+    tokens = torch.from_numpy(np.random.default_rng(SEED).integers(0, cfg.vocab_size, (B, S))).long().to(dev)
+    fa.launches = fa.launches_fwd_tc = 0
+    logits = prefill_fn(params, cfg, {"tokens": tokens})
+    check(fa.launches == cfg.num_layers == fa.launches_fwd_tc, f"olmoe prefill: {fa.launches} flash launches")
+    check(bool(torch.isfinite(logits).all()), "olmoe prefill: non-finite logits")
+    del logits
+    prefill_ms = median_wall_ms(lambda: prefill_fn(params, cfg, {"tokens": tokens}), reps=1)
+    launches = fa.launches
+    log(f"[lm] (c) {MOE_ARCH} FULL: {param_count(params)} parameters ({cfg.param_dtype}, {cfg.num_experts} "
+        f"experts top-{cfg.top_k}) initialised in {init_s:.2f} s; kernel-route prefill B={B} S={S}, moe_impl dense (every "
+        f"expert on every token): {cfg.num_layers} flash launches, finite logits, warm {prefill_ms:.3f} ms = "
+        f"{B * S / prefill_ms * 1e3:.1f} tokens/s")
+
+    scfg = serve.serve_config(cfg)
+    Bs, P, G = SERVE_SHAPE
+    check(einsum_capacity(scfg, Bs) >= Bs, "the einsum dispatch would drop tokens at decode")
+    prompts = torch.from_numpy(np.random.default_rng(SEED).integers(0, cfg.vocab_size, (Bs, P))).long().to(dev)
+    out, _, (t_pre, t_gen) = serve.generate(params, scfg, prompts, G)
+    full = torch.cat([prompts, out], dim=1)
+    n0 = fa.launches
+    tf, want, alike, flips = routed_decode_and_prefill(params, scfg, cfg, full)
+    launches += fa.launches - n0
+    log(f"[lm] (c) launch/serve.py's loop, moe_impl einsum (capacity {einsum_capacity(scfg, Bs)} slots an expert "
+        f"at T = {Bs}: nothing drops), B={Bs} prompt {P} gen {G}: prompt {1e3 * t_pre / P:.3f} ms a step, decode "
+        f"{Bs * G / t_gen:.1f} tokens/s")
+    decode_vs_prefill(f"(c) teacher-forced einsum decode of {P + G} positions vs the dense-dispatch kernel "
+                      f"prefill", tf, want, flips=flips)
+    decode_vs_prefill("(c) the loop's greedy tokens", tf[:, P - 1:P + G - 1], want[:, P - 1:P + G - 1], out,
+                      flips=flips[:, P - 1:P + G - 1])
+    decode_vs_prefill(f"(c) the same decode vs a dense-dispatch kernel prefill routed, in every layer, to the "
+                      f"experts the decode chose", tf, alike)
+    del tf, want, alike
+
+    cfg32 = cfg.replace(num_layers=F32_LAYERS, param_dtype="float32", compute_dtype="float32")
+    p32 = init_params(cfg32, torch.Generator(device=dev).manual_seed(SEED))
+    n0 = fa.launches
+    tf32, want32, alike32, flips32 = routed_decode_and_prefill(p32, serve.serve_config(cfg32), cfg32, full)
+    launches += fa.launches - n0
+    errs = [float((tf32 - w).abs().max()) for w in (want32, alike32)]
+    check(all(bool(torch.allclose(tf32, w, rtol=DECODE_F32_TOL, atol=DECODE_F32_TOL)) for w in (want32, alike32)),
+          f"(c) float32 einsum decode vs dense-dispatch prefill, routed freely and as decoded: max |dlogit| {errs} "
+          f"(experts differ in {int(flips32.sum())} (position, layer) pairs)")
+    log(f"[lm] (c) float32, {F32_LAYERS} layers at full width: {P + G} teacher-forced einsum-dispatch steps within "
+        f"rtol=atol={DECODE_F32_TOL} of the dense-dispatch kernel-route prefill, routed freely (max |dlogit| "
+        f"{errs[0]:.3e}; experts differ in {int(flips32.sum())} (position, layer) pairs) and as decoded "
+        f"({errs[1]:.3e})")
+    del p32, tf32, want32, alike32
+    cache = init_cache(scfg, Bs, P + G)
+    ms = tf_step_ms(decode_fn, params, scfg, cache, out[:, -1:], P + G - 1)
+    log(f"[lm] (c) decode step at B={Bs}: {ms:.4f} ms by CUDA events = {Bs * 1e3 / ms:.1f} tokens/s; bound "
+        f"{decode_bound_ms(params, scfg, Bs, [P + G] * cfg.num_layers):.4f} ms (every expert's weights read)")
+    del params, cache
+    torch.cuda.empty_cache()
+    return launches
+
+
+def serve_mla_part(fa, dev):
+    """Phase 15 (d): deepseek-v3-671b at full width, depth cut: a prefill
+    (MLA on the plain route, the dense prefix layer on the kernel), then
+    absorbed decode against the non-absorbed prefill. Returns flash
+    launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import decode_fn, init_cache, init_params, param_count
+    from repro_torch.models.layers import apply_rope, make_rope
+    from repro_torch.models.moe import moe_forward
+
+    cfg = get_config(MLA_ARCH).replace(attn_impl="flash", **MLA_CUT)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    S, n = MLA_S, TF_STEPS
+    tokens = torch.from_numpy(np.random.default_rng(SEED).integers(0, cfg.vocab_size, (1, S))).long().to(dev)
+    fa.launches = fa.launches_fwd_tc = 0
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        want, _, caches, _ = moe_forward(params, cfg, tokens, collect_cache=True)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    launches = fa.launches
+    check(launches == cfg.dense_prefix_layers, f"deepseek-v3 prefill: {launches} flash launches (the MLA layers "
+                                               f"take the plain route, the dense prefix layer the kernel)")
+    check(bool(torch.isfinite(want).all()), "deepseek-v3 prefill: non-finite logits")
+    log(f"[lm] (d) {MLA_ARCH} at full width, cut to {MLA_CUT} ({param_count(params)} parameters, "
+        f"{cfg.param_dtype}, MTP head included) initialised in {init_s:.2f} s; prefill B=1 S={S} (MLA: q/k head dim {cfg.hd + cfg.rope_head_dim} "
+        f"!= v's {cfg.v_head_dim}, plain route; dense prefix layer: {launches} flash launch; moe_impl dense): first "
+        f"call {prefill_s:.3f} s")
+
+    scfg = serve.serve_config(cfg)
+    cache = init_cache(scfg, 1, S)
+    start = S - n
+    with torch.inference_mode():  # the absorbed cache holds k_rope after the rope; the prefill collects it before
+        k, v = caches["dense"]
+        cache["dense"][0][:, :, :start].copy_(k[:, :, :start])
+        cache["dense"][1][:, :, :start].copy_(v[:, :, :start])
+        ckv, kr = caches["moe"]
+        sin, cos = make_rope(torch.arange(S, device=dev), cfg.rope_head_dim, cfg.rope_base)
+        kr = apply_rope(kr[..., None, :], sin, cos)[..., 0, :]
+        cache["moe"][0][:, :, :start].copy_(ckv[:, :, :start])
+        cache["moe"][1][:, :, :start].copy_(kr[:, :, :start])
+    del caches, k, v, ckv, kr
+    tf = teacher_forced(decode_fn, params, scfg, cache, tokens[:, start:], start)
+    decode_vs_prefill(f"(d) {n} teacher-forced absorbed-decode steps at positions {start}-{S - 1} (kv_lora_rank "
+                      f"{cfg.kv_lora_rank}) vs the non-absorbed prefill", tf, want[:, start:])
+    ms = tf_step_ms(decode_fn, params, scfg, cache, tokens[:, -1:], S - 1)
+    log(f"[lm] (d) absorbed decode step at B=1, cache {S} slots ({cache_gb(cache):.4f} GB): {ms:.4f} ms by CUDA "
+        f"events")
+    del params, want, tf, cache
+    torch.cuda.empty_cache()
+    return launches
+
+
+def serve_dense_part(fa, dev, arch):
+    """Phase 15 (e): one dense FULL config: a kernel-route prefill of
+    DENSE_S tokens that also fills the cache, then TF_STEPS teacher-forced
+    decode steps at the last positions against it. Returns flash launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_fn, init_cache, init_params, param_count
+    from repro_torch.models.dense import dense_forward
+
+    cfg = get_config(arch).replace(attn_impl="flash")
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    S, n = DENSE_S, TF_STEPS
+    tokens = torch.from_numpy(np.random.default_rng(SEED).integers(0, cfg.vocab_size, (1, S))).long().to(dev)
+    fa.launches = fa.launches_fwd_tc = 0
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        want, (k, v) = dense_forward(params, cfg, tokens, collect_cache=True)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    launches = fa.launches
+    check(launches == cfg.num_layers == fa.launches_fwd_tc, f"{arch} prefill: {launches} flash launches")
+    check(bool(torch.isfinite(want).all()), f"{arch} prefill: non-finite logits")
+    start = S - n
+    want = want[:, start:].clone()
+    cache = init_cache(cfg, 1, S)
+    cache[0][:, :, :start].copy_(k[:, :, :start])
+    cache[1][:, :, :start].copy_(v[:, :, :start])
+    del k, v
+    G = cfg.num_heads // cfg.num_kv_heads
+    log(f"[lm] (e) {arch} FULL ({param_count(params)} parameters, {cfg.param_dtype}, H={cfg.num_heads} "
+        f"Hkv={cfg.num_kv_heads}: G={G}, D={cfg.hd}, {cfg.mlp_kind} MLP) initialised in {init_s:.2f} s; kernel-route prefill B=1 S={S}: "
+        f"{launches} flash launches (all tensor-core), first call {prefill_s:.3f} s, finite logits")
+    tf = teacher_forced(decode_fn, params, cfg, cache, tokens[:, start:], start)
+    decode_vs_prefill(f"(e) {arch}: {n} teacher-forced decode steps at positions {start}-{S - 1} vs the prefill",
+                      tf, want)
+    ms = tf_step_ms(decode_fn, params, cfg, cache, tokens[:, -1:], S - 1)
+    b_ms = decode_bound_ms(params, cfg, 1, [S] * cfg.num_layers)
+    log(f"[lm] (e) {arch} decode step at B=1, cache {S} slots ({cache_gb(cache):.3f} GB): {ms:.4f} ms by CUDA "
+        f"events; bound {b_ms:.4f} ms (bytes), {ms / b_ms:.2f}x")
+    del params, want, tf, cache
+    torch.cuda.empty_cache()
+    return launches
+
+
+def serve_phase(fa, dev, card):
+    """Phase 15: serving the LM zoo. Returns the flash launches by part."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    params, cfg, la = run_with_launches_held(fa, "(a)", serve_launcher_part, fa, dev, card)
+    lb = run_with_launches_held(fa, "(b)", serve_long_part, fa, dev, card, params, cfg)
+    del params
+    torch.cuda.empty_cache()
+    parts = {"a": la, "b": lb, "c": run_with_launches_held(fa, "(c)", serve_moe_part, fa, dev),
+             "d": run_with_launches_held(fa, "(d)", serve_mla_part, fa, dev)}
+    for arch in DENSE_ARCHS:
+        parts[f"e:{arch}"] = run_with_launches_held(fa, f"(e) {arch}", serve_dense_part, fa, dev, arch)
+    log(f"[lm] phase 15 wall time {time.perf_counter() - t0:.1f} s; flash launches by part {parts}")
+    return parts
+
+
 def main() -> int:
     # -- phase 1: device ---------------------------------------------------
     if not torch.cuda.is_available():
@@ -2548,7 +3164,6 @@ def main() -> int:
     card = gpu_line()
     kind = torch.cuda.get_device_name(0)
     log(f"[device] {card} | torch {torch.__version__} cuda {torch.version.cuda} | count {torch.cuda.device_count()}")
-
     # -- phase 2: build ----------------------------------------------------
     t0 = time.perf_counter()
     mp._launch_fns()  # the first load builds every source, all together
@@ -2621,6 +3236,9 @@ def main() -> int:
     # -- phase 14: the FL runtime --------------------------------------------
     launches_fl_parts, launches_fl = fl_phase(mp, card, dev)
 
+    # -- phase 15: serving the LM zoo -----------------------------------------
+    launches_serve_parts = serve_phase(fa, dev, card)
+
     kernels = [{
         "name": "minplus_cuda",
         "route": "cuda",
@@ -2633,6 +3251,7 @@ def main() -> int:
         "flat_launches": launches_flat["row"],
         "fl_launches": launches_fl["row"],
         "fl_launches_by_part": {k: v["row"] for k, v in launches_fl_parts.items()},
+        "profiler_sessions_rerun": PROFILER_RERUNS["minplus_row_kernel"],
         "max_abs_err": max_abs_err,
         **st["row"],
     }, {
@@ -2647,6 +3266,7 @@ def main() -> int:
         "flat_launches": launches_flat["backtrack"],
         "fl_launches": launches_fl["backtrack"],
         "fl_launches_by_part": {k: v["backtrack"] for k, v in launches_fl_parts.items()},
+        "profiler_sessions_rerun": PROFILER_RERUNS["minplus_backtrack_kernel"],
         "max_abs_err": bt_err,
         **st["backtrack"],
     }, {
@@ -2656,6 +3276,7 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/flash_fwd.cu",
         "replaces": "src/repro/kernels/flash_attention.py:53",
         "launches": launches_prefill,
+        "serve_launches_by_part": launches_serve_parts,
         "max_abs_err": flash_err_max,
         **ft,
     }, {

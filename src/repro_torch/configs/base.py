@@ -1,8 +1,9 @@
 """Model/run configuration dataclasses + the architecture registry.
 
-The fields are those of the JAX package's ``configs/base.py`` that the dense
-prefill and training steps read; each later slice (MoE, SSM, serving) adds
-its own fields with the code that reads them. Dtypes stay strings and
+The fields are those of the JAX package's ``configs/base.py`` that the
+ported families (dense and MoE, with MLA and MTP) and the serving path read,
+with the reference's defaults; the SSM/xLSTM, encoder and VLM fields come
+with the code that reads them. Dtypes stay strings and
 :meth:`ModelConfig.pdtype`/:meth:`ModelConfig.cdtype` map them to torch
 dtypes. One field takes port names:
 
@@ -68,6 +69,26 @@ class ModelConfig:
     long_context: bool = False  # serving mode: global attn layers fall back to sliding window
     attn_block_q: int = 0  # 0 = full attention matrix; >0 = query-blocked loop (plain route)
     attn_impl: str = "plain"  # plain | flash (see the module docstring)
+    moe_impl: str = "dense"  # dense | einsum | a2a (set per shape by the launcher)
+
+    # MoE
+    num_experts: int = 0
+    num_shared_experts: int = 0
+    top_k: int = 0
+    d_ff_expert: int = 0
+    moe_every: int = 1  # every layer is MoE except the first `dense_prefix_layers`
+    dense_prefix_layers: int = 0
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
+
+    # MLA (deepseek-v3)
+    use_mla: bool = False
+    q_lora_rank: int = 0
+    kv_lora_rank: int = 0
+    rope_head_dim: int = 0
+    v_head_dim: int = 0
+    use_mtp: bool = False
+    mtp_weight: float = 0.3
 
     # numerics / training
     param_dtype: str = "float32"
@@ -75,6 +96,9 @@ class ModelConfig:
     remat: str = "none"  # none | full | dots (dots is not ported: no config uses it)
     optimizer: str = "adamw"
     learning_rate: float = 3e-4
+
+    # serving
+    max_cache_len: int = 0
 
     def __post_init__(self):
         if self.attn_impl not in ATTN_IMPL_FROM_JAX.values():

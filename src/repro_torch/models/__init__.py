@@ -1,17 +1,39 @@
-"""The LM model zoo of the port: the dense family's prefill and loss so far
-(``dense.py``), the model API (``model.py``) and the converters from the JAX
-package's configs and parameter trees (``convert.py``)."""
+"""The LM model zoo of the port: the dense family (``dense.py``) and the MoE
+family (``moe.py``, ``moe_dispatch.py``, ``mla.py``) with their prefill, loss
+and KV-cache decode, the model API (``model.py``) and the converters from the
+JAX package's configs, parameter trees and caches (``convert.py``)."""
 
-from .convert import config_from_jax, params_from_jax
-from .model import init_params, loss_fn, make_dummy_batch, model_flops_per_token, param_count, prefill_fn
+from .convert import cache_from_jax, cache_to_jax, config_from_jax, params_from_jax
+from .model import (
+    active_param_count,
+    decode_fn,
+    expert_param_count,
+    init_cache,
+    init_params,
+    layer_stacks,
+    loss_fn,
+    make_dummy_batch,
+    model_flops_per_token,
+    param_count,
+    prefill_fn,
+    supports_mode,
+)
 
 __all__ = [
+    "active_param_count",
+    "cache_from_jax",
+    "cache_to_jax",
     "config_from_jax",
+    "decode_fn",
+    "expert_param_count",
+    "init_cache",
     "init_params",
+    "layer_stacks",
     "loss_fn",
     "make_dummy_batch",
     "model_flops_per_token",
     "param_count",
     "params_from_jax",
     "prefill_fn",
+    "supports_mode",
 ]

@@ -14,7 +14,7 @@ from ..configs.base import ATTN_IMPL_FROM_JAX, ModelConfig
 from ..core.torch_dp import resolve_device
 from .dense import attn_pattern
 
-__all__ = ["config_from_jax", "params_from_jax", "tensor_from_numpy"]
+__all__ = ["cache_from_jax", "cache_to_jax", "config_from_jax", "params_from_jax", "tensor_from_numpy"]
 
 
 def config_from_jax(jcfg) -> ModelConfig:
@@ -46,26 +46,65 @@ def _map(tree, fn):
     return fn(tree)
 
 
+def _unstack(tree, n, to_t):
+    """A stacked tree (leading ``(n,)`` on every leaf) as a list of ``n``
+    per-layer trees."""
+    return [_map(tree, lambda a, i=i: to_t(np.asarray(a)[i])) for i in range(n)]
+
+
 def params_from_jax(cfg: ModelConfig, tree, device="cuda"):
     """The port's parameters from a JAX ``init_params`` tree of numpy arrays
     (or a gradient tree of the same shape).
 
-    The JAX layer stack carries leading ``(n_groups, period)`` axes on every
-    leaf; entry ``[g, sub]`` becomes port layer ``g * period + sub``. Dtypes
-    are kept; tensors go to ``device``.
+    Dense: the JAX layer stack carries leading ``(n_groups, period)`` axes on
+    every leaf; entry ``[g, sub]`` becomes port layer ``g * period + sub``.
+    MoE: ``moe_layers`` and ``dense_layers`` are stacked on ``(n,)`` and
+    become lists; ``mtp`` is not stacked. Dtypes are kept; tensors go to
+    ``device``.
     """
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet (ROADMAP.md, Queue 1)")
     dev = resolve_device(device)
-    period = len(attn_pattern(cfg))
-    n_groups = cfg.num_layers // period
 
     def to_t(a):
         return tensor_from_numpy(a, dev)
 
-    params = {k: _map(x, to_t) for k, x in tree.items() if k != "layers"}
-    params["layers"] = [
-        _map(tree["layers"], lambda a, g=g, sub=sub: to_t(np.asarray(a)[g, sub]))
-        for g in range(n_groups) for sub in range(period)
-    ]
+    stacked = ("layers",) if cfg.family == "dense" else ("moe_layers", "dense_layers")
+    params = {k: _map(x, to_t) for k, x in tree.items() if k not in stacked}
+    if cfg.family == "dense":
+        flat = _map(tree["layers"], lambda a: np.asarray(a).reshape((cfg.num_layers,) + np.shape(a)[2:]))
+        params["layers"] = _unstack(flat, cfg.num_layers, to_t)
+    else:
+        params["moe_layers"] = _unstack(tree["moe_layers"], cfg.num_layers - cfg.dense_prefix_layers, to_t)
+        if cfg.dense_prefix_layers:
+            params["dense_layers"] = _unstack(tree["dense_layers"], cfg.dense_prefix_layers, to_t)
     return params
+
+
+def cache_from_jax(cfg: ModelConfig, cache, device="cuda"):
+    """The port's decode cache from a JAX ``init_cache``/``decode_fn`` cache
+    of numpy arrays. Dense: ``(k, v)`` of ``(n_groups, period, B, S, Hkv,
+    hd)`` becomes ``(L, B, S, Hkv, hd)`` with layer ``g * period + sub``.
+    MoE: ``{"moe"[, "dense"]}`` keeps its layout (pairs stacked on ``(n,)``;
+    MLA's ``(c_kv, k_rope)``)."""
+    dev = resolve_device(device)
+    if cfg.family == "dense":
+        return tuple(tensor_from_numpy(np.asarray(a).reshape((-1,) + np.shape(a)[2:]), dev) for a in cache)
+    if cfg.family == "moe":
+        return {k: tuple(tensor_from_numpy(a, dev) for a in pair) for k, pair in cache.items()}
+    raise NotImplementedError(f"family {cfg.family!r} is not ported yet (ROADMAP.md, Queue 1)")
+
+
+def cache_to_jax(cfg: ModelConfig, cache):
+    """The inverse of :func:`cache_from_jax`, as numpy arrays (float32 and
+    the other numpy dtypes; a bfloat16 cache is widened to float32)."""
+    def to_np(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    if cfg.family == "dense":
+        period = len(attn_pattern(cfg))
+        return tuple(to_np(t).reshape((cfg.num_layers // period, period) + tuple(t.shape[1:])) for t in cache)
+    if cfg.family == "moe":
+        return {k: tuple(to_np(t) for t in pair) for k, pair in cache.items()}
+    raise NotImplementedError(f"family {cfg.family!r} is not ported yet (ROADMAP.md, Queue 1)")

@@ -1,6 +1,7 @@
-"""Dense decoder LMs (llama family: deepseek-7b; gemma2-2b with its
-local/global alternation, softcaps and post-norms): the forward and the loss
-of the JAX package's ``models/dense.py``.
+"""Dense decoder LMs (llama family: deepseek-7b, granite-20b with MQA,
+minitron-8b with its squared-ReLU MLP; gemma2-2b with its local/global
+alternation, softcaps and post-norms): the forward, the loss and the KV-cache
+decode of the JAX package's ``models/dense.py``.
 
 Parameters are a dict ``{"emb", "layers", "ln_f"[, "lm_head"]}`` whose
 ``"layers"`` is a list with one dict per layer, in order; the JAX package's
@@ -9,8 +10,15 @@ Parameters are a dict ``{"emb", "layers", "ln_f"[, "lm_head"]}`` whose
 loop over groups of ``period`` layers with ``kind = pattern[sub]``; under
 ``cfg.remat == "full"`` each group is checkpointed, as the reference
 checkpoints its scan body. The reference's ``shard`` calls are the identity
-on one device and are dropped; the KV cache and decode step wait for a later
-slice (ROADMAP.md, Queue 1).
+on one device and are dropped.
+
+The decode cache is a pair ``(k, v)`` of tensors ``(L, B, S_max, Hkv, hd)``
+with one leading layer axis (the reference's ``(n_groups, period)`` axes
+flattened the same way as the parameters). Unlike the reference, whose
+``dynamic_update_slice`` returns new arrays, a decode step writes the new
+keys and values into the cache's storage and returns the same tensors: a
+functional copy would move the whole cache every token. A caller that needs
+the cache of an earlier step keeps a clone.
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
+from ..core.torch_dp import resolve_device
 from .layers import apply_rope, attention, gelu, make_rope, mlp_act, mlp_gated, rms_norm, softcap, squared_relu
 
 __all__ = [
@@ -31,9 +40,14 @@ __all__ = [
     "dense_forward",
     "dense_init",
     "dense_loss",
+    "decode_position",
+    "dense_decode_step",
     "init_dense",
+    "init_dense_cache",
     "layer_apply",
+    "stack_decode",
     "stack_forward",
+    "write_cache",
 ]
 
 # erf(sqrt(2)) = 2 * Phi(2) - 1: the uniform range whose erfinv is a normal
@@ -134,22 +148,66 @@ def _proj(x, w):
     return (x @ w.reshape(w.shape[0], -1)).reshape(*x.shape[:-1], *w.shape[1:])
 
 
-def layer_apply(cfg: ModelConfig, p, h, kind: str, rope_sincos, *, q_pos, kv_pos):
-    """One transformer block over the full sequence (the reference's
-    train/prefill branch; its cache branch, which also returns the keys and
-    values, comes with the decode slice). Returns ``h``."""
+def _out_proj(out, wo):
+    """``einsum("bshk,hkd->bsd", out, wo)`` as one matrix product."""
+    return out.reshape(*out.shape[:2], -1) @ wo.reshape(-1, wo.shape[-1])
+
+
+def decode_position(pos, device) -> torch.Tensor:
+    """The decode position as a 0-d int64 tensor on ``device``: a Python
+    int becomes one by a fill on the device (no copy from the host, so no
+    wait on the card), a tensor is moved there."""
+    if isinstance(pos, torch.Tensor):
+        return pos.to(device=device, dtype=torch.long)
+    return torch.full((), int(pos), dtype=torch.long, device=device)
+
+
+def write_cache(cache: torch.Tensor, x: torch.Tensor, write_pos: torch.Tensor) -> torch.Tensor:
+    """Writes ``x (B, Sq, ...)`` into ``cache (B, S_max, ...)`` at rows
+    ``write_pos .. write_pos + Sq - 1``, in place, and returns ``cache``. The
+    start is clamped to ``[0, S_max - Sq]``, as ``dynamic_update_slice``
+    clamps it."""
+    Sq, S_max = x.shape[1], cache.shape[1]
+    idx = write_pos.clamp(0, S_max - Sq) + torch.arange(Sq, device=cache.device)
+    return cache.index_copy_(1, idx, x.to(cache.dtype))
+
+
+def layer_apply(cfg: ModelConfig, p, h, kind: str, rope_sincos, *, q_pos, kv_pos, cache_kv=None, write_pos=None):
+    """One transformer block. Returns ``(h, new_kv)``: without a cache the
+    fresh ``(k, v)`` of this call (after RoPE), with ``cache_kv = (k_cache,
+    v_cache)`` (each ``(B, S_max, Hkv, hd)``) and ``write_pos`` (a 0-d
+    tensor) the caches, with this call's keys and values written at
+    ``write_pos`` in place.
+
+    Decoding one token through a ``"sliding"`` layer of a cache longer than
+    twice the window attends only to the ``window`` slots ending at
+    ``write_pos`` (start clipped to ``[0, S_max - window]``), as the
+    reference's long-context branch does."""
     sin, cos = rope_sincos
     a_in = rms_norm(h, p["ln1"])
     q = apply_rope(_proj(a_in, p["attn"]["wq"]), sin, cos)
     k = apply_rope(_proj(a_in, p["attn"]["wk"]), sin, cos)
     v = _proj(a_in, p["attn"]["wv"])
+
+    if cache_kv is not None and write_pos is not None:
+        k_cache, v_cache = (write_cache(c, x, write_pos) for c, x in zip(cache_kv, (k, v)))
+        k_use, v_use, kv_pos_use = k_cache, v_cache, kv_pos
+        new_kv = (k_cache, v_cache)
+        S_max = k_cache.shape[1]
+        if kind == "sliding" and q.shape[1] == 1 and S_max > 2 * cfg.window:
+            start = (write_pos - cfg.window + 1).clamp(0, S_max - cfg.window)
+            kv_pos_use = start + torch.arange(cfg.window, device=h.device)
+            k_use, v_use = k_cache.index_select(1, kv_pos_use), v_cache.index_select(1, kv_pos_use)
+    else:
+        k_use, v_use, kv_pos_use = k, v, kv_pos
+        new_kv = (k, v)
+
     out = attention(
-        q, k, v,
-        q_pos=q_pos, kv_pos=kv_pos, kind=kind, window=cfg.window, attn_softcap=cfg.attn_softcap,
+        q, k_use, v_use,
+        q_pos=q_pos, kv_pos=kv_pos_use, kind=kind, window=cfg.window, attn_softcap=cfg.attn_softcap,
         block_q=cfg.attn_block_q, impl=cfg.attn_impl,
     )
-    wo = p["attn"]["wo"]
-    attn_out = out.reshape(*out.shape[:2], -1) @ wo.reshape(-1, wo.shape[-1])
+    attn_out = _out_proj(out, p["attn"]["wo"])
     if "ln1b" in p:
         attn_out = rms_norm(attn_out, p["ln1b"])
     h = h + attn_out
@@ -157,7 +215,7 @@ def layer_apply(cfg: ModelConfig, p, h, kind: str, rope_sincos, *, q_pos, kv_pos
     mlp_out = _mlp(cfg, p["mlp"], rms_norm(h, p["ln2"]))
     if "ln2b" in p:
         mlp_out = rms_norm(mlp_out, p["ln2b"])
-    return h + mlp_out
+    return h + mlp_out, new_kv
 
 
 def _maybe_remat(cfg: ModelConfig, fn):
@@ -176,25 +234,49 @@ def _maybe_remat(cfg: ModelConfig, fn):
     return fn
 
 
-def stack_forward(cfg: ModelConfig, layers, h):
+def stack_forward(cfg: ModelConfig, layers, h, *, collect_cache=False):
     """The layer stack over the full sequence, in groups of
     ``period = len(attn_pattern(cfg))`` layers (the reference's scan body);
     sublayer ``sub`` of a group has attention kind ``attn_pattern(cfg)[sub]``.
-    Returns ``h``."""
+    Returns ``(h, caches)``: with ``collect_cache`` the pair ``(k, v)`` of
+    every layer's keys and values after RoPE, stacked ``(L, B, S, Hkv,
+    hd)`` as a decode cache is laid out, else ``None``."""
     S = h.shape[1]
     pattern = attn_pattern(cfg)
     pos = torch.arange(S, device=h.device)
     rope = make_rope(pos, cfg.hd, cfg.rope_base)
 
     def group_body(h, group):
+        kvs = []
         for kind, p in zip(pattern, group):
-            h = layer_apply(cfg, p, h, kind, rope, q_pos=pos, kv_pos=pos)
-        return h
+            h, kv = layer_apply(cfg, p, h, kind, rope, q_pos=pos, kv_pos=pos)
+            kvs.append(kv if collect_cache else None)
+        return h, kvs
 
     body = _maybe_remat(cfg, group_body)
+    kvs = []
     for g in range(0, len(layers), len(pattern)):
-        h = body(h, layers[g:g + len(pattern)])
-    return h
+        h, group_kvs = body(h, layers[g:g + len(pattern)])
+        kvs += group_kvs
+    if not collect_cache:
+        return h, None
+    return h, tuple(torch.stack(xs) for xs in zip(*kvs))
+
+
+def stack_decode(cfg: ModelConfig, layers, h, cache, pos):
+    """One decode step through the stack: ``h (B, Sq, d)`` at positions
+    ``pos ..`` against ``cache = (k, v)``, each ``(L, B, S_max, Hkv, hd)``,
+    which it updates in place. Returns ``(h, cache)``."""
+    pattern = attn_pattern(cfg)
+    k_all, v_all = cache
+    pos = decode_position(pos, h.device)
+    q_pos = pos[None]
+    kv_pos = torch.arange(k_all.shape[2], device=h.device)
+    rope = make_rope(q_pos, cfg.hd, cfg.rope_base)
+    for i, p in enumerate(layers):
+        h, _ = layer_apply(cfg, p, h, pattern[i % len(pattern)], rope, q_pos=q_pos, kv_pos=kv_pos,
+                           cache_kv=(k_all[i], v_all[i]), write_pos=pos)
+    return h, cache
 
 
 # ---------------------------------------------------------------------------
@@ -225,11 +307,29 @@ def _logits(cfg: ModelConfig, params, h):
     return logits.float().div_(cfg.logit_softcap).tanh_().mul_(cfg.logit_softcap)
 
 
-def dense_forward(params, cfg: ModelConfig, tokens):
-    """tokens ``(B, S)`` -> float32 logits ``(B, S, V)``."""
+def dense_forward(params, cfg: ModelConfig, tokens, *, collect_cache=False):
+    """tokens ``(B, S)`` -> ``(logits, caches)``: float32 logits ``(B, S,
+    V)`` and, with ``collect_cache``, every layer's ``(k, v)``
+    (:func:`stack_forward`), else ``None``."""
     h = _embed(cfg, params, tokens)
-    h = stack_forward(cfg, params["layers"], h)
-    return _logits(cfg, params, h)
+    h, caches = stack_forward(cfg, params["layers"], h, collect_cache=collect_cache)
+    return _logits(cfg, params, h), caches
+
+
+def init_dense_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
+    """Zero caches ``(k, v)``, each ``(L, B, max_len, Hkv, hd)`` in the
+    compute dtype, on ``device``."""
+    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.hd)
+    dev = resolve_device(device)
+    return (torch.zeros(shape, dtype=cfg.cdtype(), device=dev), torch.zeros(shape, dtype=cfg.cdtype(), device=dev))
+
+
+def dense_decode_step(params, cfg: ModelConfig, cache, tokens, pos):
+    """tokens ``(B, 1)``; ``pos`` a Python int or 0-d integer tensor.
+    Returns ``(logits (B, 1, V), cache)``, the cache updated in place."""
+    h = _embed(cfg, params, tokens)
+    h, cache = stack_decode(cfg, params["layers"], h, cache, pos)
+    return _logits(cfg, params, h), cache
 
 
 class _NLL(torch.autograd.Function):
@@ -276,4 +376,5 @@ def dense_loss(params, cfg: ModelConfig, batch):
     """``batch["tokens"] (B, S + 1)``: the mean loss of predicting
     ``tokens[:, 1:]`` from ``tokens[:, :-1]``."""
     tokens = batch["tokens"]
-    return cross_entropy(dense_forward(params, cfg, tokens[:, :-1]), tokens[:, 1:])
+    logits, _ = dense_forward(params, cfg, tokens[:, :-1])
+    return cross_entropy(logits, tokens[:, 1:])

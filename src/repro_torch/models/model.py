@@ -1,9 +1,11 @@
-"""Model API of the port: family dispatch, dummy batches and parameter/FLOPs
-accounting, after the JAX package's ``models/model.py``.
+"""Model API of the port: family dispatch, decode caches, dummy batches and
+parameter/FLOPs accounting, after the JAX package's ``models/model.py``.
 
-The port holds the ``dense`` family's forward (prefill) and loss (training).
-Every other family, and the decode entry points, come with later slices
-(ROADMAP.md, Queue 1) and raise ``NotImplementedError`` until then.
+The port holds the ``dense`` and ``moe`` families: forward (prefill), loss
+(training), cache and decode step. The other families (``ssm``, ``hybrid``,
+``encoder``, ``vlm``) come with later slices (ROADMAP.md, Queue 1) and raise
+``NotImplementedError`` until then, as does ``input_specs`` (it comes with
+the dry run).
 
 Entry points run on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``; without a CUDA device they raise rather than run on the CPU.
@@ -16,43 +18,55 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from ..configs.base import ModelConfig
+from ..configs.base import InputShape, ModelConfig
 from ..core.torch_dp import resolve_device
 from ..optim.optimizers import tree_leaves
-from . import dense
+from . import dense, moe
 
 __all__ = [
+    "active_param_count",
+    "decode_fn",
+    "expert_param_count",
+    "init_cache",
     "init_params",
+    "layer_stacks",
     "loss_fn",
     "make_dummy_batch",
     "model_flops_per_token",
     "param_count",
     "prefill_fn",
+    "supports_mode",
 ]
 
+_PORTED = ("dense", "moe")
 
-def _dense_only(cfg: ModelConfig):
-    if cfg.family != "dense":
+
+def _ported(cfg: ModelConfig):
+    if cfg.family not in _PORTED:
         raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.arch}) is not ported yet; the port holds the dense "
-            "family (ROADMAP.md, Queue 1)"
+            f"family {cfg.family!r} ({cfg.arch}) is not ported yet; the port holds the {' and '.join(_PORTED)} "
+            "families (ROADMAP.md, Queue 1)"
         )
 
 
 def init_params(cfg: ModelConfig, gen=0, device="cuda"):
     """Random parameters. ``gen`` is a ``torch.Generator`` (its device is
     used) or an int seed for a new generator on ``device``."""
-    _dense_only(cfg)
+    _ported(cfg)
     if not isinstance(gen, torch.Generator):
         gen = torch.Generator(device=resolve_device(device)).manual_seed(int(gen))
+    if cfg.family == "moe":
+        return moe.init_moe_model(cfg, gen)
     return dense.init_dense(cfg, gen)
 
 
 def loss_fn(params, cfg: ModelConfig, batch):
-    """The training objective: ``batch["tokens"] (B, S + 1)`` -> the mean
-    next-token cross-entropy, a float32 scalar that carries a gradient when
-    grad mode is on and a parameter requires one."""
-    _dense_only(cfg)
+    """The training objective: ``batch["tokens"]`` -> the mean next-token
+    cross-entropy (MoE: plus the router and MTP terms), a float32 scalar that
+    carries a gradient when grad mode is on and a parameter requires one."""
+    _ported(cfg)
+    if cfg.family == "moe":
+        return moe.moe_loss(params, cfg, batch)
     return dense.dense_loss(params, cfg, batch)
 
 
@@ -60,33 +74,110 @@ def prefill_fn(params, cfg: ModelConfig, batch):
     """Forward over the full sequence: ``batch["tokens"] (B, S)`` -> float32
     logits ``(B, S, V)``, on the device of the parameters. Runs under
     ``torch.inference_mode``."""
-    _dense_only(cfg)
+    _ported(cfg)
     with torch.inference_mode():
-        return dense.dense_forward(params, cfg, batch["tokens"])
+        if cfg.family == "moe":
+            return moe.moe_forward(params, cfg, batch["tokens"])[0]
+        return dense.dense_forward(params, cfg, batch["tokens"])[0]
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
+    """A zero decode cache for ``batch`` sequences of up to ``max_len``
+    tokens, on ``device`` (layouts: :mod:`repro_torch.models.dense`,
+    :mod:`repro_torch.models.moe`)."""
+    _ported(cfg)
+    if cfg.family == "moe":
+        return moe.init_moe_cache(cfg, batch, max_len, device)
+    return dense.init_dense_cache(cfg, batch, max_len, device)
+
+
+def decode_fn(params, cfg: ModelConfig, cache, tokens, pos):
+    """One decode step: ``tokens (B, 1)`` at position ``pos`` (a Python int
+    or a 0-d integer tensor; no host sync) -> ``(logits (B, 1, V), cache)``.
+    The cache is updated in place and returned. Runs under
+    ``torch.inference_mode``."""
+    _ported(cfg)
+    with torch.inference_mode():
+        if cfg.family == "moe":
+            return moe.moe_decode_step(params, cfg, cache, tokens, pos)
+        return dense.dense_decode_step(params, cfg, cache, tokens, pos)
+
+
+def supports_mode(cfg: ModelConfig, shape: InputShape) -> tuple:
+    """(supported, reason): the documented skips of the reference."""
+    if cfg.family == "encoder" and shape.mode == "decode":
+        return False, "encoder-only: no autoregressive decode"
+    if shape.name == "long_500k":
+        sub_quadratic = cfg.family in ("ssm", "hybrid") or cfg.attn_kind == "local_global"
+        if not sub_quadratic:
+            return False, "full-attention arch: 500k context skipped (quadratic)"
+    return True, ""
+
+
+def layer_stacks(cfg: ModelConfig) -> Dict[str, tuple]:
+    """The leading axes the reference stacks each list of layers on: the
+    dense stack on ``(n_groups, period)``, the MoE model's lists on
+    ``(n,)``. Adafactor factors and clips the stacked leaves
+    (:func:`repro_torch.optim.adafactor`'s ``stacks``)."""
+    _ported(cfg)
+    if cfg.family == "moe":
+        return {"moe_layers": (cfg.num_layers - cfg.dense_prefix_layers,),
+                "dense_layers": (cfg.dense_prefix_layers,)}
+    period = len(dense.attn_pattern(cfg))
+    return {"layers": (cfg.num_layers // period, period)}
 
 
 def make_dummy_batch(cfg: ModelConfig, B: int, S: int, mode: str, rng: np.random.Generator,
                      device="cuda") -> Dict[str, Any]:
     """Random tokens from a numpy generator (the reference's draw), as int64
-    on ``device``: ``(B, S)``, plus one target column in ``train`` mode."""
-    _dense_only(cfg)
+    on ``device``: ``(B, S)``, plus one target column in ``train`` mode (two
+    with MTP)."""
+    _ported(cfg)
     extra = 1 if mode == "train" else 0
+    if cfg.use_mtp and mode == "train":
+        extra = 2
     tokens = rng.integers(0, cfg.vocab_size, (B, S + extra)).astype(np.int32)
     return {"tokens": torch.from_numpy(tokens).long().to(resolve_device(device))}
+
+
+# ---------------------------------------------------------------------------
+# accounting
+# ---------------------------------------------------------------------------
 
 
 def param_count(params) -> int:
     return int(sum(x.numel() for x in tree_leaves(params)))
 
 
+def expert_param_count(params) -> int:
+    """Entries of every leaf under a key named ``experts``."""
+    def visit(tree, under):
+        if isinstance(tree, dict):
+            return sum(visit(x, under or k == "experts") for k, x in tree.items())
+        if isinstance(tree, list):
+            return sum(visit(x, under) for x in tree)
+        return tree.numel() if under else 0
+
+    return int(visit(params, False))
+
+
+def active_param_count(params, cfg: ModelConfig) -> int:
+    """Active parameters per token: routed experts count at ``top_k / E``."""
+    total = param_count(params)
+    if cfg.num_experts:
+        ep = expert_param_count(params)
+        total = total - ep + int(ep * cfg.top_k / cfg.num_experts)
+    return total
+
+
 def model_flops_per_token(params, cfg: ModelConfig, seq_len: int, mode: str = "train") -> float:
-    """MODEL_FLOPS (6·N·D accounting) per token: 6·N for train (fwd+bwd),
-    2·N for inference, plus the attention term 12·L·d_attn·S (train) or
-    4·L·d_attn·S (inference), halved for causality, as the reference counts
-    it. Dense models: every parameter is active."""
-    _dense_only(cfg)
+    """MODEL_FLOPS (6·N·D accounting) per token: 6·N_active for train
+    (fwd+bwd), 2·N_active for inference, plus the attention term
+    12·L·d_attn·S (train) or 4·L·d_attn·S (inference), halved for
+    causality, as the reference counts it."""
+    _ported(cfg)
     mult = 6.0 if mode == "train" else 2.0
-    flops = mult * param_count(params)
+    flops = mult * active_param_count(params, cfg)
     attn_mult = 12.0 if mode == "train" else 4.0
     flops += attn_mult * cfg.num_layers * cfg.hd * cfg.num_heads * min(seq_len, 10**9) / 2
     return float(flops)

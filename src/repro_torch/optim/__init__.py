@@ -1,10 +1,12 @@
 """Optimizers and learning-rate schedules of the port, after the JAX
-package's ``optim/``: SGD, momentum and AdamW (``optimizers.py``; Adafactor
-comes with the MoE family) and the four schedules (``schedules.py``)."""
+package's ``optim/``: SGD, momentum, AdamW and Adafactor (``optimizers.py``)
+and the four schedules (``schedules.py``)."""
 
 from .optimizers import (
+    AdafactorState,
     AdamState,
     Optimizer,
+    adafactor,
     adamw,
     apply_updates,
     get_optimizer,
@@ -16,6 +18,6 @@ from .optimizers import (
 from .schedules import constant, cosine, linear_decay, warmup_cosine
 
 __all__ = [
-    "AdamState", "Optimizer", "sgd", "momentum", "adamw", "apply_updates", "get_optimizer",
+    "AdafactorState", "AdamState", "Optimizer", "sgd", "momentum", "adamw", "adafactor", "apply_updates", "get_optimizer",
     "tree_leaves", "tree_map", "constant", "cosine", "warmup_cosine", "linear_decay",
 ]

@@ -1,5 +1,5 @@
-"""SGD, momentum and AdamW on trees of tensors (dicts and lists), after the
-JAX package's ``optim/optimizers.py``.
+"""SGD, momentum, AdamW and Adafactor on trees of tensors (dicts and lists),
+after the JAX package's ``optim/optimizers.py``.
 
 The interface is the reference's: ``opt = adamw(lr)``; ``state =
 opt.init(params)``; ``updates, state = opt.update(grads, state, params)``;
@@ -14,20 +14,32 @@ the parameters' dtype and rounds elsewhere.
 
 Unlike the reference, ``update`` writes the new moments into the state's
 tensors and ``apply_updates`` adds into the parameters, in place (no
-gradient is recorded), so a step holds one extra tree, the updates. The
-reference's other optimizers come with the slices that use them.
+gradient is recorded), so a step holds one extra tree, the updates.
+
+Adafactor works on the reference's *stacked* leaves: the reference stacks a
+model's layers on leading axes (``(n_groups, period)`` for the dense stack,
+``(n,)`` for the MoE lists), factors every stacked leaf of rank >= 2 over
+its last two axes and clips by the RMS of the whole stacked leaf. So a
+per-layer 1-D gain stacked ``(n_groups, period, d)`` is factored, and the
+clip spans every layer. :func:`adafactor` stacks the same-named leaves of
+each list of layers on the leading axes that ``stacks`` gives it (a list it
+does not name is refused: the layout is the model's, see
+:func:`repro_torch.models.layer_stacks`), keeps its state on the stacked
+shapes (the reference's ``vr``/``vc`` trees) and hands the updates back per
+layer.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
 __all__ = [
-    "AdamState", "Optimizer", "adamw", "apply_updates", "get_optimizer", "momentum", "sgd", "tree_leaves",
-    "tree_map",
+    "AdafactorState", "AdamState", "Optimizer", "adafactor", "adamw", "apply_updates", "get_optimizer", "momentum",
+    "sgd", "tree_leaves", "tree_map",
 ]
 
 
@@ -139,12 +151,114 @@ def adamw(
     return Optimizer(init, update)
 
 
-def get_optimizer(name: str, lr: float, **kw) -> Optimizer:
-    makers = {"sgd": sgd, "momentum": momentum, "adamw": adamw}
-    if name in makers:
-        return makers[name](lr, **kw)
-    if name == "adafactor":
-        raise NotImplementedError(
-            "optimizer 'adafactor' is not ported yet: it comes with the MoE family (ROADMAP.md, Queue 1)"
+class AdafactorState(NamedTuple):
+    step: torch.Tensor  # int32 scalar on the parameters' device
+    vr: Any  # row second moment (the full v of a leaf of rank < 2), on the stacked tree
+    vc: Any  # column second moment (a 0-d zero for a leaf of rank < 2)
+
+
+def _stack_lead(stacks, name, layers) -> tuple:
+    if name not in stacks:
+        raise ValueError(f"adafactor: the list of layers {name!r} needs its stacked layout: pass "
+                         "stacks=repro_torch.models.layer_stacks(cfg)")
+    lead = tuple(stacks[name])
+    if math.prod(lead) != len(layers):
+        raise ValueError(f"adafactor: stacks[{name!r}] = {lead} does not hold {len(layers)} layers")
+    return lead
+
+
+def _stack_tree(tree, stacks):
+    """``tree`` with each top-level list of layers ``tree[name]`` replaced by
+    one tree of its same-named leaves stacked to ``stacks[name] +
+    leaf.shape``."""
+    return {name: tree_map(lambda *ls, lead=_stack_lead(stacks, name, x): torch.stack(ls).reshape(lead + ls[0].shape),
+                           *x)
+            if isinstance(x, list) else x for name, x in tree.items()}
+
+
+def _unstack_tree(stacked, like):
+    """The inverse of :func:`_stack_tree`, in the shape of ``like``."""
+    return {name: [tree_map(lambda s, l, i=i, n=len(x): s.reshape((n,) + l.shape)[i], stacked[name], layer)
+                   for i, layer in enumerate(x)]
+            if isinstance(x, list) else stacked[name] for name, x in like.items()}
+
+
+def adafactor(
+    lr: float = 1e-2,
+    decay: float = 0.8,
+    eps: float = 1e-30,
+    clip_threshold: float = 1.0,
+    stacks: Optional[dict] = None,
+) -> Optimizer:
+    """Factored second-moment optimizer (Shazeer & Stern, 2018), without
+    momentum, on the reference's stacked leaves (module docstring).
+    ``stacks`` maps each top-level list of layers to the leading axes the
+    reference stacks it on (:func:`repro_torch.models.layer_stacks`); a
+    list it does not name raises ``ValueError``, since stacking it another
+    way would factor and clip other leaves. The state's ``vr`` and ``vc``
+    are trees of the stacked shapes, updated in place."""
+    stacks = dict(stacks or {})
+
+    def init(params):
+        device = tree_leaves(params)[0].device
+        shapes = {name: tree_map(lambda p, lead=_stack_lead(stacks, name, x): lead + tuple(p.shape), x[0])
+                  if isinstance(x, list) else tree_map(lambda p: tuple(p.shape), x) for name, x in params.items()}
+
+        def zeros(shape):
+            return torch.zeros(shape, dtype=torch.float32, device=device)
+
+        return AdafactorState(
+            step=torch.zeros((), dtype=torch.int32, device=device),
+            vr=tree_map(lambda s: zeros(s[:-1] if len(s) >= 2 else s), shapes),
+            vc=tree_map(lambda s: zeros(s[:-2] + s[-1:] if len(s) >= 2 else ()), shapes),
         )
-    raise ValueError(f"unknown optimizer {name!r}")
+
+    def update(grads, state, params):
+        with torch.no_grad():
+            step = state.step + 1
+            beta = 1.0 - (step.float() + 1.0) ** (-decay)
+
+            def mean(x, dim=None, keepdim=False):
+                """A float32 mean summed in float64: the correctly rounded
+                mean, within float32 summation-order noise of the
+                reference's."""
+                if dim is None:
+                    return x.mean(dtype=torch.float64).float()
+                return x.mean(dim=dim, keepdim=keepdim, dtype=torch.float64).float()
+
+            def sqrt(x):
+                """The correctly rounded float32 square root, through
+                float64 (PyTorch's float32 one on the CPU is not: it is
+                within an ulp)."""
+                return x.double().sqrt().float()
+
+            def upd(g, vr, vc):
+                g32 = g.float()
+                g2 = g32.square() + eps
+                if g.dim() >= 2:
+                    vr.mul_(beta).add_((1 - beta) * mean(g2, -1))
+                    vc.mul_(beta).add_((1 - beta) * mean(g2, -2))
+                    # rank-1 reconstruction of 1/sqrt(v)
+                    r = vr / mean(vr, -1, keepdim=True).clamp_min(eps)
+                    pre = g32 / (sqrt(r)[..., None] * sqrt(vc)[..., None, :] + eps)
+                else:
+                    vr.mul_(beta).add_((1 - beta) * g2)
+                    pre = g32 / (sqrt(vr) + eps)
+                # update clipping by RMS
+                rms = sqrt(mean(pre.square()) + eps)
+                pre = pre / (rms / clip_threshold).clamp_min(1.0)
+                return -lr * pre
+
+            g_stacked = _stack_tree(grads, stacks)
+            u_stacked = tree_map(upd, g_stacked, state.vr, state.vc)
+            updates = tree_map(lambda u, p: u.to(p.dtype), _unstack_tree(u_stacked, params), params)
+        return updates, AdafactorState(step=step, vr=state.vr, vc=state.vc)
+
+    return Optimizer(init, update)
+
+
+def get_optimizer(name: str, lr: float, **kw) -> Optimizer:
+    makers = {"sgd": sgd, "momentum": momentum, "adamw": adamw, "adafactor": adafactor}
+    if name not in makers:
+        raise ValueError(f"unknown optimizer {name!r}")
+    return makers[name](lr, **kw)

@@ -15,7 +15,9 @@ buffers under interleaved and concurrent dispatches, and the launches a
 replay counts; the selection's signed-zero order and the facade's regime
 split against the CPU; the scheduling service and the fleet solve over a
 card engine against the CPU's; a toy-LM FL campaign trained and planned on
-the card against the CPU's, and pipelined against serial.
+the card against the CPU's, and pipelined against serial; SMOKE decode of a
+dense and two MoE archs on the card against the CPU, and the cache written
+in place.
 
 Every test here needs a CUDA card and ``nvcc`` (the kernel has no CPU mode),
 is marked ``cuda`` and skips without them. The file imports no JAX, so it
@@ -766,3 +768,66 @@ def test_cuda_plan_capture_beside_client_training(cuda):
     assert loss_c == loss_a
     for k in params_c:
         assert torch.equal(params_c[k], params_a[k])
+
+
+@pytest.mark.parametrize("arch", ["gemma2-2b", "olmoe-1b-7b", "deepseek-v3-671b"])
+def test_cuda_smoke_decode_matches_the_cpu(cuda, arch):
+    """Teacher-forced SMOKE decode (float32, einsum dispatch for MoE) of 12
+    positions on the card against the same weights on the CPU, at the
+    reference's decode tolerance (2e-3), and the greedy serve step's tokens
+    where the CPU's top-2 gap exceeds twice the largest deviation. The
+    decode step launches no flash kernel (Sq = 1)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import build_serve_step
+    from repro_torch.models import decode_fn, init_cache, init_params
+
+    cfg = get_config(arch, smoke=True)
+    cfg = cfg.replace(moe_impl="einsum") if cfg.num_experts else cfg
+    params = init_params(cfg, 0, device="cpu")
+    params_d = _to(params, cuda)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 12)))
+    out = {}
+    for dev, p in (("cpu", params), ("cuda", params_d)):
+        cache = init_cache(cfg, 2, 12, device=dev)
+        toks = tokens.to(dev)
+        before = fa.launches
+        out[dev] = torch.cat([decode_fn(p, cfg, cache, toks[:, t:t + 1], t)[0] for t in range(12)], dim=1).cpu()
+        assert fa.launches == before
+    torch.testing.assert_close(out["cuda"], out["cpu"], rtol=2e-3, atol=2e-3)
+    step, cache = build_serve_step(cfg), init_cache(cfg, 2, 12, device="cuda")
+    got = torch.cat([step(params_d, cache, tokens[:, t:t + 1].to(cuda), t)[0] for t in range(12)], dim=1).cpu()
+    top2 = out["cpu"].topk(2, dim=-1).values
+    decided = (top2[..., 0] - top2[..., 1]) > 2 * (out["cuda"] - out["cpu"]).abs().amax(dim=-1)
+    assert bool(((got == out["cpu"].argmax(dim=-1)) | ~decided).all())
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+@pytest.mark.parametrize("arch", ["gemma2-2b", "deepseek-v3-671b"])
+def test_cuda_decode_writes_the_cache_in_place(cuda, arch):
+    """On the card a decode step keeps the cache's tensors and storage
+    (``data_ptr`` unchanged) and writes only the slot at ``pos``, given as a
+    device tensor (no host sync in the step)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_fn, init_cache, init_params
+
+    cfg = get_config(arch, smoke=True)
+    params = init_params(cfg, 0, device="cuda")
+    cache = init_cache(cfg, 2, 8, device="cuda")
+    tensors = [t for pair in (cache.values() if isinstance(cache, dict) else [cache]) for t in pair]
+    ptrs = [t.data_ptr() for t in tensors]
+    before = [t.clone() for t in tensors]
+    tok = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 1))).to(cuda)
+    _, new = decode_fn(params, cfg, cache, tok, torch.tensor(5, device=cuda))
+    new_tensors = [t for pair in (new.values() if isinstance(new, dict) else [new]) for t in pair]
+    assert all(a is b for a, b in zip(new_tensors, tensors))
+    assert [t.data_ptr() for t in tensors] == ptrs
+    for t, b in zip(tensors, before):
+        written = (t != b).movedim(2, 0).reshape(t.shape[2], -1).any(dim=1)
+        assert written.nonzero().flatten().tolist() == [5]

@@ -119,8 +119,35 @@ def test_sgd_and_momentum_round_as_the_reference_in_bfloat16(opt_name):
 
 
 def test_adafactor_waits_for_the_moe_family():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        toptim.get_optimizer("adafactor", 1e-2)
+    """Adafactor came with the MoE family: on a client-sized tree (a 2-D
+    leaf, factored; a 1-D leaf; a list of layers, stacked as the reference
+    stacks them) three steps match the reference's updates and moments
+    within rtol 1e-6. A list of layers whose stacked layout is not given
+    is refused."""
+    rng = np.random.default_rng(6)
+    shapes = {"w": (32, 16), "b": (16,)}
+    p = {"w": rng.normal(size=shapes["w"]).astype(np.float32), "b": rng.normal(size=shapes["b"]).astype(np.float32),
+         "layers": {"a": rng.normal(size=(3, 8, 4)).astype(np.float32)}}
+    t_opt = toptim.get_optimizer("adafactor", 1e-2, stacks={"layers": (3,)})
+    j_opt = joptim.get_optimizer("adafactor", 1e-2)
+    to_t = lambda tree: {"w": torch.from_numpy(tree["w"]), "b": torch.from_numpy(tree["b"]),
+                         "layers": [{"a": torch.from_numpy(tree["layers"]["a"][i])} for i in range(3)]}
+    tp, pj = to_t(p), jax.tree.map(jnp.asarray, p)
+    for stacks in ({}, {"layers": (2,)}):
+        with pytest.raises(ValueError, match="layers"):
+            toptim.get_optimizer("adafactor", 1e-2, stacks=stacks).init(tp)
+    ts, sj = t_opt.init(tp), j_opt.init(pj)
+    for k in range(3):
+        g = jax.tree.map(lambda a: rng.normal(size=a.shape).astype(np.float32) * 10.0 ** -k, p)
+        u, ts = t_opt.update(to_t(g), ts, tp)
+        uj, sj = j_opt.update(jax.tree.map(jnp.asarray, g), sj, pj)
+        np.testing.assert_allclose(u["w"].numpy(), np.asarray(uj["w"]), rtol=1e-6, atol=0)
+        np.testing.assert_allclose(u["b"].numpy(), np.asarray(uj["b"]), rtol=1e-6, atol=0)
+        np.testing.assert_allclose(torch.stack([x["a"] for x in u["layers"]]).numpy(), np.asarray(uj["layers"]["a"]),
+                                   rtol=1e-6, atol=0)
+        for name in ("w", "b"):
+            np.testing.assert_allclose(ts.vr[name].numpy(), np.asarray(sj.vr[name]), rtol=1e-6)
+        np.testing.assert_allclose(ts.vc["layers"]["a"].numpy(), np.asarray(sj.vc["layers"]["a"]), rtol=1e-6)
     assert toptim.get_optimizer("sgd", 0.1).init({"w": torch.ones(2)}) == ()
 
 

@@ -38,6 +38,9 @@ def test_importing_every_port_module_pulls_in_no_jax():
         "repro_torch.fl.adaptive", "repro_torch.fl.toy", "repro_torch.optim.schedules",
         "repro_torch.data", "repro_torch.data.synthetic", "repro_torch.data.partition", "repro_torch.data.pipeline",
         "repro_torch.checkpoint", "repro_torch.checkpoint.checkpoint", "repro_torch.launch.train",
+        "repro_torch.launch.serve", "repro_torch.models.moe", "repro_torch.models.moe_dispatch",
+        "repro_torch.models.mla", "repro_torch.configs.granite_20b", "repro_torch.configs.minitron_8b",
+        "repro_torch.configs.olmoe_1b_7b", "repro_torch.configs.deepseek_v3_671b",
     } <= set(mods)
     code = (
         "import importlib, sys\n"

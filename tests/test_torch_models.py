@@ -1,8 +1,9 @@
 """The port's dense-LM prefill slice against the JAX package, on the CPU.
 
 Layers, configs, the parameter converter and the whole ``prefill_fn`` of the
-gemma2-2b and deepseek-7b SMOKE models go through both packages on the same
-numpy inputs. The JAX side runs its flash-attention route
+gemma2-2b, deepseek-7b, granite-20b and minitron-8b SMOKE models go through
+both packages on the same numpy inputs (the MoE family's in
+``test_torch_moe.py``). The JAX side runs its flash-attention route
 (``attn_impl="pallas"``, interpret mode); the port runs its ``"flash"`` route,
 which on CPU tensors is the kernel's plain version. Tolerances are stated at
 each comparison.
@@ -34,7 +35,8 @@ from repro_torch.models import (
 from repro_torch.models import layers as tl
 from repro_torch.models.convert import tensor_from_numpy
 
-ARCHS = ["gemma2-2b", "deepseek-7b"]
+ARCHS = ["gemma2-2b", "deepseek-7b", "granite-20b", "minitron-8b"]
+MOE_ARCHS = ["olmoe-1b-7b", "deepseek-v3-671b"]
 # float32 elementwise ops on the same inputs: only the order of the few
 # reductions (mean of squares, matrix products) differs
 TOL_LAYER = dict(rtol=2e-5, atol=2e-5)
@@ -108,8 +110,8 @@ def test_plain_attention_matches_jax(block_q):
 
 
 def test_configs_match_jax_and_translate_attn_impl():
-    assert list_archs() == sorted(ARCHS)
-    for arch in ARCHS:
+    assert list_archs() == sorted(ARCHS + MOE_ARCHS)
+    for arch in ARCHS + MOE_ARCHS:
         for smoke in (False, True):
             jcfg = jax_get_config(arch, smoke=smoke)
             cfg = config_from_jax(jcfg)
@@ -119,7 +121,7 @@ def test_configs_match_jax_and_translate_attn_impl():
     assert ATTN_IMPL_FROM_JAX == {"xla": "plain", "pallas": "flash"}
     assert get_config("gemma2-2b").pdtype() == torch.bfloat16
     with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("granite-20b")
+        get_config("xlstm-1.3b")
     with pytest.raises(ValueError):
         get_config("gemma2-2b").replace(param_dtype="float16").pdtype()
     with pytest.raises(ValueError):
@@ -179,8 +181,9 @@ def test_params_from_jax_keeps_bfloat16():
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_prefill_matches_jax(arch):
-    """gemma2-2b SMOKE (window 32: the sliding layers cut at S = 128) and
-    deepseek-7b SMOKE at B = 2, S = 128, float32. Logits agree to 1e-4:
+    """gemma2-2b SMOKE (window 32: the sliding layers cut at S = 128),
+    deepseek-7b, granite-20b (MQA: G = 4) and minitron-8b SMOKE at B = 2,
+    S = 128, float32. Logits agree to 1e-4:
     the matrix products sum in another order in the two packages, and the
     differences pass through two layers and a 512-way head."""
     cfg_j = jax_get_config(arch, smoke=True).replace(attn_impl="pallas", attn_block_q=64)
@@ -221,7 +224,7 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make_dummy_batch(cfg, 1, 8, "prefill", np.random.default_rng(0))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        prefill_fn({}, cfg.replace(family="moe"), {})
+        prefill_fn({}, cfg.replace(family="ssm"), {})
 
 
 def test_tensor_from_numpy_needs_a_card_unless_asked_for_the_cpu(monkeypatch):

@@ -1,7 +1,7 @@
 """The port's dense-LM training slice against the JAX package, on the CPU.
 
-``cross_entropy``, AdamW with ``apply_updates``, the gemma2-2b and
-deepseek-7b SMOKE losses and gradients, and three steps of
+``cross_entropy``, AdamW with ``apply_updates``, Adafactor, the gemma2-2b,
+deepseek-7b, granite-20b and minitron-8b SMOKE losses and gradients, and three steps of
 ``build_train_step`` go through both packages on the same numpy inputs. The
 JAX side runs its XLA attention route; the port runs its ``"flash"`` route,
 which on CPU tensors is the kernels' plain versions (forward and backward).
@@ -22,15 +22,16 @@ from repro.models import loss_fn as jax_loss_fn
 from repro.models.dense import cross_entropy as jax_cross_entropy
 from repro.optim.optimizers import adamw as jax_adamw
 from repro.optim.optimizers import apply_updates as jax_apply_updates
+from repro.optim.optimizers import get_optimizer as jax_get_optimizer
 from repro_torch.configs import get_config
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.launch import build_train_step, value_and_grad
-from repro_torch.models import config_from_jax, init_params, loss_fn, make_dummy_batch, params_from_jax
+from repro_torch.models import config_from_jax, init_params, layer_stacks, loss_fn, make_dummy_batch, params_from_jax
 from repro_torch.models.convert import tensor_from_numpy
 from repro_torch.models.dense import cross_entropy
 from repro_torch.optim import adamw, apply_updates, get_optimizer, tree_leaves
 
-ARCHS = ["gemma2-2b", "deepseek-7b"]
+ARCHS = ["gemma2-2b", "deepseek-7b", "granite-20b", "minitron-8b"]
 # the reference's dense-model tolerance (tests/test_flash_attention.py::
 # test_dense_model_with_pallas_attention_matches_xla)
 LOSS_ATOL = 2e-5
@@ -123,14 +124,40 @@ def test_adamw_matches_jax_over_three_steps(dtype):
 
 
 def test_get_optimizer_names_what_is_not_ported():
+    """Every optimizer of the reference is ported: ``get_optimizer`` makes
+    each, and refuses a name the reference does not know. Adafactor (ported
+    with the MoE family) takes three steps on gemma2-2b's SMOKE tree, its
+    ``(n_groups, period)``-stacked layers, within rtol 1e-6 of the
+    reference's updates and moments (``test_torch_moe.py`` holds the MoE
+    tree)."""
     assert get_optimizer("adamw", 1e-3).init({"w": torch.zeros(2)}).step.dtype == torch.int32
-    # sgd and momentum came with the FL runtime; adafactor waits for the MoE family
     assert get_optimizer("sgd", 1e-3).init({"w": torch.zeros(2)}) == ()
     assert torch.equal(get_optimizer("momentum", 1e-3).init({"w": torch.ones(2)})["w"], torch.zeros(2))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_optimizer("adafactor", 1e-3)
     with pytest.raises(ValueError):
         get_optimizer("lion", 1e-3)
+    cfg_j = jax_get_config("gemma2-2b", smoke=True)
+    cfg = config_from_jax(cfg_j)
+    tree = _jax_params(cfg_j, 0)
+    rng = np.random.default_rng(2)
+    jopt, topt = jax_get_optimizer("adafactor", 1e-2), get_optimizer("adafactor", 1e-2, stacks=layer_stacks(cfg))
+    jupdate = jax.jit(jopt.update)
+    jp = jax.tree.map(jnp.asarray, tree)
+    js, tp = jopt.init(jp), params_from_jax(cfg, tree, device="cpu")
+    ts = topt.init(tp)
+    assert ts.vr["layers"]["ln1"].shape == js.vr["layers"]["ln1"].shape == (cfg.num_layers // 2, 2)
+    for k in range(3):
+        g = jax.tree.map(lambda a: rng.normal(size=a.shape).astype(np.float32) * 10.0 ** -k, tree)
+        ju, js = jupdate(jax.tree.map(jnp.asarray, g), js, jp)
+        tu, ts = topt.update(params_from_jax(cfg, g, device="cpu"), ts, tp)
+        want = params_from_jax(cfg, jax.tree.map(np.asarray, ju), device="cpu")
+        for a, b in zip(tree_leaves(tu), tree_leaves(want)):
+            torch.testing.assert_close(a, b, rtol=1e-6, atol=0)
+        for got, ref in ((ts.vr, js.vr), (ts.vc, js.vc)):
+            for name in ("emb", "ln_f"):
+                np.testing.assert_allclose(got[name].numpy(), np.asarray(ref[name]), rtol=1e-6)
+            for name, v in ref["layers"].items():
+                if not isinstance(v, dict):
+                    np.testing.assert_allclose(got["layers"][name].numpy(), np.asarray(v), rtol=1e-6)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
