@@ -49,7 +49,7 @@ Phases, in order; any failure ends the run with a non-zero exit code:
                 card over mask kinds, softcaps, GQA ratios, head dims and
                 lengths (ragged ones included; at D = 128 also phase 15's
                 head counts, H = 48 with Hkv = 1 and H = 16 with Hkv =
-                16; and every shape phase 15 launches), and at the main path's
+                16; and every shape phases 15 and 16 launch), and at the main path's
                 causal and sliding shapes: float32 (CUDA cores) at rtol =
                 atol = 2e-5; bfloat16 I/O (tensor cores: wgmma, TMA) within
                 2e-2 of the plain output and within the limit the kernel's
@@ -72,8 +72,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
                 the kernel's share.
 9. flash bwd  — ``flash_attention_bwd`` (the dQ and dK/dV kernels) against
                 ``flash_attention_bwd_ref`` on the card over mask kinds,
-                softcaps, GQA ratios, head dims and lengths, and at the
-                training shapes (causal and sliding(4096)): float32 at rtol
+                softcaps, GQA ratios, head dims and lengths (and phase
+                16's training shape), and at the gemma2-2b training shapes
+                (causal and sliding(4096)): float32 at rtol
                 3e-4, atol 3e-5; bfloat16 I/O within 2^-8 relative of the
                 plain version's float32 gradients plus 1e-5 of their largest
                 entry, beside the error one wrongly visited tile would make.
@@ -203,6 +204,29 @@ Phases, in order; any failure ends the run with a non-zero exit code:
                 first flash launch of each shape held against the plain
                 version on its own inputs (a shape phase 6 did not hold
                 fails); the phase's wall time.
+16. ssm       — the SSM families at full width and depth (bf16, random
+                weights from ``torch.Generator`` seed 0): (a) xlstm-1.3b, a
+                prefill of 2,048 tokens through ``build_prefill_step``, one
+                layer's sLSTM scan alone on the prefill's own inputs (its
+                share of the prefill's kernel time by the profiler, its
+                launches and host cost); (b) zamba2-2.7b, a prefill of 8,192
+                tokens (9 flash launches, D = 80 on the D = 128 tensor-core
+                kernels, the last position against the plain route). Each:
+                the bf16 prefill against the same weights in float32; a
+                collect-state prefill of S - 256 tokens, then 16
+                teacher-forced decode steps against the prefill (within
+                max(0.1, the prefill's own float32 distance)); the serve
+                step's ms a token by CUDA events, busy share, launches and
+                bound; a float32 cut (8 and 12 layers) within 2e-3, and
+                zamba2's flash route within 1e-4 of the plain route; one
+                cold and two warm train steps (remat full, AdamW; 1,024 and
+                4,096 tokens; zamba2 18 forward, 9 dQ and 9 dK/dV launches
+                each, all tensor-core), losses falling, peak memory, the last
+                step's busy share by the profiler. Every flash launch's shape
+                must be one phases 6 and 9 held, and its first launch is held
+                on its own inputs. Then the forward, dQ and dK/dV at
+                zamba2's shapes beside their D = 80 bounds and
+                ``scaled_dot_product_attention``; the phase's wall time.
 
 The line before the last is a JSON object of every kernel with its launch
 count and times; the last line is ``{"ok": true, "device": {...}}``.
@@ -251,6 +275,17 @@ SERVE_FLASH_CASES = tuple(
 ) + ((2, 16, 16, 4096, 128, "causal", 0, 0.0), (4, 16, 16, 48, 128, "causal", 0, 0.0),
      (1, 128, 128, 1024, 128, "causal", 4096, 0.0), (1, 48, 1, 8192, 128, "causal", 4096, 0.0),
      (1, 32, 8, 8192, 128, "causal", 4096, 0.0))
+# Phase 16's flash launches: zamba2-2.7b's shared block, H = Hkv = 32 and D =
+# 2560 / 32 = 80, which runs on the D = 128 instances on zero-padded inputs;
+# the layers pass the config's window 4096, which "causal" ignores. Forward:
+# the prefill of ZAMBA_S tokens, the collect-state prefill of its first
+# ZAMBA_S - SSM_CHUNK, and the training step's ZAMBA_TRAIN_S; backward: the
+# training step's. Phase 6 holds each forward shape and phase 9 each backward
+# shape, in bfloat16 and float32; phase 16 fails on a launch at a shape not
+# listed.
+SSM_CHUNK, ZAMBA_S, ZAMBA_TRAIN_S = 256, 8192, 4096
+SSM_FLASH_CASES = tuple((1, 32, 32, S, 80, "causal", 4096, 0.0) for S in (ZAMBA_S, ZAMBA_S - SSM_CHUNK, ZAMBA_TRAIN_S))
+SSM_FLASH_BWD_CASES = ((1, 32, 32, ZAMBA_TRAIN_S, 80, "causal", 4096, 0.0),)
 # Training: gemma2-2b FULL (remat "full", AdamW), one batch of B_TRAIN prompts
 # of S_TRAIN tokens (S > window, so the sliding layers cut), one cold and
 # TRAIN_STEPS - 1 warm steps; the float32 check runs F32_LAYERS layers of it.
@@ -393,6 +428,28 @@ TF_STEPS = 16
 DECODE_REL_L2 = 0.1
 # The float32 cut: the reference's test_decode_matches_prefill tolerance.
 DECODE_F32_TOL = 2e-3
+# Phase 16: the SSM families at full width and depth, bfloat16, random
+# weights from torch.Generator seed SEED: (a) xlstm-1.3b, (b) zamba2-2.7b
+# (attn_impl "flash"). Each: a prefill of B = 1 x SSM_S tokens; a
+# collect-state prefill of its first S - SSM_CHUNK tokens (the chunked cells
+# need a multiple of the chunk, so a decode cannot start TF_STEPS before the
+# end), then TF_STEPS teacher-forced decode steps at positions S - SSM_CHUNK
+# .. against the prefill's logits there; the same in float32 at
+# SSM_F32_LAYERS layers (DECODE_F32_TOL); SSM_TRAIN_STEPS train steps (remat
+# "full", AdamW; one cold) at B = 1 x SSM_TRAIN_S tokens. The bfloat16 decode
+# is held within max(DECODE_REL_L2, r) of the bfloat16 prefill, where r is
+# the bfloat16 prefill's own relative L2 from the same weights run in
+# float32 at those positions: DECODE_REL_L2's random walk of one bfloat16
+# ulp a sublayer assumes sublayers that pass a perturbation on at about its
+# size, and xLSTM's exponential gates and normaliser amplify it, so there
+# rounding alone can exceed 0.1 (the phase prints r); a decode that differs
+# from its prefill by less than the prefill differs from float32 is within
+# rounding, while a wrong state or position moves the logits by O(1).
+SSM_ARCHS = ("xlstm-1.3b", "zamba2-2.7b")
+SSM_S = {"xlstm-1.3b": 2048, "zamba2-2.7b": ZAMBA_S}
+SSM_TRAIN_S = {"xlstm-1.3b": 1024, "zamba2-2.7b": ZAMBA_TRAIN_S}
+SSM_F32_LAYERS = {"xlstm-1.3b": 8, "zamba2-2.7b": 12}
+SSM_TRAIN_STEPS = 3
 
 
 def check(cond, msg):
@@ -646,7 +703,7 @@ def flash_phase(fa, dev):
                   (1, 2, 2, 8192, 128, "bidirectional", 0, 0.0, dtype)]
         cases += [(B, 8, 8 // G, S, D, kind, window, softcap, dtype) for B, G, S, D, kind, window, softcap in HEAD_DIM_CASES]
         cases += [(B, H, Hkv, S, 128, kind, 0, 0.0, dtype) for B, H, Hkv, S, kind in SERVE_HEAD_CASES]
-        cases += [(*case, dtype) for case in SERVE_FLASH_CASES]
+        cases += [(*case, dtype) for case in SERVE_FLASH_CASES + SSM_FLASH_CASES]
     worst = {torch.float32: [0.0] * 3, torch.bfloat16: [0.0] * 3}
     for B, H, Hkv, S, D, kind, window, softcap, dtype in cases:
         q, k, v = flash_inputs(gen, B, H, Hkv, S, D, dtype, dev)
@@ -660,8 +717,8 @@ def flash_phase(fa, dev):
         if S >= 4096:
             torch.cuda.empty_cache()
     f32, b16 = worst[torch.float32], worst[torch.bfloat16]
-    log(f"[flash] {len(cases)} cases ({padded_head_dims(fa)} among them; phase 15's {len(SERVE_FLASH_CASES)} launch "
-        f"shapes in both dtypes) within tolerance of the plain version: "
+    log(f"[flash] {len(cases)} cases ({padded_head_dims(fa)} among them; phase 15's {len(SERVE_FLASH_CASES)} and "
+        f"phase 16's {len(SSM_FLASH_CASES)} launch shapes in both dtypes) within tolerance of the plain version: "
         f"float32 rtol=atol={F32_TOL} on o and "
         f"lse (largest |do| {f32[1]:.3e}, |dlse| {f32[2]:.3e}); bfloat16 I/O o within {BF16_GRID_TOL} of the plain "
         f"output (largest {b16[0]:.3e}) and within {BF16_O_RTOL:.3e} |o32| + {BF16_P_RTOL:.3e} (P|V|)/l + {F32_TOL} "
@@ -757,27 +814,26 @@ def prefill_phase(fa, mp, dev):
 
 
 def device_time_table(step, params, batch, top=8):
-    """Device time by kernel over one call of ``step``, from torch.profiler:
-    the events that ran on the card (not the CPU-side operators, which carry
-    their kernels' time too, and not CUPTI's "Command Buffer Full" marker
-    for a full launch queue). Returns (total ms, the top [(ms, count,
-    name)], {kind: ms}) with kinds: the port's flash kernels, cuBLAS's
-    products (``nvjet``) and the rest."""
+    """Device time by kernel over one call of ``step``, from torch.profiler's
+    record of the card's activity: the kernel events (not CUPTI's "Command
+    Buffer Full" marker for a full launch queue), summed by name from the
+    raw kineto events (``key_averages`` spends about 100 us of host time on
+    each event, a minute for a call of 3e5 launches). Returns (total ms, the
+    top [(ms, count, name)], {kind: ms}, launches) with kinds: the port's
+    flash kernels, cuBLAS's products (``nvjet``) and the rest."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         step(params, batch)
         torch.cuda.synchronize()
-    rows = []
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA or e.key.startswith("Command Buffer"):
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA or e.name().startswith("Command Buffer"):
             continue
-        t = getattr(e, "self_device_time_total", None)
-        t = getattr(e, "self_cuda_time_total", 0) if t is None else t
-        if t > 0:
-            rows.append((t / 1e3, e.count, e.key))
-    rows.sort(reverse=True)
+        t, n = by_name.get(e.name(), (0.0, 0))
+        by_name[e.name()] = (t + e.duration_ns() / 1e6, n + 1)
+    rows = sorted(((t, n, name) for name, (t, n) in by_name.items() if t > 0), reverse=True)
     kinds = {"flash kernels": 0.0, "cuBLAS (nvjet)": 0.0, "the rest": 0.0}
     for t, _, name in rows:
         kinds["flash kernels" if "flash_" in name else "cuBLAS (nvjet)" if "nvjet" in name else "the rest"] += t
@@ -885,12 +941,12 @@ def bwd_limits(want, dtype):
     return BWD_BF16_RTOL, BWD_BF16_ATOL_REL * float(want.abs().max())
 
 
-def bwd_err(fa, got, args, kind, window, softcap):
+def bwd_err(fa, got, args, kind, window, softcap, scale=None):
     """Holds the kernels' ``(dq, dk, dv)`` against the plain backward on the
     widened inputs. Returns (ok, [max |g - want|], want)."""
     q, k, v, o, lse, do = args
     want = fa.flash_attention_bwd_ref(q.float(), k.float(), v.float(), o.float(), lse, do.float(), kind, window,
-                                      softcap)
+                                      softcap, scale)
     ok, errs = True, []
     for g, w in zip(got, want):
         rtol, atol = bwd_limits(w, q.dtype)
@@ -974,6 +1030,7 @@ def flash_bwd_phase(fa, dev):
                         cases.append((2 if S <= 640 else 1, 8, 8 // G, S, D, kind, window, softcap, dtype))
     for dtype in (torch.float32, torch.bfloat16):
         cases += [(B, 8, 8 // G, S, D, kind, window, softcap, dtype) for B, G, S, D, kind, window, softcap in HEAD_DIM_CASES]
+        cases += [(*case, dtype) for case in SSM_FLASH_BWD_CASES]
     worst = {torch.float32: [0.0] * 3, torch.bfloat16: [0.0] * 3}
     for B, H, Hkv, S, D, kind, window, softcap, dtype in cases:
         args = bwd_inputs(fa, gen, B, H, Hkv, S, D, dtype, dev, kind, window, softcap)
@@ -984,7 +1041,8 @@ def flash_bwd_phase(fa, dev):
                   f"softcap={softcap} {dtype} (max |d dq|, |d dk|, |d dv| {errs})")
         worst[dtype] = [max(a, b) for a, b in zip(worst[dtype], errs)]
     f32, b16 = worst[torch.float32], worst[torch.bfloat16]
-    log(f"[flash bwd] {len(cases)} cases ({padded_head_dims(fa)} among them) within tolerance of the plain "
+    log(f"[flash bwd] {len(cases)} cases ({padded_head_dims(fa)} among them, and phase 16's "
+        f"{len(SSM_FLASH_BWD_CASES)} launch shape in both dtypes) within tolerance of the plain "
         f"backward: float32 rtol={GRAD_RTOL} "
         f"atol={GRAD_ATOL} (largest |d dq|, |d dk|, |d dv| {f32[0]:.3e}, {f32[1]:.3e}, {f32[2]:.3e}); bfloat16 I/O "
         f"within rtol={BWD_BF16_RTOL:.3e} of the float32 gradients + {BWD_BF16_ATOL_REL} of their largest entry "
@@ -2631,14 +2689,21 @@ def fl_phase(mp, card, dev):
 
 
 def cache_tensors(cache) -> list:
-    """The tensors of a dense ``(k, v)`` or MoE ``{"moe", "dense"}`` cache."""
+    """The tensors of a decode cache: a dense ``(k, v)``, an MoE ``{"moe",
+    "dense"}``, or the nested dicts and tuples of an SSM state."""
     if isinstance(cache, dict):
-        return [t for pair in cache.values() for t in pair]
-    return list(cache)
+        return [t for x in cache.values() for t in cache_tensors(x)]
+    if isinstance(cache, (tuple, list)):
+        return [t for x in cache for t in cache_tensors(x)]
+    return [cache]
+
+
+def tensor_bytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def cache_gb(cache) -> float:
-    return sum(t.numel() * t.element_size() for t in cache_tensors(cache)) / 1e9
+    return tensor_bytes(cache_tensors(cache)) / 1e9
 
 
 @contextlib.contextmanager
@@ -2668,13 +2733,14 @@ def spying(module, name, record):
     return patched(module, name, make)
 
 
-def run_with_launches_held(fa, what, part, *args):
+def run_with_launches_held(fa, what, part, *args, cases=SERVE_FLASH_CASES):
     """Runs ``part(*args)`` while recording, for each distinct signature
     (B, H, Hkv, S, D, kind, window, softcap, dtype) of the flash forward
     launches the models make, the first launch's inputs and its ``(o,
     lse)``. Then holds each recorded output against the plain version on
     the same inputs (:func:`flash_err`, no further launch) and checks that
-    phase 6 held the kernel at that shape. Returns ``part``'s result."""
+    the shape is one of ``cases``, which phase 6 held. Returns ``part``'s
+    result."""
     from repro_torch.models import layers
 
     seen = {}
@@ -2692,7 +2758,7 @@ def run_with_launches_held(fa, what, part, *args):
         for key in list(seen):
             q, k, v, o, lse, scale = seen.pop(key)
             *shape, dtype = key
-            check(tuple(shape) in SERVE_FLASH_CASES, f"{what}: a flash launch at {tuple(shape)}, which phase 6 "
+            check(tuple(shape) in cases, f"{what}: a flash launch at {tuple(shape)}, which phase 6 "
                                                      f"did not hold against the plain version")
             ok, *errs = flash_err(fa, (o, lse), q, k, v, *shape[5:], scale)
             check(ok, f"{what}: the flash launch at {key} != plain on its inputs (max |do|, |do32|, |dlse| {errs})")
@@ -2729,10 +2795,10 @@ def teacher_forced(decode_fn, params, cfg, cache, tokens, start):
     return torch.stack(outs, dim=1)
 
 
-def decode_vs_prefill(what, got, want, tokens=None, flips=None):
+def decode_vs_prefill(what, got, want, tokens=None, flips=None, limit=DECODE_REL_L2):
     """Holds decode logits against prefill logits of the same positions
-    ``(B, n, V)``: every position within DECODE_REL_L2 (relative L2 over the
-    vocabulary). With ``tokens (B, n)`` (the greedy tokens those positions
+    ``(B, n, V)``: every position within ``limit`` (relative L2 over the
+    vocabulary; DECODE_REL_L2 unless the caller argues another). With ``tokens (B, n)`` (the greedy tokens those positions
     produced), each must be the prefill's argmax wherever the prefill's
     top-2 gap exceeds twice the largest |decode - prefill| at that position
     (there no deviation that small can swap the two). With ``flips (B, n)``
@@ -2742,9 +2808,9 @@ def decode_vs_prefill(what, got, want, tokens=None, flips=None):
     rel = (got - want).norm(dim=-1) / want.norm(dim=-1)
     dev = (got - want).abs().amax(dim=-1)
     worst = float(rel.max())
-    msg = (f"{what}: relative L2 per position max {worst:.3e}, mean {float(rel.mean()):.3e} (limit {DECODE_REL_L2}); "
+    msg = (f"{what}: relative L2 per position max {worst:.3e}, mean {float(rel.mean()):.3e} (limit {limit:.4g}); "
            f"max |dlogit| {float(dev.max()):.3e}")
-    check(worst <= DECODE_REL_L2, msg)
+    check(worst <= limit, msg)
     if flips is not None:
         same = flips == 0
         split = lambda m: f"max {float(rel[m].max()):.3e}" if bool(m.any()) else "none"  # noqa: E731
@@ -3130,6 +3196,416 @@ def serve_phase(fa, dev, card):
     return parts
 
 
+# -- phase 16: the SSM families ---------------------------------------------
+
+
+def run_with_bwd_launches_held(fa, what, part, *args):
+    """Runs ``part(*args)`` while recording, for each distinct signature
+    (B, H, Hkv, S, D, kind, window, softcap, dtype) of the flash backward
+    calls the models make, the first call's inputs and its ``(dq, dk, dv)``
+    (D is the kernel's: a model's D = 80 arrives zero-padded to 128). Then
+    holds each against the plain backward on the same inputs
+    (:func:`bwd_err`) and checks that the shape is one of
+    SSM_FLASH_BWD_CASES, which phase 9 held. Returns ``part``'s result."""
+    seen = {}
+
+    def record(out, q, k, v, o, lse, do, kind="causal", window=0, softcap=0.0, scale=None):
+        key = (q.shape[0], q.shape[1], k.shape[1], q.shape[2], q.shape[3], kind, window, softcap, q.dtype)
+        if key not in seen:
+            seen[key] = ([t.detach().clone() for t in (q, k, v, o, lse, do)], [t.detach().clone() for t in out], scale)
+
+    with spying(fa, "flash_attention_bwd", record):
+        result = part(*args)
+    allowed = {(B, H, Hkv, S, fa.kernel_head_dim(D), kind, window, softcap)
+               for B, H, Hkv, S, D, kind, window, softcap in SSM_FLASH_BWD_CASES}
+    for key in list(seen):
+        inputs, got, scale = seen.pop(key)
+        *shape, dtype = key
+        check(tuple(shape) in allowed, f"{what}: a flash backward launch at {tuple(shape)}, which phase 9 did not hold "
+                                       f"against the plain version")
+        ok, errs, _ = bwd_err(fa, got, inputs, *shape[5:], scale)
+        check(ok, f"{what}: the flash backward at {key} != plain on its inputs (max |d dq|, |d dk|, |d dv| {errs})")
+        log(f"[ssm] {what}: backward launch (B, H, Hkv, S, D, kind, window, softcap) {tuple(shape)} {dtype}, the "
+            f"first of its shape: within phase 9's tolerance of the plain backward on its own inputs (max |d dq| "
+            f"{errs[0]:.3e}, |d dk| {errs[1]:.3e}, |d dv| {errs[2]:.3e})")
+        del inputs, got
+        torch.cuda.empty_cache()
+    return result
+
+
+def ssm_prefix_decode(params, cfg, tokens):
+    """A collect-state prefill of ``tokens[:, :start]`` with ``start = S -
+    cfg.chunk_size``, then TF_STEPS teacher-forced decode steps from its
+    state at positions ``start ..``. zamba2's collected keys and values go
+    into a cache of S slots first (its collect-state prefill fills a cache
+    exactly as long as the prompt). Returns the steps' float32 logits ``(B,
+    TF_STEPS, V)``, the state after them and ``start``; checks that the KV
+    cache stays the same tensors."""
+    from repro_torch.models import decode_fn, hybrid, init_cache, xlstm
+
+    B, S = tokens.shape
+    start = S - cfg.chunk_size
+    with torch.inference_mode():
+        if cfg.family == "ssm":
+            _, state = xlstm.xlstm_forward(params, cfg, tokens[:, :start], collect_state=True)
+        else:
+            _, state = hybrid.zamba_forward(params, cfg, tokens[:, :start], collect_state=True)
+            attn = init_cache(cfg, B, S)["attn"]
+            for dst, src in zip(attn, state["attn"]):
+                dst[:, :, :start].copy_(src)
+            state = {"mamba": state["mamba"], "attn": attn}
+    kv = state.get("attn", ())
+    outs = []
+    for i in range(TF_STEPS):
+        lg, state = decode_fn(params, cfg, state, tokens[:, start + i:start + i + 1], start + i)
+        outs.append(lg[:, 0])
+    check(all(a is b for a, b in zip(state.get("attn", ()), kv)), "the KV cache was not written in place")
+    return torch.stack(outs, dim=1), state, start
+
+
+def ssm_decode_bound_ms(params, cfg, state, pos):
+    """Least time of one decode step at position ``pos``: the parameters read
+    once (zamba2's shared block once for each of its applications), the
+    recurrent states read and written once, and the attended KV slots
+    (positions 0..pos of every application's cache) read once, over HBM
+    bandwidth. Returns (ms, (weight, KV, state bytes))."""
+    from repro_torch.optim import tree_leaves
+
+    w = tensor_bytes(tree_leaves(params))
+    kv = 0
+    rec = 2 * tensor_bytes(cache_tensors(state["mamba"] if cfg.family == "hybrid" else state))
+    if cfg.family == "hybrid":
+        shared = tensor_bytes(tree_leaves({k: params[k] for k in ("shared", "shared_in_proj")}))
+        w += (cfg.num_layers // cfg.shared_attn_every - 1) * shared
+        k, _ = state["attn"]
+        kv = 2 * k[:, :, :pos + 1].numel() * k.element_size()
+    return 1e3 * (w + kv + rec) / PEAK_BYTES_PER_S, (w, kv, rec)
+
+
+def slstm_bound_ms(args):
+    """Least time of one sLSTM scan: its recurrent products (2 x 4D flops per
+    entry of h, in float32 outside the tensor cores) over the float32 peak,
+    or its bytes (the four gate inputs, the weights and the float32 output)
+    over HBM bandwidth. The time steps depend on each other, which no
+    roofline counts."""
+    z, r = args[0], args[4]
+    B, L, H, D = z.shape
+    flops = 2 * B * L * H * D * 4 * D
+    nbytes = 4 * z.numel() * z.element_size() + tensor_bytes(r.values()) + 4 * z.numel()
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def kinds_text(kinds) -> str:
+    return ", ".join(f"{k} {t:.3f} ms" for k, t in kinds.items())
+
+
+def ssm_part(fa, dev, card, arch):
+    """Phase 16 (a) xlstm-1.3b or (b) zamba2-2.7b at full width and depth:
+    the prefill, decode against it (bfloat16 and the float32 cut), training.
+    Returns (flash launches by use, figures)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import build_prefill_step, build_serve_step, build_train_step
+    from repro_torch.models import init_params, make_dummy_batch, param_count, prefill_fn, xlstm
+    from repro_torch.models import ssm as cells
+    from repro_torch.optim import tree_map
+
+    what = "(a)" if arch == SSM_ARCHS[0] else "(b)"
+    cfg = get_config(arch).replace(attn_impl="flash")
+    hybrid = cfg.family == "hybrid"
+    check(cfg.chunk_size == SSM_CHUNK and cfg.remat == "full" and cfg.optimizer == "adamw",
+          f"{arch} FULL: chunk {cfg.chunk_size}, remat {cfg.remat}, {cfg.optimizer}")
+    n_attn = cfg.num_layers // cfg.shared_attn_every if hybrid else 0
+    if hybrid:
+        check(cfg.hd == 80 and fa.kernel_head_dim(cfg.hd) == 128, f"{arch}: head dim {cfg.hd} runs on the "
+                                                                    f"D = {fa.kernel_head_dim(cfg.hd)} kernels")
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    S = SSM_S[arch]
+    tokens = torch.from_numpy(np.random.default_rng(SEED).integers(0, cfg.vocab_size, (1, S))).long().to(dev)
+    batch = {"tokens": tokens}
+    step = build_prefill_step(cfg)
+    launches, figs = {}, {}
+    t_part = time.perf_counter()
+
+    def slog(msg):
+        log(f"[ssm] {what} +{time.perf_counter() - t_part:.1f} s: {msg}")
+
+    layout = (f"{cfg.num_layers} Mamba2 layers, the shared attention block applied {n_attn} times (H = Hkv = "
+              f"{cfg.num_heads}, D = {cfg.hd} on the D = {fa.kernel_head_dim(cfg.hd)} kernels, zero-padded)" if hybrid
+              else f"{cfg.num_layers} blocks, one sLSTM in {cfg.slstm_every}, H = {cfg.num_heads}, inner "
+                   f"{cfg.ssm_expand * cfg.d_model}")
+    slog(f"{arch} FULL: {param_count(params)} parameters ({cfg.param_dtype}, "
+        f"{tensor_bytes(cache_tensors(params)) / 1e9:.3f} GB), {layout}, d = {cfg.d_model}, V = {cfg.vocab_size}, "
+        f"chunk {cfg.chunk_size}; initialised on the card in {init_s:.2f} s")
+
+    # -- prefill
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = fa.launches_fwd_tc = 0
+    scans = []
+    t0 = time.perf_counter()
+    with spying(xlstm, "slstm_scan", lambda out, *args, **kw: scans.append(args) if not scans else None):
+        logits = step(params, batch)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    check(tuple(logits.shape) == (1, S, cfg.vocab_size) and bool(torch.isfinite(logits).all()),
+          f"{what} prefill: logits {tuple(logits.shape)}, finite {bool(torch.isfinite(logits).all())}")
+    check(fa.launches == n_attn and fa.launches_fwd_tc == n_attn,
+          f"{what} prefill: {fa.launches} flash launches ({fa.launches_fwd_tc} tensor-core), expected {n_attn}")
+    check(len(scans) == (0 if hybrid else 1), f"{what} prefill: sLSTM scans recorded {len(scans)}")
+    launches["prefill"] = fa.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    start = S - SSM_CHUNK
+    want = logits[:, start:start + TF_STEPS].clone()
+    last = logits[:, -1].clone()
+    del logits
+    prefill_ms = median_wall_ms(lambda: step(params, batch), reps=1)
+    busy, rows, kinds, n_kernels = device_time_table(lambda p, b: step(p, b), params, batch, top=6)
+    figs.update(prefill_ms=prefill_ms, prefill_tokens_s=S / prefill_ms * 1e3, prefill_busy_ms=busy,
+                prefill_launches=n_kernels, prefill_peak_gb=peak_gb)
+    slog(f"prefill B=1 S={S}: {launches['prefill']} flash launches{' (all tensor-core)' if n_attn else ''}, finite logits, "
+        f"first call {cold_s:.3f} s, warm {prefill_ms:.3f} ms (host clock) = {S / prefill_ms * 1e3:.1f} tokens/s, "
+        f"peak device memory {peak_gb:.2f} GB; by the profiler {busy:.3f} ms of kernel time over {n_kernels} "
+        f"launches, busy share {busy / prefill_ms:.3f} (idle {1 - busy / prefill_ms:.3f}); by kind {kinds_text(kinds)}")
+    for t, n, name in rows:
+        log(f"[ssm]   {t:10.3f} ms  x{n:<7d} {name[:90]}")
+    if hybrid:
+        plain = prefill_fn(params, cfg.replace(attn_impl="plain"), batch)[:, -1].clone()
+        torch.cuda.empty_cache()
+        rel = float((last - plain).norm() / plain.norm())
+        slog(f"last position, kernel route vs plain route (block_q={cfg.attn_block_q}): relative L2 "
+            f"{rel:.3e} (limit {PREFILL_REL_L2}), max |dlogit| {float((last - plain).abs().max()):.3e}")
+        check(rel <= PREFILL_REL_L2, f"{what}: the kernel route's last logits differ from the plain route's: {rel}")
+        del plain
+    else:
+        # one layer's sLSTM scan on the prefill's own inputs, alone
+        with torch.inference_mode():
+            args = scans.pop()
+            scan_busy, _, scan_kinds, scan_kernels = device_time_table(lambda p, b: cells.slstm_scan(*args), None,
+                                                                       None)
+            scan_ms = median_event_ms(lambda: cells.slstm_scan(*args), reps=1, warmup=0)
+            scan_wall = median_wall_ms(lambda: cells.slstm_scan(*args), reps=1)
+        n_s = cfg.num_layers // cfg.slstm_every
+        b_ms, b_by = slstm_bound_ms(args)
+        figs.update(slstm_layer_ms=scan_ms, slstm_layer_busy_ms=scan_busy, slstm_layer_launches=scan_kernels,
+                    slstm_share_busy=n_s * scan_busy / busy, slstm_share_wall=n_s * scan_ms / prefill_ms,
+                    slstm_bound_ms=b_ms)
+        slog(f"one layer's sLSTM scan (L = {S} steps, B=1, H = {cfg.num_heads}, D = "
+            f"{cfg.d_model // cfg.num_heads}) on the prefill's inputs: {scan_ms:.3f} ms by CUDA events "
+            f"({scan_wall:.3f} ms host clock), {scan_busy:.3f} ms of kernel time over {scan_kernels} launches "
+            f"({scan_kernels / S:.1f} a step, {1e3 * scan_ms / S:.2f} us a step), busy share {scan_busy / scan_ms:.3f}; "
+            f"bound {b_ms:.4f} ms ({b_by}); x {n_s} layers = {n_s * scan_busy:.3f} ms, a share "
+            f"{n_s * scan_busy / busy:.3f} of the prefill's kernel time and {n_s * scan_ms / prefill_ms:.3f} of its "
+            f"warm time; by kind {kinds_text(scan_kinds)}")
+        del args
+    torch.cuda.empty_cache()
+
+    # -- decode against the prefill, beside the prefill's own rounding
+    n0 = fa.launches
+    wide_cfg = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    exact = prefill_fn(tree_map(lambda t: t.float(), params), wide_cfg, batch)[:, start:start + TF_STEPS].clone()
+    launches["float32 reference"] = fa.launches - n0
+    check(launches["float32 reference"] == n_attn, f"{what}: the float32 reference prefill launched "
+                                                   f"{launches['float32 reference']}")
+    torch.cuda.empty_cache()
+    rounding = float(((want - exact).norm(dim=-1) / exact.norm(dim=-1)).max())
+    figs.update(bf16_vs_float32=rounding)
+    slog(f"the bfloat16 prefill against the same weights run in float32, positions {start}-"
+        f"{start + TF_STEPS - 1}: relative L2 max {rounding:.3e}")
+    n0 = fa.launches
+    got, state, start = ssm_prefix_decode(params, cfg, tokens)
+    launches["decode check"] = fa.launches - n0
+    check(launches["decode check"] == n_attn, f"{what}: the collect-state prefill launched {launches['decode check']}")
+    dec = ((got - want).norm(dim=-1) / want.norm(dim=-1))
+    figs.update(decode_rel_l2_max=float(dec.max()), decode_rel_l2_mean=float(dec.mean()))
+    decode_vs_prefill(f"{what} {arch}: {TF_STEPS} teacher-forced decode steps at positions {start}-"
+                      f"{start + TF_STEPS - 1}, after a collect-state prefill of {start} tokens, vs the prefill",
+                      got, want, limit=max(DECODE_REL_L2, rounding))
+    del exact
+    serve_step = build_serve_step(cfg)
+    pos = start + TF_STEPS
+    tok = tokens[:, -1:]
+    step_ms = median_event_ms(lambda: serve_step(params, state, tok, pos), reps=5, per_rep=3, warmup=1)
+    wall = median_wall_ms(lambda: serve_step(params, state, tok, pos), reps=5)
+    dbusy, drows, dkinds, dn = device_time_table(lambda p, b: serve_step(p, state, tok, pos), params, None)
+    b_ms, (w, kv, rec) = ssm_decode_bound_ms(params, cfg, state, pos)
+    figs.update(decode_ms=step_ms, decode_wall_ms=wall, decode_busy_ms=dbusy, decode_launches=dn, decode_bound_ms=b_ms)
+    slog(f"serve step at B=1, position {pos}: {step_ms:.4f} ms a token by CUDA events (3 back to back, "
+        f"median of 5), {wall:.4f} ms alone (host clock to a sync); by the profiler {dbusy:.4f} ms of kernel time over "
+        f"{dn} launches, busy share {dbusy / step_ms:.3f}; by kind {kinds_text(dkinds)}; bound {b_ms:.4f} ms (bytes: "
+        f"weights {w / 1e9:.3f} GB, KV slots {kv / 1e9:.3f} GB, states read and written {rec / 1e9:.3f} GB at "
+        f"{PEAK_BYTES_PER_S / 1e12:.2f} TB/s), step at {step_ms / b_ms:.2f}x the bound; state "
+        f"{cache_gb(state):.3f} GB")
+    for t, n, name in drows[:4]:
+        log(f"[ssm]   {t:10.4f} ms  x{n:<5d} {name[:90]}")
+    del got, state, want
+    torch.cuda.empty_cache()
+
+    # -- the float32 cut
+    cfg32 = cfg.replace(num_layers=SSM_F32_LAYERS[arch], param_dtype="float32", compute_dtype="float32")
+    n32 = cfg32.num_layers // cfg32.shared_attn_every if hybrid else 0
+    p32 = init_params(cfg32, torch.Generator(device=dev).manual_seed(SEED))
+    n0, n0_tc = fa.launches, fa.launches_fwd_tc
+    full32 = prefill_fn(p32, cfg32, batch)
+    launches["float32 cut"] = fa.launches - n0
+    check(fa.launches - n0 == n32 and fa.launches_fwd_tc == n0_tc, f"{what} float32 prefill: "
+                                                                   f"{fa.launches - n0} flash launches")
+    want32 = full32[:, start:start + TF_STEPS].clone()
+    route = ""
+    if hybrid:
+        plain32 = prefill_fn(p32, cfg32.replace(attn_impl="plain"), batch)
+        err = float((full32 - plain32).abs().max())
+        check(bool(torch.allclose(full32, plain32, rtol=1e-4, atol=1e-4)), f"{what} float32 prefill, kernel vs "
+                                                                          f"plain route: max |dlogit| {err}")
+        route = f"; the kernel-route prefill within rtol=atol=1e-4 of the plain route at all {S} positions " \
+                f"(max |dlogit| {err:.3e})"
+        del plain32
+    del full32
+    n0 = fa.launches
+    got32, _, _ = ssm_prefix_decode(p32, cfg32, tokens)
+    check(fa.launches - n0 == n32, f"{what}: the float32 collect-state prefill launched {fa.launches - n0}")
+    launches["float32 cut"] += fa.launches - n0
+    err = float((got32 - want32).abs().max())
+    check(bool(torch.allclose(got32, want32, rtol=DECODE_F32_TOL, atol=DECODE_F32_TOL)),
+          f"{what} float32 decode vs prefill: max |dlogit| {err}")
+    slog(f"float32, {cfg32.num_layers} layers at full width: {TF_STEPS} teacher-forced steps after a "
+        f"collect-state prefill of {start} tokens within rtol=atol={DECODE_F32_TOL} of the prefill (max |dlogit| "
+        f"{err:.3e}){route}")
+    del p32, got32, want32
+    torch.cuda.empty_cache()
+
+    # -- training
+    tb = make_dummy_batch(cfg, 1, SSM_TRAIN_S[arch], "train", np.random.default_rng(SEED), device=dev)
+    tstep, opt = build_train_step(cfg)
+    ostate = opt.init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters = ("launches", "launches_dq", "launches_dkv", "launches_fwd_tc", "launches_dq_tc", "launches_dkv_tc")
+    before = {c: getattr(fa, c) for c in counters}
+    losses, secs, out = [], [], {}
+    for i in range(SSM_TRAIN_STEPS):
+        n0 = [getattr(fa, c) for c in counters]
+        t0 = time.perf_counter()
+        if i == SSM_TRAIN_STEPS - 1:  # the last step under the profiler: the card's busy time
+            def run(p, b):
+                out["step"] = tstep(p, ostate, b)
+
+            tbusy, trows, tkinds, tn = device_time_table(run, params, tb, top=6)
+            params, ostate, loss = out.pop("step")
+        else:
+            params, ostate, loss = tstep(params, ostate, tb)
+            torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        per = tuple(getattr(fa, c) - n for c, n in zip(counters, n0))
+        check(per == (2 * n_attn, n_attn, n_attn) * 2, f"{what} train step {i + 1}: (forward, dQ, dK/dV) launches and "
+                                                       f"their tensor-core ones {per}, expected "
+                                                       f"{(2 * n_attn, n_attn, n_attn) * 2}")
+        losses.append(float(loss))
+        check(math.isfinite(losses[-1]), f"{what} train step {i + 1}: loss {losses[-1]}")
+    check(losses[-1] < losses[0], f"{what}: the loss did not fall over {SSM_TRAIN_STEPS} steps on one batch: {losses}")
+    train_peak = torch.cuda.max_memory_allocated() / 1e9
+    for c, key in (("launches", "train forward"), ("launches_dq", "train dq"), ("launches_dkv", "train dkv")):
+        launches[key] = getattr(fa, c) - before[c]
+    T = SSM_TRAIN_S[arch]
+    warm_ms = 1e3 * secs[1]
+    figs.update(train_warm_ms=warm_ms, train_tokens_s=T / warm_ms * 1e3, train_busy_ms=tbusy, train_launches=tn,
+                train_peak_gb=train_peak, losses=losses)
+    slog(f"{SSM_TRAIN_STEPS} train steps (remat {cfg.remat}, {cfg.optimizer} lr {cfg.learning_rate}) "
+        f"B=1 S={T}: per step {2 * n_attn} forward (with the remat recompute), {n_attn} dQ and {n_attn} dK/dV flash "
+        f"launches{', all tensor-core' if n_attn else ''}; losses {', '.join(f'{x:.5f}' for x in losses)}; steps "
+        f"{', '.join(f'{x:.3f}' for x in secs)} s (the first cold, the last under the profiler); warm "
+        f"{warm_ms:.3f} ms = {T / warm_ms * 1e3:.1f} tokens/s; peak device memory {train_peak:.2f} GB; by the "
+        f"profiler {tbusy:.3f} ms of kernel time over {tn} launches, busy share {tbusy / warm_ms:.3f} of the warm "
+        f"step; by kind {kinds_text(tkinds)}")
+    for t, n, name in trows:
+        log(f"[ssm]   {t:10.3f} ms  x{n:<7d} {name[:90]}")
+    del params, ostate, tb, tstep, opt
+    torch.cuda.empty_cache()
+    return launches, figs
+
+
+def padded_flash_times(fa, dev, card):
+    """Phase 16: the flash kernels at zamba2's shapes, where D = 80 runs on
+    the D = 128 kernels on zero-padded inputs: each kernel alone on padded
+    inputs, by CUDA events around 3 back-to-back launches (a launch of 1-5
+    ms dwarfs its enqueue; the profiler dropped 3 of 5 of these records in
+    one session), the whole padded call beside it (the padding's and
+    slicing's copies, and the backward's delta), their bound at D = 80 and
+    at 128, and ``scaled_dot_product_attention`` (forward, and its
+    backward) at D = 80. Returns the JSON fields."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    res = {}
+    D, Dk = 80, fa.kernel_head_dim(80)
+    scale = D ** -0.5
+    for S in (ZAMBA_S, ZAMBA_TRAIN_S):
+        q, k, v = flash_inputs(gen, 1, 32, 32, S, D, torch.bfloat16, dev)
+        qp, kp, vp = (F.pad(x, (0, Dk - D)) for x in (q, k, v))
+        n0 = fa.launches_fwd_tc
+        ms = median_event_ms(lambda: fa.flash_attention(qp, kp, vp, "causal", 4096, 0.0, scale), reps=5, per_rep=3)
+        call_ms = median_event_ms(lambda: fa.flash_attention(q, k, v, "causal", 4096, 0.0), reps=5, per_rep=3)
+        check(fa.launches_fwd_tc - n0 == 2 * (3 + 5 * 3), "the D = 80 forward timing did not launch the tensor-core "
+                                                          "kernel once a call")
+        b80, by80 = flash_bound_ms(1, 32, 32, S, D, "causal", 0, 2)
+        b128, _ = flash_bound_ms(1, 32, 32, S, Dk, "causal", 0, 2)
+        lib = median_event_ms(lambda: library_attention(fa, F, q, k, v, "causal", 0), reps=5, per_rep=3)
+        res[f"fwd_S{S}"] = dict(ms=ms, pad_ms=call_ms - ms, bound_ms=b80, bound_by=by80, bound_ms_at_128=b128,
+                                library_ms=lib)
+        log(f"[ssm] flash forward B=1 H=Hkv=32 S={S} D={D} causal bfloat16 (zamba2's shared block): the D = {Dk} "
+            f"kernel {ms:.4f} ms a launch on padded inputs, the padded call {call_ms:.4f} ms (padding and slicing "
+            f"{call_ms - ms:.4f} ms); bound at D = {D} {b80:.4f} ms ({by80}), kernel at {ms / b80:.2f}x; bound at "
+            f"D = {Dk} {b128:.4f} ms, kernel at {ms / b128:.2f}x; scaled_dot_product_attention at D = {D} "
+            f"{lib:.4f} ms")
+        del q, k, v, qp, kp, vp
+        torch.cuda.empty_cache()
+    S = ZAMBA_TRAIN_S
+    args = bwd_inputs(fa, gen, 1, 32, 32, S, D, torch.bfloat16, dev, "causal", 4096, 0.0)
+    q, k, v, o, lse, do = args
+    qp, kp, vp, op, dop = (F.pad(x, (0, Dk - D)) for x in (q, k, v, o, do))
+    do_c, delta = fa._bwd_rows(op, dop)
+    ms = {which: median_event_ms(lambda: fa._launch_bwd(which, qp, kp, vp, do_c, lse, delta, "causal", 4096, 0.0,
+                                                        scale), reps=5, per_rep=3) for which in ("dq", "dkv")}
+    call_ms = median_event_ms(lambda: fa.flash_attention_bwd(*args, "causal", 4096, 0.0), reps=5, per_rep=3)
+    qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+    lib_out = library_attention(fa, F, qg, kg, vg, "causal", 0)
+    lib = median_event_ms(lambda: torch.autograd.grad(lib_out, (qg, kg, vg), do, retain_graph=True), reps=5, per_rep=3)
+    for which in ("dq", "dkv"):
+        b80, by80 = flash_bwd_bound_ms(1, 32, 32, S, D, "causal", 0, 2, which)
+        b128, _ = flash_bwd_bound_ms(1, 32, 32, S, Dk, "causal", 0, 2, which)
+        res[f"{which}_S{S}"] = dict(ms=ms[which], bound_ms=b80, bound_by=by80, bound_ms_at_128=b128, library_ms=lib)
+        log(f"[ssm] flash_{which} B=1 H=Hkv=32 S={S} D={D} causal bfloat16: the D = {Dk} kernel {ms[which]:.4f} ms "
+            f"a launch on padded inputs; bound at D = {D} {b80:.4f} ms ({by80}), kernel at {ms[which] / b80:.2f}x; "
+            f"bound at D = {Dk} {b128:.4f} ms, kernel at {ms[which] / b128:.2f}x; library (backward of "
+            f"scaled_dot_product_attention at D = {D}, dq, dk and dv) {lib:.4f} ms")
+    pad = call_ms - ms["dq"] - ms["dkv"]
+    log(f"[ssm] the padded backward call {call_ms:.4f} ms: padding, slicing and delta {pad:.4f} ms; {card}")
+    res["bwd_pad_ms"] = pad
+    del args, qg, kg, vg, lib_out, qp, kp, vp, op, dop, do_c, delta
+    torch.cuda.empty_cache()
+    return res
+
+
+def ssm_phase(fa, dev, card):
+    """Phase 16: the SSM families. Returns (flash launches by arch and use,
+    figures, the D = 80 flash times)."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    launches, figs = {}, {}
+    for arch in SSM_ARCHS:
+        what = "(a)" if arch == SSM_ARCHS[0] else "(b)"
+
+        def held(arch=arch, what=what):
+            return run_with_launches_held(fa, what, ssm_part, fa, dev, card, arch, cases=SSM_FLASH_CASES)
+
+        launches[arch], figs[arch] = run_with_bwd_launches_held(fa, what, held)
+    d80 = padded_flash_times(fa, dev, card)
+    log(f"[ssm] phase 16 wall time {time.perf_counter() - t0:.1f} s; flash launches {launches}")
+    return launches, figs, d80
+
+
 def main() -> int:
     # -- phase 1: device ---------------------------------------------------
     if not torch.cuda.is_available():
@@ -3239,6 +3715,10 @@ def main() -> int:
     # -- phase 15: serving the LM zoo -----------------------------------------
     launches_serve_parts = serve_phase(fa, dev, card)
 
+    # -- phase 16: the SSM families --------------------------------------------
+    launches_ssm, _, d80 = ssm_phase(fa, dev, card)
+    ssm_by_use = {f"{arch}: {use}": n for arch, uses in launches_ssm.items() for use, n in uses.items()}
+
     kernels = [{
         "name": "minplus_cuda",
         "route": "cuda",
@@ -3277,6 +3757,8 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_attention.py:53",
         "launches": launches_prefill,
         "serve_launches_by_part": launches_serve_parts,
+        "ssm_launches_by_part": {k: v for k, v in ssm_by_use.items() if "dq" not in k and "dkv" not in k},
+        "zamba2_d80": {k: v for k, v in d80.items() if k.startswith("fwd")},
         "max_abs_err": flash_err_max,
         **ft,
     }, {
@@ -3286,6 +3768,8 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/flash_bwd.cu",
         "replaces": "src/repro/kernels/flash_attention.py:96",
         "launches": launches_train["flash_dq"],
+        "ssm_launches_by_part": {k: v for k, v in ssm_by_use.items() if k.endswith("train dq")},
+        "zamba2_d80": d80[f"dq_S{ZAMBA_TRAIN_S}"],
         "max_abs_err": dq_err,
         **dq_t,
     }, {
@@ -3295,6 +3779,8 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/flash_bwd.cu",
         "replaces": "src/repro/kernels/flash_attention.py:127",
         "launches": launches_train["flash_dkv"],
+        "ssm_launches_by_part": {k: v for k, v in ssm_by_use.items() if k.endswith("train dkv")},
+        "zamba2_d80": d80[f"dkv_S{ZAMBA_TRAIN_S}"],
         "max_abs_err": dkv_err,
         **dkv_t,
     }]

@@ -1,8 +1,9 @@
 """Architecture registry. One module per ported architecture; importing
 them registers (full, smoke) config pairs. The port holds the dense models
-``gemma2-2b``, ``deepseek-7b``, ``granite-20b`` and ``minitron-8b`` and the
-MoE models ``olmoe-1b-7b`` and ``deepseek-v3-671b``; the others wait for
-later slices (ROADMAP.md, Queue 1)."""
+``gemma2-2b``, ``deepseek-7b``, ``granite-20b`` and ``minitron-8b``, the
+MoE models ``olmoe-1b-7b`` and ``deepseek-v3-671b``, the xLSTM model
+``xlstm-1.3b`` and the Mamba2 hybrid ``zamba2-2.7b``; the encoder and VLM
+archs wait for later slices (ROADMAP.md, Queue 1)."""
 
 from .base import (
     ATTN_IMPL_FROM_JAX,
@@ -23,7 +24,16 @@ def _load_all():
     if _LOADED:
         return
     _LOADED = True
-    from . import deepseek_7b, deepseek_v3_671b, gemma2_2b, granite_20b, minitron_8b, olmoe_1b_7b  # noqa: F401
+    from . import (  # noqa: F401
+        deepseek_7b,
+        deepseek_v3_671b,
+        gemma2_2b,
+        granite_20b,
+        minitron_8b,
+        olmoe_1b_7b,
+        xlstm_1_3b,
+        zamba2_2_7b,
+    )
 
 
 __all__ = [

@@ -1,9 +1,10 @@
 """Model/run configuration dataclasses + the architecture registry.
 
 The fields are those of the JAX package's ``configs/base.py`` that the
-ported families (dense and MoE, with MLA and MTP) and the serving path read,
-with the reference's defaults; the SSM/xLSTM, encoder and VLM fields come
-with the code that reads them. Dtypes stay strings and
+ported families (dense, MoE with MLA and MTP, the xLSTM ``ssm`` family and
+the Zamba2 ``hybrid`` family) and the serving path read, with the
+reference's defaults; the encoder and VLM fields come with the code that
+reads them. Dtypes stay strings and
 :meth:`ModelConfig.pdtype`/:meth:`ModelConfig.cdtype` map them to torch
 dtypes. One field takes port names:
 
@@ -89,6 +90,15 @@ class ModelConfig:
     v_head_dim: int = 0
     use_mtp: bool = False
     mtp_weight: float = 0.3
+
+    # SSM / xLSTM / hybrid
+    ssm_state: int = 0
+    ssm_conv: int = 4
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    slstm_every: int = 0  # xlstm: every k-th layer is sLSTM
+    shared_attn_every: int = 0  # zamba2: shared attention block period
+    chunk_size: int = 256
 
     # numerics / training
     param_dtype: str = "float32"

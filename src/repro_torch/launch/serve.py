@@ -1,5 +1,6 @@
 """Serving launcher, after the JAX package's ``launch/serve.py``: batched
-greedy decoding against a KV cache.
+greedy decoding against a decode cache (a KV cache; for xlstm-1.3b a
+recurrent state, for zamba2-2.7b both).
 
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch gemma2-2b --batch 4 --prompt-len 32 --gen 16

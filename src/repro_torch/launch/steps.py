@@ -2,8 +2,9 @@
 
 ``build_train_step`` is the LM training step (loss, gradients, optimizer
 update), ``build_prefill_step`` the prefill and ``build_serve_step`` one
-greedy decode step against the KV cache, for the ported families (dense and
-MoE).
+greedy decode step against the decode cache (KV caches, and the recurrent
+states of the xLSTM and Zamba2 models), for the ported families (dense,
+MoE, ssm and hybrid).
 """
 
 from __future__ import annotations
@@ -54,7 +55,8 @@ def build_serve_step(cfg: ModelConfig):
     """``serve_step(params, cache, tokens, pos) -> (next_tok, cache)``: one
     decode step (:func:`repro_torch.models.decode_fn`) and the greedy next
     token ``(B, 1)``, int64 (the port's token dtype; the reference's is
-    int32), left on the device. The cache is updated in place."""
+    int32), left on the device. KV caches are updated in place; recurrent
+    states come back new (:func:`repro_torch.models.decode_fn`)."""
 
     def serve_step(params, cache, tokens, pos):
         logits, cache = decode_fn(params, cfg, cache, tokens, pos)

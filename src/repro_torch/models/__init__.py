@@ -1,7 +1,9 @@
-"""The LM model zoo of the port: the dense family (``dense.py``) and the MoE
-family (``moe.py``, ``moe_dispatch.py``, ``mla.py``) with their prefill, loss
-and KV-cache decode, the model API (``model.py``) and the converters from the
-JAX package's configs, parameter trees and caches (``convert.py``)."""
+"""The LM model zoo of the port: the dense family (``dense.py``), the MoE
+family (``moe.py``, ``moe_dispatch.py``, ``mla.py``), the xLSTM family
+(``xlstm.py``) and the Zamba2 hybrid (``hybrid.py``) on the SSM cells
+(``ssm.py``), with their prefill, loss and decode, the model API
+(``model.py``) and the converters from the JAX package's configs, parameter
+trees and caches (``convert.py``)."""
 
 from .convert import cache_from_jax, cache_to_jax, config_from_jax, params_from_jax
 from .model import (

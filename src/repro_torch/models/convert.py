@@ -43,7 +43,15 @@ def tensor_from_numpy(a, device="cuda") -> torch.Tensor:
 def _map(tree, fn):
     if isinstance(tree, dict):
         return {k: _map(x, fn) for k, x in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_map(x, fn) for x in tree)
     return fn(tree)
+
+
+def _merge_lead(a):
+    """``a`` with its two leading axes merged into one."""
+    a = np.asarray(a)
+    return a.reshape((-1,) + a.shape[2:])
 
 
 def _unstack(tree, n, to_t):
@@ -59,21 +67,31 @@ def params_from_jax(cfg: ModelConfig, tree, device="cuda"):
     Dense: the JAX layer stack carries leading ``(n_groups, period)`` axes on
     every leaf; entry ``[g, sub]`` becomes port layer ``g * period + sub``.
     MoE: ``moe_layers`` and ``dense_layers`` are stacked on ``(n,)`` and
-    become lists; ``mtp`` is not stacked. Dtypes are kept; tensors go to
-    ``device``.
+    become lists; ``mtp`` is not stacked. ssm (xLSTM): ``groups/mlstm``
+    ``(n_groups, period - 1)`` becomes the list ``mlstm`` (block ``g *
+    (period - 1) + j``), ``groups/slstm`` ``(n_groups,)`` the list
+    ``slstm``. hybrid (Zamba2): ``mamba_groups`` ``(n_groups, period)``
+    becomes the list ``mamba`` (block ``g * period + j``); ``shared`` is not
+    stacked. Dtypes are kept; tensors go to ``device``.
     """
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet (ROADMAP.md, Queue 1)")
     dev = resolve_device(device)
 
     def to_t(a):
         return tensor_from_numpy(a, dev)
 
-    stacked = ("layers",) if cfg.family == "dense" else ("moe_layers", "dense_layers")
+    stacked = {"dense": ("layers",), "moe": ("moe_layers", "dense_layers"), "ssm": ("groups",),
+               "hybrid": ("mamba_groups",)}[cfg.family]
     params = {k: _map(x, to_t) for k, x in tree.items() if k not in stacked}
     if cfg.family == "dense":
-        flat = _map(tree["layers"], lambda a: np.asarray(a).reshape((cfg.num_layers,) + np.shape(a)[2:]))
-        params["layers"] = _unstack(flat, cfg.num_layers, to_t)
+        params["layers"] = _unstack(_map(tree["layers"], _merge_lead), cfg.num_layers, to_t)
+    elif cfg.family == "ssm":
+        G = cfg.num_layers // cfg.slstm_every
+        params["mlstm"] = _unstack(_map(tree["groups"]["mlstm"], _merge_lead), G * (cfg.slstm_every - 1), to_t)
+        params["slstm"] = _unstack(tree["groups"]["slstm"], G, to_t)
+    elif cfg.family == "hybrid":
+        params["mamba"] = _unstack(_map(tree["mamba_groups"], _merge_lead), cfg.num_layers, to_t)
     else:
         params["moe_layers"] = _unstack(tree["moe_layers"], cfg.num_layers - cfg.dense_prefix_layers, to_t)
         if cfg.dense_prefix_layers:
@@ -86,12 +104,23 @@ def cache_from_jax(cfg: ModelConfig, cache, device="cuda"):
     of numpy arrays. Dense: ``(k, v)`` of ``(n_groups, period, B, S, Hkv,
     hd)`` becomes ``(L, B, S, Hkv, hd)`` with layer ``g * period + sub``.
     MoE: ``{"moe"[, "dense"]}`` keeps its layout (pairs stacked on ``(n,)``;
-    MLA's ``(c_kv, k_rope)``)."""
+    MLA's ``(c_kv, k_rope)``). ssm: ``{"mlstm": (conv, (S, n, m)), "slstm":
+    (c, n, m, h)}``, the mLSTM leaves' ``(n_groups, period - 1)`` axes merged
+    into one; hybrid: ``{"mamba": (conv, ssd), "attn": (k, v)}``, the Mamba2
+    leaves' ``(n_groups, period)`` axes merged into one."""
     dev = resolve_device(device)
+
+    def to_t(a):
+        return tensor_from_numpy(a, dev)
+
     if cfg.family == "dense":
-        return tuple(tensor_from_numpy(np.asarray(a).reshape((-1,) + np.shape(a)[2:]), dev) for a in cache)
+        return tuple(to_t(_merge_lead(a)) for a in cache)
     if cfg.family == "moe":
-        return {k: tuple(tensor_from_numpy(a, dev) for a in pair) for k, pair in cache.items()}
+        return {k: tuple(to_t(a) for a in pair) for k, pair in cache.items()}
+    if cfg.family == "ssm":
+        return {"mlstm": _map(cache["mlstm"], lambda a: to_t(_merge_lead(a))), "slstm": _map(cache["slstm"], to_t)}
+    if cfg.family == "hybrid":
+        return {"mamba": _map(cache["mamba"], lambda a: to_t(_merge_lead(a))), "attn": _map(cache["attn"], to_t)}
     raise NotImplementedError(f"family {cfg.family!r} is not ported yet (ROADMAP.md, Queue 1)")
 
 
@@ -102,9 +131,15 @@ def cache_to_jax(cfg: ModelConfig, cache):
         t = t.detach().cpu()
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
+    def split_lead(period):
+        return lambda t: to_np(t).reshape((t.shape[0] // period, period) + tuple(t.shape[1:]))
+
     if cfg.family == "dense":
-        period = len(attn_pattern(cfg))
-        return tuple(to_np(t).reshape((cfg.num_layers // period, period) + tuple(t.shape[1:])) for t in cache)
+        return tuple(map(split_lead(len(attn_pattern(cfg))), cache))
     if cfg.family == "moe":
         return {k: tuple(to_np(t) for t in pair) for k, pair in cache.items()}
+    if cfg.family == "ssm":
+        return {"mlstm": _map(cache["mlstm"], split_lead(cfg.slstm_every - 1)), "slstm": _map(cache["slstm"], to_np)}
+    if cfg.family == "hybrid":
+        return {"mamba": _map(cache["mamba"], split_lead(cfg.shared_attn_every)), "attn": _map(cache["attn"], to_np)}
     raise NotImplementedError(f"family {cfg.family!r} is not ported yet (ROADMAP.md, Queue 1)")

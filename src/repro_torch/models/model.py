@@ -1,11 +1,11 @@
 """Model API of the port: family dispatch, decode caches, dummy batches and
 parameter/FLOPs accounting, after the JAX package's ``models/model.py``.
 
-The port holds the ``dense`` and ``moe`` families: forward (prefill), loss
-(training), cache and decode step. The other families (``ssm``, ``hybrid``,
-``encoder``, ``vlm``) come with later slices (ROADMAP.md, Queue 1) and raise
-``NotImplementedError`` until then, as does ``input_specs`` (it comes with
-the dry run).
+The port holds the ``dense``, ``moe``, ``ssm`` (xLSTM) and ``hybrid``
+(Zamba2) families: forward (prefill), loss (training), cache and decode
+step. The ``encoder`` and ``vlm`` families come with later slices
+(ROADMAP.md, Queue 1) and raise ``NotImplementedError`` until then, as does
+``input_specs`` (it comes with the dry run).
 
 Entry points run on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``; without a CUDA device they raise rather than run on the CPU.
@@ -21,7 +21,7 @@ import torch
 from ..configs.base import InputShape, ModelConfig
 from ..core.torch_dp import resolve_device
 from ..optim.optimizers import tree_leaves
-from . import dense, moe
+from . import dense, hybrid, moe, xlstm
 
 __all__ = [
     "active_param_count",
@@ -38,13 +38,13 @@ __all__ = [
     "supports_mode",
 ]
 
-_PORTED = ("dense", "moe")
+_PORTED = ("dense", "moe", "ssm", "hybrid")
 
 
 def _ported(cfg: ModelConfig):
     if cfg.family not in _PORTED:
         raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.arch}) is not ported yet; the port holds the {' and '.join(_PORTED)} "
+            f"family {cfg.family!r} ({cfg.arch}) is not ported yet; the port holds the {', '.join(_PORTED)} "
             "families (ROADMAP.md, Queue 1)"
         )
 
@@ -57,6 +57,10 @@ def init_params(cfg: ModelConfig, gen=0, device="cuda"):
         gen = torch.Generator(device=resolve_device(device)).manual_seed(int(gen))
     if cfg.family == "moe":
         return moe.init_moe_model(cfg, gen)
+    if cfg.family == "ssm":
+        return xlstm.init_xlstm(cfg, gen)
+    if cfg.family == "hybrid":
+        return hybrid.init_zamba(cfg, gen)
     return dense.init_dense(cfg, gen)
 
 
@@ -67,6 +71,10 @@ def loss_fn(params, cfg: ModelConfig, batch):
     _ported(cfg)
     if cfg.family == "moe":
         return moe.moe_loss(params, cfg, batch)
+    if cfg.family == "ssm":
+        return xlstm.xlstm_loss(params, cfg, batch)
+    if cfg.family == "hybrid":
+        return hybrid.zamba_loss(params, cfg, batch)
     return dense.dense_loss(params, cfg, batch)
 
 
@@ -78,28 +86,43 @@ def prefill_fn(params, cfg: ModelConfig, batch):
     with torch.inference_mode():
         if cfg.family == "moe":
             return moe.moe_forward(params, cfg, batch["tokens"])[0]
+        if cfg.family == "ssm":
+            return xlstm.xlstm_forward(params, cfg, batch["tokens"])[0]
+        if cfg.family == "hybrid":
+            return hybrid.zamba_forward(params, cfg, batch["tokens"])[0]
         return dense.dense_forward(params, cfg, batch["tokens"])[0]
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
     """A zero decode cache for ``batch`` sequences of up to ``max_len``
     tokens, on ``device`` (layouts: :mod:`repro_torch.models.dense`,
-    :mod:`repro_torch.models.moe`)."""
+    :mod:`repro_torch.models.moe`, :mod:`repro_torch.models.xlstm` (a
+    recurrent state that ``max_len`` does not size),
+    :mod:`repro_torch.models.hybrid`)."""
     _ported(cfg)
     if cfg.family == "moe":
         return moe.init_moe_cache(cfg, batch, max_len, device)
+    if cfg.family == "ssm":
+        return xlstm.init_xlstm_cache(cfg, batch, max_len, device)
+    if cfg.family == "hybrid":
+        return hybrid.init_zamba_cache(cfg, batch, max_len, device)
     return dense.init_dense_cache(cfg, batch, max_len, device)
 
 
 def decode_fn(params, cfg: ModelConfig, cache, tokens, pos):
     """One decode step: ``tokens (B, 1)`` at position ``pos`` (a Python int
     or a 0-d integer tensor; no host sync) -> ``(logits (B, 1, V), cache)``.
-    The cache is updated in place and returned. Runs under
+    KV caches are updated in place and returned; recurrent states (xLSTM's,
+    Zamba2's conv and SSD states) are returned new. Runs under
     ``torch.inference_mode``."""
     _ported(cfg)
     with torch.inference_mode():
         if cfg.family == "moe":
             return moe.moe_decode_step(params, cfg, cache, tokens, pos)
+        if cfg.family == "ssm":
+            return xlstm.xlstm_decode_step(params, cfg, cache, tokens, pos)
+        if cfg.family == "hybrid":
+            return hybrid.zamba_decode_step(params, cfg, cache, tokens, pos)
         return dense.dense_decode_step(params, cfg, cache, tokens, pos)
 
 
@@ -117,12 +140,19 @@ def supports_mode(cfg: ModelConfig, shape: InputShape) -> tuple:
 def layer_stacks(cfg: ModelConfig) -> Dict[str, tuple]:
     """The leading axes the reference stacks each list of layers on: the
     dense stack on ``(n_groups, period)``, the MoE model's lists on
-    ``(n,)``. Adafactor factors and clips the stacked leaves
+    ``(n,)``, xLSTM's mLSTM blocks on ``(n_groups, period - 1)`` and its
+    sLSTM blocks on ``(n_groups,)``, Zamba2's Mamba2 blocks on ``(n_groups,
+    period)``. Adafactor factors and clips the stacked leaves
     (:func:`repro_torch.optim.adafactor`'s ``stacks``)."""
     _ported(cfg)
     if cfg.family == "moe":
         return {"moe_layers": (cfg.num_layers - cfg.dense_prefix_layers,),
                 "dense_layers": (cfg.dense_prefix_layers,)}
+    if cfg.family == "ssm":
+        G = cfg.num_layers // cfg.slstm_every
+        return {"mlstm": (G, cfg.slstm_every - 1), "slstm": (G,)}
+    if cfg.family == "hybrid":
+        return {"mamba": (cfg.num_layers // cfg.shared_attn_every, cfg.shared_attn_every)}
     period = len(dense.attn_pattern(cfg))
     return {"layers": (cfg.num_layers // period, period)}
 
@@ -172,12 +202,14 @@ def active_param_count(params, cfg: ModelConfig) -> int:
 
 def model_flops_per_token(params, cfg: ModelConfig, seq_len: int, mode: str = "train") -> float:
     """MODEL_FLOPS (6·N·D accounting) per token: 6·N_active for train
-    (fwd+bwd), 2·N_active for inference, plus the attention term
+    (fwd+bwd), 2·N_active for inference, plus, for the attention families
+    (dense, moe, vlm, encoder; not ssm or hybrid), the attention term
     12·L·d_attn·S (train) or 4·L·d_attn·S (inference), halved for
     causality, as the reference counts it."""
     _ported(cfg)
     mult = 6.0 if mode == "train" else 2.0
     flops = mult * active_param_count(params, cfg)
-    attn_mult = 12.0 if mode == "train" else 4.0
-    flops += attn_mult * cfg.num_layers * cfg.hd * cfg.num_heads * min(seq_len, 10**9) / 2
+    if cfg.family in ("dense", "moe", "vlm", "encoder"):
+        attn_mult = 12.0 if mode == "train" else 4.0
+        flops += attn_mult * cfg.num_layers * cfg.hd * cfg.num_heads * min(seq_len, 10**9) / 2
     return float(flops)

@@ -17,7 +17,9 @@ split against the CPU; the scheduling service and the fleet solve over a
 card engine against the CPU's; a toy-LM FL campaign trained and planned on
 the card against the CPU's, and pipelined against serial; SMOKE decode of a
 dense and two MoE archs on the card against the CPU, and the cache written
-in place.
+in place; SMOKE xlstm and zamba2 prefill and decode against the CPU, and
+zamba2's float32 full-width cut (D = 80) on the flash route against the
+plain route.
 
 Every test here needs a CUDA card and ``nvcc`` (the kernel has no CPU mode),
 is marked ``cuda`` and skips without them. The file imports no JAX, so it
@@ -831,3 +833,63 @@ def test_cuda_decode_writes_the_cache_in_place(cuda, arch):
     for t, b in zip(tensors, before):
         written = (t != b).movedim(2, 0).reshape(t.shape[2], -1).any(dim=1)
         assert written.nonzero().flatten().tolist() == [5]
+
+
+@pytest.mark.parametrize("arch", ["xlstm-1.3b", "zamba2-2.7b"])
+def test_cuda_smoke_ssm_prefill_and_decode_match_the_cpu(cuda, arch):
+    """SMOKE xlstm and zamba2 (float32) on the card against the same weights
+    on the CPU: the prefill within 1e-4 (zamba2's shared block on the flash
+    route, one launch per application) and 12 teacher-forced decode steps,
+    the recurrent state carried and zamba2's KV cache written in place,
+    within the reference's decode tolerance (2e-3)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_fn, init_cache, init_params, prefill_fn
+
+    cfg = get_config(arch, smoke=True).replace(attn_impl="flash")
+    params = init_params(cfg, 0, device="cpu")
+    params_d = _to(params, cuda)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 32)))
+    n_attn = cfg.num_layers // cfg.shared_attn_every if cfg.family == "hybrid" else 0
+    before = fa.launches
+    got = prefill_fn(params_d, cfg, {"tokens": tokens.to(cuda)})
+    assert fa.launches == before + n_attn
+    torch.testing.assert_close(got.cpu(), prefill_fn(params, cfg, {"tokens": tokens}), rtol=1e-4, atol=1e-4)
+    out = []
+    for dev, p in ((torch.device("cpu"), params), (cuda, params_d)):
+        cache, toks, steps = init_cache(cfg, 2, 12, device=dev), tokens.to(dev), []
+        for t in range(12):
+            lg, cache = decode_fn(p, cfg, cache, toks[:, t:t + 1], t)
+            steps.append(lg)
+        out.append(torch.cat(steps, dim=1).cpu())
+    torch.testing.assert_close(out[1], out[0], rtol=2e-3, atol=2e-3)
+
+
+def test_cuda_zamba2_float32_cut_flash_route_matches_plain_route(cuda):
+    """zamba2-2.7b at full width (H = Hkv = 32, D = 80: the D = 128 kernels on
+    zero-padded inputs), float32, cut to 2 Mamba2 layers and one application
+    of the shared block: the prefill and the loss and gradients of the flash
+    route against the plain route, at chip_smoke.py's model limits (prefill
+    1e-4; loss 2e-5, gradients rtol 2e-3, atol 2e-5), with one forward, dQ
+    and dK/dV launch each."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import value_and_grad
+    from repro_torch.models import init_params, make_dummy_batch, prefill_fn
+    from repro_torch.optim import tree_leaves
+
+    cfg = get_config("zamba2-2.7b").replace(num_layers=2, shared_attn_every=2, param_dtype="float32",
+                                            compute_dtype="float32", attn_impl="flash", remat="none")
+    assert (cfg.num_heads, cfg.hd, fa.kernel_head_dim(cfg.hd)) == (32, 80, 128)
+    params = init_params(cfg, 0, device="cuda")
+    batch = make_dummy_batch(cfg, 1, 512, "train", np.random.default_rng(0), device="cuda")
+    plain = cfg.replace(attn_impl="plain")
+    before = (fa.launches, fa.launches_dq, fa.launches_dkv)
+    got = prefill_fn(params, cfg, {"tokens": batch["tokens"][:, :-1]})
+    assert fa.launches == before[0] + 1
+    want = prefill_fn(params, plain, {"tokens": batch["tokens"][:, :-1]})
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    loss, grads = value_and_grad(params, cfg, batch)
+    assert (fa.launches, fa.launches_dq, fa.launches_dkv) == (before[0] + 2, before[1] + 1, before[2] + 1)
+    loss_p, grads_p = value_and_grad(params, plain, batch)
+    assert abs(float(loss) - float(loss_p)) < 2e-5
+    for g, w in zip(tree_leaves(grads), tree_leaves(grads_p)):
+        torch.testing.assert_close(g, w, rtol=2e-3, atol=2e-5)

@@ -37,6 +37,7 @@ from repro_torch.models.convert import tensor_from_numpy
 
 ARCHS = ["gemma2-2b", "deepseek-7b", "granite-20b", "minitron-8b"]
 MOE_ARCHS = ["olmoe-1b-7b", "deepseek-v3-671b"]
+SSM_ARCHS = ["xlstm-1.3b", "zamba2-2.7b"]
 # float32 elementwise ops on the same inputs: only the order of the few
 # reductions (mean of squares, matrix products) differs
 TOL_LAYER = dict(rtol=2e-5, atol=2e-5)
@@ -110,8 +111,8 @@ def test_plain_attention_matches_jax(block_q):
 
 
 def test_configs_match_jax_and_translate_attn_impl():
-    assert list_archs() == sorted(ARCHS + MOE_ARCHS)
-    for arch in ARCHS + MOE_ARCHS:
+    assert list_archs() == sorted(ARCHS + MOE_ARCHS + SSM_ARCHS)
+    for arch in ARCHS + MOE_ARCHS + SSM_ARCHS:
         for smoke in (False, True):
             jcfg = jax_get_config(arch, smoke=smoke)
             cfg = config_from_jax(jcfg)
@@ -121,7 +122,7 @@ def test_configs_match_jax_and_translate_attn_impl():
     assert ATTN_IMPL_FROM_JAX == {"xla": "plain", "pallas": "flash"}
     assert get_config("gemma2-2b").pdtype() == torch.bfloat16
     with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("xlstm-1.3b")
+        get_config("hubert-xlarge")
     with pytest.raises(ValueError):
         get_config("gemma2-2b").replace(param_dtype="float16").pdtype()
     with pytest.raises(ValueError):
@@ -224,7 +225,7 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make_dummy_batch(cfg, 1, 8, "prefill", np.random.default_rng(0))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        prefill_fn({}, cfg.replace(family="ssm"), {})
+        prefill_fn({}, cfg.replace(family="encoder"), {})
 
 
 def test_tensor_from_numpy_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
