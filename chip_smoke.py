@@ -49,7 +49,7 @@ Phases, in order; any failure ends the run with a non-zero exit code:
                 card over mask kinds, softcaps, GQA ratios, head dims and
                 lengths (ragged ones included; at D = 128 also phase 15's
                 head counts, H = 48 with Hkv = 1 and H = 16 with Hkv =
-                16; and every shape phases 15 and 16 launch), and at the main path's
+                16; and every shape phases 15, 16 and 17 launch), and at the main path's
                 causal and sliding shapes: float32 (CUDA cores) at rtol =
                 atol = 2e-5; bfloat16 I/O (tensor cores: wgmma, TMA) within
                 2e-2 of the plain output and within the limit the kernel's
@@ -72,8 +72,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
                 the kernel's share.
 9. flash bwd  — ``flash_attention_bwd`` (the dQ and dK/dV kernels) against
                 ``flash_attention_bwd_ref`` on the card over mask kinds,
-                softcaps, GQA ratios, head dims and lengths (and phase
-                16's training shape), and at the gemma2-2b training shapes
+                softcaps, GQA ratios, head dims and lengths (and phases
+                16's and 17's training shapes), and at the gemma2-2b training shapes
                 (causal and sliding(4096)): float32 at rtol
                 3e-4, atol 3e-5; bfloat16 I/O within 2^-8 relative of the
                 plain version's float32 gradients plus 1e-5 of their largest
@@ -227,12 +227,42 @@ Phases, in order; any failure ends the run with a non-zero exit code:
                 on its own inputs. Then the forward, dQ and dK/dV at
                 zamba2's shapes beside their D = 80 bounds and
                 ``scaled_dot_product_attention``; the phase's wall time.
+17. encoder and VLM — full width and depth (bf16, random weights from
+                ``torch.Generator`` seed 0, batches from
+                ``make_dummy_batch`` with numpy seed 0): (a) hubert-xlarge
+                on the kernel route, an encode of 4 x 4,096 frames
+                through ``build_prefill_step`` (48 forward launches, all
+                tensor-core, bidirectional, D = 80 on the D = 128 kernels):
+                ms and frames/s cold and warm, the flash kernels' share of
+                the kernel time, busy share, peak memory; sequence 0
+                against the plain route (relative L2 within 0.1); 2 layers
+                in float32 against the plain route at 1e-4; three train
+                steps (remat full, AdamW, masked prediction) at 2 x 4,096
+                frames, each 96 forward, 48 dQ and 48 dK/dV launches, all
+                tensor-core, the loss after them below the first; 2 float32
+                layers of loss and gradients against the plain route
+                (phase 11's limits); the kernels at hubert's shapes beside
+                their D = 80 bounds and ``scaled_dot_product_attention``.
+                (b) paligemma-3b, attention on the plain route under its
+                prefix mask (no flash launch): a prefill of 2 x (256 patches
+                + 7,936 text tokens), its ms, peak memory and the prefix
+                attention's share of the kernel time; one layer's image rows
+                against a bidirectional attention over the image block
+                (float32, 2e-5); 16 teacher-forced decode steps after a
+                collect-cache prefill, against the prefill (relative L2
+                within 0.1; a 2-layer float32 cut within 2e-3; the cache on
+                the same storage every step), the decode step's ms and
+                bound; three train steps at 8,192 positions; the serve
+                launcher's defaults, tokens/s. Every flash launch's shape
+                must be one phases 6 and 9 held, and its first launch is
+                held on its own inputs; the phase's wall time.
 
 The line before the last is a JSON object of every kernel with its launch
 count and times; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 import contextlib
+import io
 import json
 import math
 import re
@@ -450,6 +480,36 @@ SSM_S = {"xlstm-1.3b": 2048, "zamba2-2.7b": ZAMBA_S}
 SSM_TRAIN_S = {"xlstm-1.3b": 1024, "zamba2-2.7b": ZAMBA_TRAIN_S}
 SSM_F32_LAYERS = {"xlstm-1.3b": 8, "zamba2-2.7b": 12}
 SSM_TRAIN_STEPS = 3
+# Phase 17: the encoder and VLM families at full width and depth, bfloat16,
+# random weights from torch.Generator seed SEED, batches from
+# make_dummy_batch (numpy seed SEED). (a) hubert-xlarge with attn_impl
+# "flash" (every layer's bidirectional attention on the tensor-core kernels,
+# D = 80 on the D = 128 instances, zero-padded): an encode of HUBERT_ENCODE
+# = (B, frames) (4,096 frames are 82 s of 16 kHz audio at HuBERT's 20 ms
+# frame rate), its first sequence against the plain route (PREFILL_REL_L2)
+# and F32_LAYERS layers in float32 against the plain route at the first two
+# sequences; ENC_TRAIN_STEPS train steps (remat "full", AdamW, masked
+# prediction at the batch's mask; one cold) at HUBERT_TRAIN, cut from the
+# reference's pod batch of 256 x 4,096 to one card, and F32_LAYERS layers of
+# its loss and gradients in float32 (phase 11's limits). (b) paligemma-3b,
+# whose attention takes the plain route under its prefix mask, as in the
+# reference: a prefill of PALI_PREFILL = (B, positions), its num_patches
+# image patches and the rest text (gemma2-2b's prefill length); a
+# collect-cache prefill of all but the last TF_STEPS text tokens, then
+# TF_STEPS teacher-forced decode steps against the prefill (DECODE_REL_L2),
+# and the same in float32 at F32_LAYERS layers (DECODE_F32_TOL); one layer's
+# image rows against a bidirectional attention over the image block;
+# ENC_TRAIN_STEPS train steps at PALI_TRAIN; launch/serve.py's defaults.
+# (a)'s flash launches: the encode at B = 4, the train step and the float32
+# cuts at B = 2; the layers pass the config's window 4096, which
+# "bidirectional" ignores. Phase 6 holds each forward shape and phase 9 the
+# backward shape, in bfloat16 and float32; phase 17 fails on a launch at a
+# shape not listed, and on any flash launch in (b).
+HUBERT_ARCH, HUBERT_ENCODE, HUBERT_TRAIN = "hubert-xlarge", (4, 4096), (2, 4096)
+PALI_ARCH, PALI_PREFILL, PALI_TRAIN = "paligemma-3b", (2, 8192), (1, 8192)
+ENC_TRAIN_STEPS = 3
+ENC_FLASH_CASES = tuple((B, 16, 16, 4096, 80, "bidirectional", 4096, 0.0) for B in (4, 2))
+ENC_FLASH_BWD_CASES = ((2, 16, 16, 4096, 80, "bidirectional", 4096, 0.0),)
 
 
 def check(cond, msg):
@@ -703,7 +763,7 @@ def flash_phase(fa, dev):
                   (1, 2, 2, 8192, 128, "bidirectional", 0, 0.0, dtype)]
         cases += [(B, 8, 8 // G, S, D, kind, window, softcap, dtype) for B, G, S, D, kind, window, softcap in HEAD_DIM_CASES]
         cases += [(B, H, Hkv, S, 128, kind, 0, 0.0, dtype) for B, H, Hkv, S, kind in SERVE_HEAD_CASES]
-        cases += [(*case, dtype) for case in SERVE_FLASH_CASES + SSM_FLASH_CASES]
+        cases += [(*case, dtype) for case in SERVE_FLASH_CASES + SSM_FLASH_CASES + ENC_FLASH_CASES]
     worst = {torch.float32: [0.0] * 3, torch.bfloat16: [0.0] * 3}
     for B, H, Hkv, S, D, kind, window, softcap, dtype in cases:
         q, k, v = flash_inputs(gen, B, H, Hkv, S, D, dtype, dev)
@@ -717,8 +777,9 @@ def flash_phase(fa, dev):
         if S >= 4096:
             torch.cuda.empty_cache()
     f32, b16 = worst[torch.float32], worst[torch.bfloat16]
-    log(f"[flash] {len(cases)} cases ({padded_head_dims(fa)} among them; phase 15's {len(SERVE_FLASH_CASES)} and "
-        f"phase 16's {len(SSM_FLASH_CASES)} launch shapes in both dtypes) within tolerance of the plain version: "
+    log(f"[flash] {len(cases)} cases ({padded_head_dims(fa)} among them; phase 15's {len(SERVE_FLASH_CASES)}, "
+        f"phase 16's {len(SSM_FLASH_CASES)} and phase 17's {len(ENC_FLASH_CASES)} launch shapes in both dtypes) "
+        f"within tolerance of the plain version: "
         f"float32 rtol=atol={F32_TOL} on o and "
         f"lse (largest |do| {f32[1]:.3e}, |dlse| {f32[2]:.3e}); bfloat16 I/O o within {BF16_GRID_TOL} of the plain "
         f"output (largest {b16[0]:.3e}) and within {BF16_O_RTOL:.3e} |o32| + {BF16_P_RTOL:.3e} (P|V|)/l + {F32_TOL} "
@@ -840,15 +901,18 @@ def device_time_table(step, params, batch, top=8):
     return sum(r[0] for r in rows), rows[:top], kinds, sum(r[1] for r in rows)
 
 
-LIBRARY_MASK = {"causal": "", "sliding": ", boolean band mask"}
+LIBRARY_MASK = {"causal": "", "sliding": ", boolean band mask", "bidirectional": ", no mask"}
 
 
 def library_attention(fa, F, q, k, v, kind, window):
     """``scaled_dot_product_attention`` on the same inputs, the yardstick of
     the flash kernels (no softcap: it has none): ``is_causal`` for a causal
-    mask, a boolean ``(S, S)`` band for a sliding one."""
+    mask, no mask for a bidirectional one, a boolean ``(S, S)`` band for a
+    sliding one."""
     if kind == "causal":
         return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+    if kind == "bidirectional":
+        return F.scaled_dot_product_attention(q, k, v, enable_gqa=True)
     mask = fa.flash_mask(q.shape[2], k.shape[2], kind, window, q.device)
     return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
 
@@ -1030,7 +1094,7 @@ def flash_bwd_phase(fa, dev):
                         cases.append((2 if S <= 640 else 1, 8, 8 // G, S, D, kind, window, softcap, dtype))
     for dtype in (torch.float32, torch.bfloat16):
         cases += [(B, 8, 8 // G, S, D, kind, window, softcap, dtype) for B, G, S, D, kind, window, softcap in HEAD_DIM_CASES]
-        cases += [(*case, dtype) for case in SSM_FLASH_BWD_CASES]
+        cases += [(*case, dtype) for case in SSM_FLASH_BWD_CASES + ENC_FLASH_BWD_CASES]
     worst = {torch.float32: [0.0] * 3, torch.bfloat16: [0.0] * 3}
     for B, H, Hkv, S, D, kind, window, softcap, dtype in cases:
         args = bwd_inputs(fa, gen, B, H, Hkv, S, D, dtype, dev, kind, window, softcap)
@@ -1041,8 +1105,8 @@ def flash_bwd_phase(fa, dev):
                   f"softcap={softcap} {dtype} (max |d dq|, |d dk|, |d dv| {errs})")
         worst[dtype] = [max(a, b) for a, b in zip(worst[dtype], errs)]
     f32, b16 = worst[torch.float32], worst[torch.bfloat16]
-    log(f"[flash bwd] {len(cases)} cases ({padded_head_dims(fa)} among them, and phase 16's "
-        f"{len(SSM_FLASH_BWD_CASES)} launch shape in both dtypes) within tolerance of the plain "
+    log(f"[flash bwd] {len(cases)} cases ({padded_head_dims(fa)} among them, and the launch shapes of phases 16 "
+        f"and 17, {len(SSM_FLASH_BWD_CASES) + len(ENC_FLASH_BWD_CASES)}, in both dtypes) within tolerance of the plain "
         f"backward: float32 rtol={GRAD_RTOL} "
         f"atol={GRAD_ATOL} (largest |d dq|, |d dk|, |d dv| {f32[0]:.3e}, {f32[1]:.3e}, {f32[2]:.3e}); bfloat16 I/O "
         f"within rtol={BWD_BF16_RTOL:.3e} of the float32 gradients + {BWD_BF16_ATOL_REL} of their largest entry "
@@ -1143,10 +1207,10 @@ def train_phase(fa, mp, dev, card):
     return cfg, tok, launches, dict(losses=losses, warm_ms=warm_ms, peak_gb=peak_gb, device_ms=total)
 
 
-def train_f32_check(fa, dev, cfg, tokens):
-    """Phase 10, float32 part: F32_LAYERS layers at full width on the same
-    tokens, loss and gradients of the kernel route against the plain
-    route."""
+def train_f32_check(fa, dev, cfg, batch, tag="train"):
+    """Phase 10, float32 part (and phase 17's): F32_LAYERS layers at full
+    width on the same batch, loss and gradients of the kernel route against
+    the plain route."""
     from repro_torch.launch import value_and_grad
     from repro_torch.models import init_params
     from repro_torch.optim import tree_leaves
@@ -1155,7 +1219,7 @@ def train_f32_check(fa, dev, cfg, tokens):
           "float32 products must run in full float32, not TF32")
     cfg32 = cfg.replace(num_layers=F32_LAYERS, param_dtype="float32", compute_dtype="float32")
     p32 = init_params(cfg32, torch.Generator(device=dev).manual_seed(SEED))
-    b32 = {"tokens": tokens}
+    b32 = batch
     n0 = (fa.launches, fa.launches_dq, fa.launches_dkv, fa.launches_fwd_tc, fa.launches_dq_tc, fa.launches_dkv_tc)
     loss_k, g_k = value_and_grad(p32, cfg32, b32)
     per = (fa.launches - n0[0], fa.launches_dq - n0[1], fa.launches_dkv - n0[2])
@@ -1171,7 +1235,8 @@ def train_f32_check(fa, dev, cfg, tokens):
         worst = max(worst, float(d.max()))
     del p32, g_k, g_p
     torch.cuda.empty_cache()
-    log(f"[train] float32, {F32_LAYERS} layers at full width, B={tokens.shape[0]} S={tokens.shape[1] - 1}: loss "
+    shapes = ", ".join(f"{k} {tuple(t.shape)}" for k, t in batch.items())
+    log(f"[{tag}] float32, {F32_LAYERS} layers at full width, batch {shapes}: loss "
         f"{float(loss_k):.6f} vs plain route {float(loss_p):.6f} (|d| {dloss:.3e}, limit {LOSS_ATOL}); gradients "
         f"within rtol={MODEL_GRAD_RTOL}, atol={MODEL_GRAD_ATOL} of the plain route (largest |d| {worst:.3e})")
     check(dloss < LOSS_ATOL and ok, f"float32 training: loss |d| {dloss}, gradients within limits: {ok}")
@@ -2733,7 +2798,7 @@ def spying(module, name, record):
     return patched(module, name, make)
 
 
-def run_with_launches_held(fa, what, part, *args, cases=SERVE_FLASH_CASES):
+def run_with_launches_held(fa, what, part, *args, cases=SERVE_FLASH_CASES, tag="lm"):
     """Runs ``part(*args)`` while recording, for each distinct signature
     (B, H, Hkv, S, D, kind, window, softcap, dtype) of the flash forward
     launches the models make, the first launch's inputs and its ``(o,
@@ -2763,7 +2828,7 @@ def run_with_launches_held(fa, what, part, *args, cases=SERVE_FLASH_CASES):
             ok, *errs = flash_err(fa, (o, lse), q, k, v, *shape[5:], scale)
             check(ok, f"{what}: the flash launch at {key} != plain on its inputs (max |do|, |do32|, |dlse| {errs})")
             worst[str(dtype).replace("torch.", "")] = max(worst.get(str(dtype).replace("torch.", ""), 0.0), errs[0])
-            log(f"[lm] {what}: launch (B, H, Hkv, S, D, kind, window, softcap) {tuple(shape)} {dtype}, the first "
+            log(f"[{tag}] {what}: launch (B, H, Hkv, S, D, kind, window, softcap) {tuple(shape)} {dtype}, the first "
                 f"of its shape: within phase 6's tolerance of the plain version on its own inputs (max |do| "
                 f"{errs[0]:.3e}, |do32| {errs[1]:.3e}, |dlse| {errs[2]:.3e})")
             del q, k, v, o, lse
@@ -3199,14 +3264,14 @@ def serve_phase(fa, dev, card):
 # -- phase 16: the SSM families ---------------------------------------------
 
 
-def run_with_bwd_launches_held(fa, what, part, *args):
+def run_with_bwd_launches_held(fa, what, part, *args, cases=SSM_FLASH_BWD_CASES, tag="ssm"):
     """Runs ``part(*args)`` while recording, for each distinct signature
     (B, H, Hkv, S, D, kind, window, softcap, dtype) of the flash backward
     calls the models make, the first call's inputs and its ``(dq, dk, dv)``
     (D is the kernel's: a model's D = 80 arrives zero-padded to 128). Then
     holds each against the plain backward on the same inputs
-    (:func:`bwd_err`) and checks that the shape is one of
-    SSM_FLASH_BWD_CASES, which phase 9 held. Returns ``part``'s result."""
+    (:func:`bwd_err`) and checks that the shape is one of ``cases``, which
+    phase 9 held. Returns ``part``'s result."""
     seen = {}
 
     def record(out, q, k, v, o, lse, do, kind="causal", window=0, softcap=0.0, scale=None):
@@ -3217,7 +3282,7 @@ def run_with_bwd_launches_held(fa, what, part, *args):
     with spying(fa, "flash_attention_bwd", record):
         result = part(*args)
     allowed = {(B, H, Hkv, S, fa.kernel_head_dim(D), kind, window, softcap)
-               for B, H, Hkv, S, D, kind, window, softcap in SSM_FLASH_BWD_CASES}
+               for B, H, Hkv, S, D, kind, window, softcap in cases}
     for key in list(seen):
         inputs, got, scale = seen.pop(key)
         *shape, dtype = key
@@ -3225,7 +3290,7 @@ def run_with_bwd_launches_held(fa, what, part, *args):
                                        f"against the plain version")
         ok, errs, _ = bwd_err(fa, got, inputs, *shape[5:], scale)
         check(ok, f"{what}: the flash backward at {key} != plain on its inputs (max |d dq|, |d dk|, |d dv| {errs})")
-        log(f"[ssm] {what}: backward launch (B, H, Hkv, S, D, kind, window, softcap) {tuple(shape)} {dtype}, the "
+        log(f"[{tag}] {what}: backward launch (B, H, Hkv, S, D, kind, window, softcap) {tuple(shape)} {dtype}, the "
             f"first of its shape: within phase 9's tolerance of the plain backward on its own inputs (max |d dq| "
             f"{errs[0]:.3e}, |d dk| {errs[1]:.3e}, |d dv| {errs[2]:.3e})")
         del inputs, got
@@ -3526,62 +3591,64 @@ def ssm_part(fa, dev, card, arch):
     return launches, figs
 
 
-def padded_flash_times(fa, dev, card):
-    """Phase 16: the flash kernels at zamba2's shapes, where D = 80 runs on
-    the D = 128 kernels on zero-padded inputs: each kernel alone on padded
-    inputs, by CUDA events around 3 back-to-back launches (a launch of 1-5
-    ms dwarfs its enqueue; the profiler dropped 3 of 5 of these records in
-    one session), the whole padded call beside it (the padding's and
-    slicing's copies, and the backward's delta), their bound at D = 80 and
-    at 128, and ``scaled_dot_product_attention`` (forward, and its
-    backward) at D = 80. Returns the JSON fields."""
+def padded_flash_times(fa, dev, card, tag, who, H, kind, window, fwd_shapes, bwd_shape):
+    """The flash kernels at a model's D = 80 shapes (H = Hkv = ``H``), where
+    D = 80 runs on the D = 128 kernels on zero-padded inputs: each kernel
+    alone on padded inputs, by CUDA events around 3 back-to-back launches (a
+    launch of 1-5 ms dwarfs its enqueue; the profiler dropped 3 of 5 of
+    these records in one session), the whole padded call beside it (the
+    padding's and slicing's copies, and the backward's delta), their bound
+    at D = 80 and at 128, and ``scaled_dot_product_attention`` (forward, and
+    its backward) at D = 80. ``fwd_shapes`` are the (B, S) of the forward
+    launches timed, ``bwd_shape`` the backward's. Returns the JSON fields."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     res = {}
     D, Dk = 80, fa.kernel_head_dim(80)
     scale = D ** -0.5
-    for S in (ZAMBA_S, ZAMBA_TRAIN_S):
-        q, k, v = flash_inputs(gen, 1, 32, 32, S, D, torch.bfloat16, dev)
+    mask = f"{kind}{f'({window})' if kind == 'sliding' else ''}"
+    for B, S in fwd_shapes:
+        q, k, v = flash_inputs(gen, B, H, H, S, D, torch.bfloat16, dev)
         qp, kp, vp = (F.pad(x, (0, Dk - D)) for x in (q, k, v))
         n0 = fa.launches_fwd_tc
-        ms = median_event_ms(lambda: fa.flash_attention(qp, kp, vp, "causal", 4096, 0.0, scale), reps=5, per_rep=3)
-        call_ms = median_event_ms(lambda: fa.flash_attention(q, k, v, "causal", 4096, 0.0), reps=5, per_rep=3)
+        ms = median_event_ms(lambda: fa.flash_attention(qp, kp, vp, kind, window, 0.0, scale), reps=5, per_rep=3)
+        call_ms = median_event_ms(lambda: fa.flash_attention(q, k, v, kind, window, 0.0), reps=5, per_rep=3)
         check(fa.launches_fwd_tc - n0 == 2 * (3 + 5 * 3), "the D = 80 forward timing did not launch the tensor-core "
                                                           "kernel once a call")
-        b80, by80 = flash_bound_ms(1, 32, 32, S, D, "causal", 0, 2)
-        b128, _ = flash_bound_ms(1, 32, 32, S, Dk, "causal", 0, 2)
-        lib = median_event_ms(lambda: library_attention(fa, F, q, k, v, "causal", 0), reps=5, per_rep=3)
+        b80, by80 = flash_bound_ms(B, H, H, S, D, kind, window, 2)
+        b128, _ = flash_bound_ms(B, H, H, S, Dk, kind, window, 2)
+        lib = median_event_ms(lambda: library_attention(fa, F, q, k, v, kind, window), reps=5, per_rep=3)
         res[f"fwd_S{S}"] = dict(ms=ms, pad_ms=call_ms - ms, bound_ms=b80, bound_by=by80, bound_ms_at_128=b128,
                                 library_ms=lib)
-        log(f"[ssm] flash forward B=1 H=Hkv=32 S={S} D={D} causal bfloat16 (zamba2's shared block): the D = {Dk} "
+        log(f"[{tag}] flash forward B={B} H=Hkv={H} S={S} D={D} {mask} bfloat16 ({who}): the D = {Dk} "
             f"kernel {ms:.4f} ms a launch on padded inputs, the padded call {call_ms:.4f} ms (padding and slicing "
             f"{call_ms - ms:.4f} ms); bound at D = {D} {b80:.4f} ms ({by80}), kernel at {ms / b80:.2f}x; bound at "
             f"D = {Dk} {b128:.4f} ms, kernel at {ms / b128:.2f}x; scaled_dot_product_attention at D = {D} "
             f"{lib:.4f} ms")
         del q, k, v, qp, kp, vp
         torch.cuda.empty_cache()
-    S = ZAMBA_TRAIN_S
-    args = bwd_inputs(fa, gen, 1, 32, 32, S, D, torch.bfloat16, dev, "causal", 4096, 0.0)
+    B, S = bwd_shape
+    args = bwd_inputs(fa, gen, B, H, H, S, D, torch.bfloat16, dev, kind, window, 0.0)
     q, k, v, o, lse, do = args
     qp, kp, vp, op, dop = (F.pad(x, (0, Dk - D)) for x in (q, k, v, o, do))
     do_c, delta = fa._bwd_rows(op, dop)
-    ms = {which: median_event_ms(lambda: fa._launch_bwd(which, qp, kp, vp, do_c, lse, delta, "causal", 4096, 0.0,
+    ms = {which: median_event_ms(lambda: fa._launch_bwd(which, qp, kp, vp, do_c, lse, delta, kind, window, 0.0,
                                                         scale), reps=5, per_rep=3) for which in ("dq", "dkv")}
-    call_ms = median_event_ms(lambda: fa.flash_attention_bwd(*args, "causal", 4096, 0.0), reps=5, per_rep=3)
+    call_ms = median_event_ms(lambda: fa.flash_attention_bwd(*args, kind, window, 0.0), reps=5, per_rep=3)
     qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
-    lib_out = library_attention(fa, F, qg, kg, vg, "causal", 0)
+    lib_out = library_attention(fa, F, qg, kg, vg, kind, window)
     lib = median_event_ms(lambda: torch.autograd.grad(lib_out, (qg, kg, vg), do, retain_graph=True), reps=5, per_rep=3)
     for which in ("dq", "dkv"):
-        b80, by80 = flash_bwd_bound_ms(1, 32, 32, S, D, "causal", 0, 2, which)
-        b128, _ = flash_bwd_bound_ms(1, 32, 32, S, Dk, "causal", 0, 2, which)
+        b80, by80 = flash_bwd_bound_ms(B, H, H, S, D, kind, window, 2, which)
+        b128, _ = flash_bwd_bound_ms(B, H, H, S, Dk, kind, window, 2, which)
         res[f"{which}_S{S}"] = dict(ms=ms[which], bound_ms=b80, bound_by=by80, bound_ms_at_128=b128, library_ms=lib)
-        log(f"[ssm] flash_{which} B=1 H=Hkv=32 S={S} D={D} causal bfloat16: the D = {Dk} kernel {ms[which]:.4f} ms "
-            f"a launch on padded inputs; bound at D = {D} {b80:.4f} ms ({by80}), kernel at {ms[which] / b80:.2f}x; "
-            f"bound at D = {Dk} {b128:.4f} ms, kernel at {ms[which] / b128:.2f}x; library (backward of "
-            f"scaled_dot_product_attention at D = {D}, dq, dk and dv) {lib:.4f} ms")
+        log(f"[{tag}] flash_{which} B={B} H=Hkv={H} S={S} D={D} {mask} bfloat16: the D = {Dk} kernel "
+            f"{ms[which]:.4f} ms a launch on padded inputs; bound at D = {D} {b80:.4f} ms ({by80}), kernel at "
+            f"{ms[which] / b80:.2f}x; bound at D = {Dk} {b128:.4f} ms, kernel at {ms[which] / b128:.2f}x; library "
+            f"(backward of scaled_dot_product_attention at D = {D}, dq, dk and dv) {lib:.4f} ms")
     pad = call_ms - ms["dq"] - ms["dkv"]
-    log(f"[ssm] the padded backward call {call_ms:.4f} ms: padding, slicing and delta {pad:.4f} ms; {card}")
+    log(f"[{tag}] the padded backward call {call_ms:.4f} ms: padding, slicing and delta {pad:.4f} ms; {card}")
     res["bwd_pad_ms"] = pad
     del args, qg, kg, vg, lib_out, qp, kp, vp, op, dop, do_c, delta
     torch.cuda.empty_cache()
@@ -3598,12 +3665,387 @@ def ssm_phase(fa, dev, card):
         what = "(a)" if arch == SSM_ARCHS[0] else "(b)"
 
         def held(arch=arch, what=what):
-            return run_with_launches_held(fa, what, ssm_part, fa, dev, card, arch, cases=SSM_FLASH_CASES)
+            return run_with_launches_held(fa, what, ssm_part, fa, dev, card, arch, cases=SSM_FLASH_CASES, tag="ssm")
 
         launches[arch], figs[arch] = run_with_bwd_launches_held(fa, what, held)
-    d80 = padded_flash_times(fa, dev, card)
+    d80 = padded_flash_times(fa, dev, card, "ssm", "zamba2's shared block", 32, "causal", 4096,
+                             ((1, ZAMBA_S), (1, ZAMBA_TRAIN_S)), (1, ZAMBA_TRAIN_S))
     log(f"[ssm] phase 16 wall time {time.perf_counter() - t0:.1f} s; flash launches {launches}")
     return launches, figs, d80
+
+
+# -- phase 17: the encoder and VLM families ----------------------------------
+
+FLASH_COUNTERS = ("launches", "launches_dq", "launches_dkv", "launches_fwd_tc", "launches_dq_tc", "launches_dkv_tc")
+
+
+def flash_counts(fa) -> tuple:
+    """The flash wrappers' six counters: (forward, dQ, dK/dV) and their
+    tensor-core launches."""
+    return tuple(getattr(fa, c) for c in FLASH_COUNTERS)
+
+
+def train_steps(fa, what, tstep, params, ostate, batch, per_step, tag, loss_of):
+    """ENC_TRAIN_STEPS steps of ``tstep`` on one batch, the last under the
+    profiler; each must add ``per_step`` to :func:`flash_counts`. The loss
+    of the batch after the steps (``loss_of(params)``, without grad) must
+    lie below the first step's: at random init AdamW's first steps can
+    raise the loss of a deep model before it falls (hubert-xlarge's rises
+    over its first two steps), so the steps' own losses need not fall. Returns (params, losses + [the loss
+    after], step seconds, peak GB, (busy ms, rows, kinds, launches))."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs, out = [], [], {}
+    for i in range(ENC_TRAIN_STEPS):
+        n0 = flash_counts(fa)
+        t0 = time.perf_counter()
+        if i == ENC_TRAIN_STEPS - 1:  # the last step under the profiler: the card's busy time
+            def run(p, b):
+                out["step"] = tstep(p, ostate, b)
+
+            prof = device_time_table(run, params, batch, top=6)
+            params, ostate, loss = out.pop("step")
+        else:
+            params, ostate, loss = tstep(params, ostate, batch)
+            torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        per = tuple(a - b for a, b in zip(flash_counts(fa), n0))
+        check(per == per_step, f"[{tag}] {what} train step {i + 1}: flash (forward, dQ, dK/dV, and their tensor-core) "
+                               f"launches {per}, expected {per_step}")
+        losses.append(float(loss))
+        check(math.isfinite(losses[-1]), f"[{tag}] {what} train step {i + 1}: loss {losses[-1]}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    with torch.no_grad():
+        losses.append(float(loss_of(params)))
+    check(losses[-1] < losses[0], f"[{tag}] {what}: {ENC_TRAIN_STEPS} steps did not lower the loss of their batch: "
+                                  f"{losses}")
+    return params, losses, secs, peak, prof
+
+
+def hubert_part(fa, dev, card):
+    """Phase 17 (a): hubert-xlarge FULL on the kernel route: the encode,
+    against the plain route and in float32; the train step and its float32
+    cut. Returns (flash launches by use, figures)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import build_prefill_step, build_train_step
+    from repro_torch.models import init_params, loss_fn, make_dummy_batch, param_count, prefill_fn
+
+    cfg = get_config(HUBERT_ARCH).replace(attn_impl="flash")
+    check(cfg.family == "encoder" and cfg.attn_kind == "bidirectional" and cfg.remat == "full"
+          and cfg.optimizer == "adamw", f"{HUBERT_ARCH} FULL: {cfg.family}, {cfg.attn_kind}, remat {cfg.remat}, "
+                                        f"{cfg.optimizer}")
+    check(cfg.hd == 80 and fa.kernel_head_dim(cfg.hd) == 128, f"{HUBERT_ARCH}: head dim {cfg.hd} runs on the "
+                                                               f"D = {fa.kernel_head_dim(cfg.hd)} kernels")
+    L = cfg.num_layers
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    B, S = HUBERT_ENCODE
+    batch = make_dummy_batch(cfg, B, S, "prefill", np.random.default_rng(SEED), device=dev)
+    step = build_prefill_step(cfg)
+    launches, figs = {}, {}
+    t_part = time.perf_counter()
+
+    def elog(msg):
+        log(f"[enc] (a) +{time.perf_counter() - t_part:.1f} s: {msg}")
+
+    elog(f"{HUBERT_ARCH} FULL: {param_count(params)} parameters ({cfg.param_dtype}, "
+         f"{tensor_bytes(cache_tensors(params)) / 1e9:.3f} GB), {L} layers, d = {cfg.d_model}, H = Hkv = "
+         f"{cfg.num_heads}, D = {cfg.hd} on the D = {fa.kernel_head_dim(cfg.hd)} kernels (zero-padded), "
+         f"{cfg.attn_kind}, {cfg.mlp_kind} MLP d_ff = {cfg.d_ff}, {cfg.vocab_size} cluster ids, frames of "
+         f"{cfg.frame_dim}; initialised on the card in {init_s:.2f} s")
+
+    # -- encode
+    torch.cuda.reset_peak_memory_stats()
+    for c in FLASH_COUNTERS:
+        setattr(fa, c, 0)
+    t0 = time.perf_counter()
+    logits = step(params, batch)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    counts = flash_counts(fa)
+    check(counts == (L, 0, 0, L, 0, 0), f"(a) encode: flash (forward, dQ, dK/dV, and their tensor-core) launches "
+                                        f"{counts}, expected {(L, 0, 0, L, 0, 0)}")
+    check(tuple(logits.shape) == (B, S, cfg.vocab_size) and logits.dtype == torch.float32
+          and bool(torch.isfinite(logits).all()), f"(a) encode: logits {tuple(logits.shape)} {logits.dtype}, finite "
+                                                   f"{bool(torch.isfinite(logits).all())}")
+    launches["encode"] = L
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    first = logits[0].clone()
+    del logits
+    n0 = fa.launches
+    enc_ms = median_wall_ms(lambda: step(params, batch), reps=3)
+    check(fa.launches - n0 == 3 * L, f"(a) {fa.launches - n0} flash launches in 3 warm encodes")
+    busy, rows, kinds, n_kernels = device_time_table(step, params, batch, top=6)
+    flash_ms = kinds["flash kernels"]
+    figs.update(encode_ms=enc_ms, encode_frames_s=B * S / enc_ms * 1e3, encode_cold_s=cold_s, encode_busy_ms=busy,
+                encode_launches=n_kernels, encode_flash_ms=flash_ms, encode_flash_share=flash_ms / busy,
+                encode_peak_gb=peak_gb)
+    elog(f"encode B={B} x {S} frames ({S * 0.02:.1f} s of audio each at 20 ms a frame): {L} flash launches, all "
+         f"tensor-core, finite logits; first call {cold_s:.3f} s, warm {enc_ms:.3f} ms (host clock, median of 3) = "
+         f"{B * S / enc_ms * 1e3:.1f} frames/s; peak device memory {peak_gb:.2f} GB; by the profiler {busy:.3f} ms of "
+         f"kernel time over {n_kernels} launches, busy share {busy / enc_ms:.3f}; the flash kernels {flash_ms:.3f} ms "
+         f"= {flash_ms / busy:.3f} of the kernel time; by kind {kinds_text(kinds)}; {card}")
+    for t, n, name in rows:
+        log(f"[enc]   {t:10.3f} ms  x{n:<7d} {name[:90]}")
+    plain = prefill_fn(params, cfg.replace(attn_impl="plain"), {"frames": batch["frames"][:1]})[0]
+    torch.cuda.empty_cache()
+    rel = float((first - plain).norm() / plain.norm())
+    figs.update(encode_rel_l2_vs_plain=rel)
+    elog(f"sequence 0, kernel route vs plain route (block_q={cfg.attn_block_q}): relative L2 {rel:.3e} over its "
+         f"{S} x {cfg.vocab_size} logits (limit {PREFILL_REL_L2}), max |dlogit| "
+         f"{float((first - plain).abs().max()):.3e}")
+    check(rel <= PREFILL_REL_L2, f"(a) the kernel route's logits differ from the plain route's: {rel}")
+    del first, plain
+
+    cfg32 = cfg.replace(num_layers=F32_LAYERS, param_dtype="float32", compute_dtype="float32")
+    p32 = init_params(cfg32, torch.Generator(device=dev).manual_seed(SEED))
+    b32 = {"frames": batch["frames"][:2]}
+    n0 = flash_counts(fa)
+    l32 = prefill_fn(p32, cfg32, b32)
+    per = tuple(a - b for a, b in zip(flash_counts(fa), n0))
+    check(per == (F32_LAYERS, 0, 0, 0, 0, 0), f"(a) float32 encode: flash launches {per}")
+    launches["float32 encode cut"] = F32_LAYERS
+    l32p = prefill_fn(p32, cfg32.replace(attn_impl="plain"), b32)
+    err32 = float((l32 - l32p).abs().max())
+    check(bool(torch.allclose(l32, l32p, rtol=1e-4, atol=1e-4)), f"(a) float32 encode: max |dlogit| {err32}")
+    elog(f"float32, {F32_LAYERS} layers at full width, B=2 x {S} frames: the kernel route within rtol=atol=1e-4 of "
+         f"the plain route at all positions (max |dlogit| {err32:.3e})")
+    del p32, l32, l32p, batch
+    torch.cuda.empty_cache()
+
+    # -- training
+    tb = make_dummy_batch(cfg, *HUBERT_TRAIN, "train", np.random.default_rng(SEED), device=dev)
+    tstep, opt = build_train_step(cfg)
+    ostate = opt.init(params)
+    params, losses, secs, train_peak, (tbusy, trows, tkinds, tn) = train_steps(
+        fa, "(a)", tstep, params, ostate, tb, (2 * L, L, L) * 2, "enc", lambda p: loss_fn(p, cfg, tb))
+    for use, c in (("train forward", 0), ("train dq", 1), ("train dkv", 2)):
+        launches[use] = ENC_TRAIN_STEPS * (2 * L, L, L)[c]
+    frames = HUBERT_TRAIN[0] * HUBERT_TRAIN[1]
+    warm_ms = 1e3 * secs[1]
+    masked = int(tb["mask"].sum())
+    figs.update(train_warm_ms=warm_ms, train_frames_s=frames / warm_ms * 1e3, train_busy_ms=tbusy, train_launches=tn,
+                train_flash_ms=tkinds["flash kernels"], train_flash_share=tkinds["flash kernels"] / tbusy,
+                train_peak_gb=train_peak, losses=losses)
+    elog(f"{ENC_TRAIN_STEPS} train steps (remat {cfg.remat}, {cfg.optimizer} lr {cfg.learning_rate}, masked "
+         f"prediction at {masked} of {frames} frames) B={HUBERT_TRAIN[0]} x {HUBERT_TRAIN[1]} frames: per step "
+         f"{2 * L} forward (with the remat recompute), {L} dQ and {L} dK/dV flash launches, all tensor-core; losses "
+         f"{', '.join(f'{x:.5f}' for x in losses[:-1])}, after them {losses[-1]:.5f}; steps "
+         f"{', '.join(f'{x:.3f}' for x in secs)} s (the first cold, the last under the profiler); warm "
+         f"{warm_ms:.3f} ms = {frames / warm_ms * 1e3:.1f} frames/s; peak device "
+         f"memory {train_peak:.2f} GB; by the profiler {tbusy:.3f} ms of kernel time over {tn} launches, busy share "
+         f"{tbusy / warm_ms:.3f} of the warm step; the flash kernels {tkinds['flash kernels']:.3f} ms = "
+         f"{tkinds['flash kernels'] / tbusy:.3f} of the kernel time; by kind {kinds_text(tkinds)}")
+    for t, n, name in trows:
+        log(f"[enc]   {t:10.3f} ms  x{n:<7d} {name[:90]}")
+    del params, ostate, tstep, opt
+    torch.cuda.empty_cache()
+    n0 = flash_counts(fa)
+    train_f32_check(fa, dev, cfg, tb, tag="enc")
+    launches["float32 train cut"] = fa.launches - n0[0]
+    del tb
+    torch.cuda.empty_cache()
+    return launches, figs
+
+
+def paligemma_part(fa, dev, card):
+    """Phase 17 (b): paligemma-3b FULL, attention on the plain route under
+    its prefix mask: the prefill and its prefix attention's share, the
+    image rows against a bidirectional attention, decode against the
+    prefill (bfloat16 and the float32 cut), training, the serve launcher.
+    Returns figures."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import build_prefill_step, build_train_step, serve
+    from repro_torch.models import decode_fn, dense, init_cache, init_params, loss_fn, make_dummy_batch
+    from repro_torch.models import param_count, prefill_fn, vlm
+
+    cfg = get_config(PALI_ARCH)
+    check(cfg.family == "vlm" and cfg.attn_kind == "prefix" and cfg.attn_impl == "plain" and cfg.remat == "full"
+          and cfg.optimizer == "adamw", f"{PALI_ARCH} FULL: {cfg.family}, {cfg.attn_kind}, {cfg.attn_impl}, remat "
+                                        f"{cfg.remat}, {cfg.optimizer}")
+    L, P = cfg.num_layers, cfg.num_patches
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    B, S = PALI_PREFILL
+    batch = make_dummy_batch(cfg, B, S, "prefill", np.random.default_rng(SEED), device=dev)
+    St = batch["tokens"].shape[1]
+    step = build_prefill_step(cfg)
+    figs = {}
+    t_part = time.perf_counter()
+
+    def elog(msg):
+        log(f"[enc] (b) +{time.perf_counter() - t_part:.1f} s: {msg}")
+
+    elog(f"{PALI_ARCH} FULL: {param_count(params)} parameters ({cfg.param_dtype}, "
+         f"{tensor_bytes(cache_tensors(params)) / 1e9:.3f} GB), {L} layers, d = {cfg.d_model}, H = {cfg.num_heads}, "
+         f"Hkv = {cfg.num_kv_heads}, D = {cfg.hd}, V = {cfg.vocab_size}; {P} patches of {cfg.patch_dim} before the "
+         f"text; initialised on the card in {init_s:.2f} s")
+
+    # -- prefill
+    torch.cuda.reset_peak_memory_stats()
+    for c in FLASH_COUNTERS:
+        setattr(fa, c, 0)
+    calls = []
+    t0 = time.perf_counter()
+    with spying(dense, "attention", lambda out, *a, **kw: calls.append((a, kw)) if not calls else None):
+        logits = step(params, batch)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    check(flash_counts(fa) == (0,) * 6, f"(b) prefill: flash launches {flash_counts(fa)}, expected none")
+    check(tuple(logits.shape) == (B, St, cfg.vocab_size) and bool(torch.isfinite(logits).all()),
+          f"(b) prefill: logits {tuple(logits.shape)}, finite {bool(torch.isfinite(logits).all())}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = logits[:, St - TF_STEPS:].clone()
+    del logits
+    pre_ms = median_wall_ms(lambda: step(params, batch), reps=2)
+    busy, rows, kinds, n_kernels = device_time_table(step, params, batch, top=6)
+    (q, k, v), kw = calls.pop()
+    check(kw.get("kind") == "prefix" and kw.get("prefix_len") == P and kw.get("impl") == "plain",
+          f"(b) the layers' attention call: kind {kw.get('kind')}, prefix_len {kw.get('prefix_len')}, {kw.get('impl')}")
+    with torch.inference_mode():
+        attn_busy, _, attn_kinds, attn_n = device_time_table(lambda p, b: dense.attention(q, k, v, **kw), None, None)
+        attn_ms = median_event_ms(lambda: dense.attention(q, k, v, **kw), reps=3, warmup=1)
+    share = L * attn_busy / busy
+    figs.update(prefill_ms=pre_ms, prefill_tokens_s=B * S / pre_ms * 1e3, prefill_cold_s=cold_s, prefill_busy_ms=busy,
+                prefill_launches=n_kernels, prefill_peak_gb=peak_gb, prefix_attention_layer_ms=attn_ms,
+                prefix_attention_layer_busy_ms=attn_busy, prefix_attention_share=share)
+    elog(f"prefill B={B} x ({P} patches + {St} text tokens) = {B * S} positions, no flash launch: finite text "
+         f"logits; first call {cold_s:.3f} s, warm {pre_ms:.3f} ms (host clock, median of 2) = "
+         f"{B * S / pre_ms * 1e3:.1f} positions/s; peak device memory {peak_gb:.2f} GB; by the profiler {busy:.3f} ms "
+         f"of kernel time over {n_kernels} launches, busy share {busy / pre_ms:.3f}; by kind {kinds_text(kinds)}; "
+         f"{card}")
+    for t, n, name in rows:
+        log(f"[enc]   {t:10.3f} ms  x{n:<7d} {name[:90]}")
+    elog(f"one layer's plain prefix attention (query blocks of {kw.get('block_q')}, float32 scores) on its own "
+         f"inputs: {attn_ms:.3f} ms by CUDA events, {attn_busy:.3f} ms of kernel time over {attn_n} launches (by "
+         f"kind {kinds_text(attn_kinds)}); x {L} layers = {L * attn_busy:.3f} ms, a share {share:.3f} of the "
+         f"prefill's kernel time")
+
+    # -- the prefix mask on the card: the image rows see exactly the image
+    with torch.inference_mode():
+        pos = torch.arange(q.shape[1], device=dev)
+        qf, kf, vf = q[:, :P].float(), k.float(), v.float()
+        img = dense.attention(qf, kf, vf, q_pos=pos[:P], kv_pos=pos, kind="prefix", prefix_len=P,
+                              block_q=cfg.attn_block_q)
+        bidir = dense.attention(qf, kf[:, :P], vf[:, :P], q_pos=pos[:P], kv_pos=pos[:P], kind="bidirectional")
+        causal = dense.attention(qf, kf[:, :P], vf[:, :P], q_pos=pos[:P], kv_pos=pos[:P], kind="causal")
+    err, gap = float((img - bidir).abs().max()), float((img - causal).abs().max())
+    check(bool(torch.allclose(img, bidir, rtol=F32_TOL, atol=F32_TOL)) and gap > 1e3 * F32_TOL,
+          f"(b) the image rows under the prefix mask: max |d| {err} from bidirectional, {gap} from causal")
+    elog(f"one layer's {P} image rows under the prefix mask (its own inputs widened to float32, all {q.shape[1]} "
+         f"keys): within rtol=atol={F32_TOL} of a bidirectional attention over the image block (max |d| {err:.3e}); "
+         f"a causal one lies {gap:.3e} away")
+    del q, k, v, qf, kf, vf, img, bidir, causal, calls
+    torch.cuda.empty_cache()
+
+    # -- decode against the prefill
+    start_txt = St - TF_STEPS
+    with torch.inference_mode():
+        _, (kc, vc) = vlm.paligemma_forward(params, cfg, batch["patches"], batch["tokens"][:, :start_txt],
+                                            collect_cache=True)
+    cache = init_cache(cfg, B, P + St)
+    cache[0][:, :, :P + start_txt].copy_(kc)
+    cache[1][:, :, :P + start_txt].copy_(vc)
+    del kc, vc
+    torch.cuda.empty_cache()
+    got = teacher_forced(decode_fn, params, cfg, cache, batch["tokens"][:, start_txt:], P + start_txt)
+    check(flash_counts(fa) == (0,) * 6, f"(b) decode: flash launches {flash_counts(fa)}")
+    dec = (got - want).norm(dim=-1) / want.norm(dim=-1)
+    figs.update(decode_rel_l2_max=float(dec.max()), decode_rel_l2_mean=float(dec.mean()))
+    decode_vs_prefill(f"(b) {PALI_ARCH}: {TF_STEPS} teacher-forced decode steps at positions {P + start_txt}-"
+                      f"{P + St - 1} after a collect-cache prefill of {P} patches and {start_txt} text tokens, vs "
+                      f"the prefill", got, want)
+    pos = P + St - 1
+    dec_ms = tf_step_ms(decode_fn, params, cfg, cache, batch["tokens"][:, -1:], pos)
+    b_ms = decode_bound_ms(params, cfg, B, [P + St] * L)
+    figs.update(decode_ms=dec_ms, decode_bound_ms=b_ms)
+    elog(f"decode step at B={B}, position {pos}, cache {P + St} slots ({cache_gb(cache):.3f} GB): {dec_ms:.4f} ms a "
+         f"token by CUDA events ({B / dec_ms * 1e3:.1f} tokens/s); bound {b_ms:.4f} ms (bytes), {dec_ms / b_ms:.2f}x")
+    del got, want, cache
+    torch.cuda.empty_cache()
+
+    cfg32 = cfg.replace(num_layers=F32_LAYERS, param_dtype="float32", compute_dtype="float32")
+    p32 = init_params(cfg32, torch.Generator(device=dev).manual_seed(SEED))
+    b32 = {"patches": batch["patches"][:1], "tokens": batch["tokens"][:1]}
+    want32 = prefill_fn(p32, cfg32, b32)[:, start_txt:].clone()
+    torch.cuda.empty_cache()
+    with torch.inference_mode():
+        _, (kc, vc) = vlm.paligemma_forward(p32, cfg32, b32["patches"], b32["tokens"][:, :start_txt],
+                                            collect_cache=True)
+    cache32 = init_cache(cfg32, 1, P + St)
+    cache32[0][:, :, :P + start_txt].copy_(kc)
+    cache32[1][:, :, :P + start_txt].copy_(vc)
+    got32 = teacher_forced(decode_fn, p32, cfg32, cache32, b32["tokens"][:, start_txt:], P + start_txt)
+    err = float((got32 - want32).abs().max())
+    check(bool(torch.allclose(got32, want32, rtol=DECODE_F32_TOL, atol=DECODE_F32_TOL)),
+          f"(b) float32 decode vs prefill: max |dlogit| {err}")
+    figs.update(decode_f32_max_abs=err)
+    elog(f"float32, {F32_LAYERS} layers at full width, B=1: {TF_STEPS} teacher-forced steps after a collect-cache "
+         f"prefill of the image and {start_txt} text tokens within rtol=atol={DECODE_F32_TOL} of the prefill "
+         f"(max |dlogit| {err:.3e})")
+    del p32, b32, want32, kc, vc, cache32, got32, batch
+    torch.cuda.empty_cache()
+
+    # -- training
+    tb = make_dummy_batch(cfg, *PALI_TRAIN, "train", np.random.default_rng(SEED), device=dev)
+    tstep, opt = build_train_step(cfg)
+    ostate = opt.init(params)
+    params, losses, secs, train_peak, (tbusy, trows, tkinds, tn) = train_steps(
+        fa, "(b)", tstep, params, ostate, tb, (0,) * 6, "enc", lambda p: loss_fn(p, cfg, tb))
+    positions = PALI_TRAIN[0] * PALI_TRAIN[1]
+    warm_ms = 1e3 * secs[1]
+    figs.update(train_warm_ms=warm_ms, train_tokens_s=positions / warm_ms * 1e3, train_busy_ms=tbusy,
+                 train_launches=tn, train_peak_gb=train_peak, losses=losses)
+    elog(f"{ENC_TRAIN_STEPS} train steps (remat {cfg.remat}, {cfg.optimizer} lr {cfg.learning_rate}) "
+         f"B={PALI_TRAIN[0]} x ({P} patches + {tb['tokens'].shape[1] - 1} text tokens), no flash launch; losses "
+         f"{', '.join(f'{x:.5f}' for x in losses[:-1])}, after them {losses[-1]:.5f}; steps "
+         f"{', '.join(f'{x:.3f}' for x in secs)} s (the first cold, the last under the profiler); warm "
+         f"{warm_ms:.3f} ms = {positions / warm_ms * 1e3:.1f} positions/s; peak "
+         f"device memory {train_peak:.2f} GB; by the profiler {tbusy:.3f} ms of kernel time over {tn} launches, busy "
+         f"share {tbusy / warm_ms:.3f}; by kind {kinds_text(tkinds)}")
+    for t, n, name in trows:
+        log(f"[enc]   {t:10.3f} ms  x{n:<7d} {name[:90]}")
+    del params, ostate, tstep, opt, tb
+    torch.cuda.empty_cache()
+
+    # -- the serve launcher at its defaults
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        serve.main(["--arch", PALI_ARCH, "--full"])
+    text = out.getvalue()
+    m = re.search(r"\(([0-9.]+) tok/s on (.+)\)", text)
+    check(m is not None and m.group(2) == torch.cuda.get_device_name(0) and flash_counts(fa) == (0,) * 6,
+          f"(b) launch/serve.py --arch {PALI_ARCH} --full printed {text!r}; flash launches {flash_counts(fa)}")
+    figs.update(serve_launcher_tokens_s=float(m.group(1)))
+    for line in text.splitlines():
+        elog(f"launch/serve.py --arch {PALI_ARCH} --full: {line}")
+    torch.cuda.empty_cache()
+    return figs
+
+
+def encoder_phase(fa, dev, card):
+    """Phase 17: the encoder and VLM families. Returns (hubert's flash
+    launches by use, figures, hubert's D = 80 flash times)."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+
+    def held():
+        return run_with_launches_held(fa, "(a)", hubert_part, fa, dev, card, cases=ENC_FLASH_CASES, tag="enc")
+
+    launches, figs = run_with_bwd_launches_held(fa, "(a)", held, cases=ENC_FLASH_BWD_CASES, tag="enc")
+    d80 = padded_flash_times(fa, dev, card, "enc", "hubert-xlarge's attention", 16, "bidirectional", 4096,
+                             (HUBERT_ENCODE,), HUBERT_TRAIN)
+    enc_ms = sum(v["ms"] for k, v in d80.items() if k.startswith("fwd"))
+    log(f"[enc] hubert's encode: {launches['encode']} forward launches x {enc_ms:.4f} ms = "
+        f"{launches['encode'] * enc_ms:.3f} ms of the kernel alone (the profiler's flash time in the encode "
+        f"{figs['encode_flash_ms']:.3f} ms, a share {figs['encode_flash_share']:.3f})")
+    pali = run_with_launches_held(fa, "(b)", paligemma_part, fa, dev, card, cases=(), tag="enc")
+    log(f"[enc] phase 17 wall time {time.perf_counter() - t0:.1f} s; hubert's flash launches {launches}")
+    return launches, {"hubert": figs, "paligemma": pali}, d80
 
 
 def main() -> int:
@@ -3697,7 +4139,7 @@ def main() -> int:
     # -- phases 9-11: the flash backward kernels and gemma2-2b training -----
     bwd_main, dq_err, dkv_err = flash_bwd_phase(fa, dev)
     cfg, tokens, launches_train, _ = train_phase(fa, mp, dev, card)
-    train_f32_check(fa, dev, cfg, tokens)
+    train_f32_check(fa, dev, cfg, {"tokens": tokens})
     dq_t, dkv_t = flash_bwd_times(fa, bwd_main, card)
     del bwd_main
     torch.cuda.empty_cache()
@@ -3718,6 +4160,10 @@ def main() -> int:
     # -- phase 16: the SSM families --------------------------------------------
     launches_ssm, _, d80 = ssm_phase(fa, dev, card)
     ssm_by_use = {f"{arch}: {use}": n for arch, uses in launches_ssm.items() for use, n in uses.items()}
+
+    # -- phase 17: the encoder and VLM families ------------------------------------
+    launches_enc, _, hubert_d80 = encoder_phase(fa, dev, card)
+    enc_by_use = {f"{HUBERT_ARCH}: {use}": n for use, n in launches_enc.items()}
 
     kernels = [{
         "name": "minplus_cuda",
@@ -3759,6 +4205,9 @@ def main() -> int:
         "serve_launches_by_part": launches_serve_parts,
         "ssm_launches_by_part": {k: v for k, v in ssm_by_use.items() if "dq" not in k and "dkv" not in k},
         "zamba2_d80": {k: v for k, v in d80.items() if k.startswith("fwd")},
+        "encoder_launches_by_part": {**{k: v for k, v in enc_by_use.items() if "dq" not in k and "dkv" not in k},
+                                     f"{PALI_ARCH}: all": 0},
+        "hubert_d80": {k: v for k, v in hubert_d80.items() if k.startswith("fwd")},
         "max_abs_err": flash_err_max,
         **ft,
     }, {
@@ -3770,6 +4219,8 @@ def main() -> int:
         "launches": launches_train["flash_dq"],
         "ssm_launches_by_part": {k: v for k, v in ssm_by_use.items() if k.endswith("train dq")},
         "zamba2_d80": d80[f"dq_S{ZAMBA_TRAIN_S}"],
+        "encoder_launches_by_part": {k: v for k, v in enc_by_use.items() if k.endswith("train dq")},
+        "hubert_d80": hubert_d80[f"dq_S{HUBERT_TRAIN[1]}"],
         "max_abs_err": dq_err,
         **dq_t,
     }, {
@@ -3781,6 +4232,8 @@ def main() -> int:
         "launches": launches_train["flash_dkv"],
         "ssm_launches_by_part": {k: v for k, v in ssm_by_use.items() if k.endswith("train dkv")},
         "zamba2_d80": d80[f"dkv_S{ZAMBA_TRAIN_S}"],
+        "encoder_launches_by_part": {k: v for k, v in enc_by_use.items() if k.endswith("train dkv")},
+        "hubert_d80": hubert_d80[f"dkv_S{HUBERT_TRAIN[1]}"],
         "max_abs_err": dkv_err,
         **dkv_t,
     }]

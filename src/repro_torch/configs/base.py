@@ -1,10 +1,10 @@
 """Model/run configuration dataclasses + the architecture registry.
 
 The fields are those of the JAX package's ``configs/base.py`` that the
-ported families (dense, MoE with MLA and MTP, the xLSTM ``ssm`` family and
-the Zamba2 ``hybrid`` family) and the serving path read, with the
-reference's defaults; the encoder and VLM fields come with the code that
-reads them. Dtypes stay strings and
+six families (dense, MoE with MLA and MTP, the xLSTM ``ssm`` family, the
+Zamba2 ``hybrid`` family, the HuBERT ``encoder`` and the PaliGemma ``vlm``
+with their stub frontends) and the serving path read, with the reference's
+defaults. Dtypes stay strings and
 :meth:`ModelConfig.pdtype`/:meth:`ModelConfig.cdtype` map them to torch
 dtypes. One field takes port names:
 
@@ -100,6 +100,12 @@ class ModelConfig:
     shared_attn_every: int = 0  # zamba2: shared attention block period
     chunk_size: int = 256
 
+    # encoder (hubert) / vlm (paligemma) stub frontends
+    frame_dim: int = 0  # audio frame embedding dim
+    mask_prob: float = 0.08
+    num_patches: int = 0  # vision patches
+    patch_dim: int = 0
+
     # numerics / training
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
@@ -161,10 +167,7 @@ def get_config(arch: str, smoke: bool = False) -> ModelConfig:
 
     _load_all()
     if arch not in _REGISTRY:
-        raise KeyError(
-            f"arch {arch!r} is not in the port (the JAX package's other archs come with later "
-            f"slices, ROADMAP.md Queue 1); ported: {sorted(_REGISTRY)}"
-        )
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted(_REGISTRY)}")
     return _REGISTRY[arch][1 if smoke else 0]
 
 

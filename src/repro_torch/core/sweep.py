@@ -52,7 +52,7 @@ rows in original order.
 
 Multi-GPU sweeps (the JAX package's ``mesh`` batch sharding and
 ``ring_mesh`` class ring) are not ported: they raise
-``NotImplementedError`` (ROADMAP Queue 1, item 2).
+``NotImplementedError`` (ROADMAP Queue 1 (torch.distributed)).
 """
 
 from __future__ import annotations
@@ -95,7 +95,7 @@ __all__ = [
 
 _MULTI_GPU = (
     "multi-GPU sweeps (batch sharding over a mesh, the class-axis ring) are "
-    "not ported yet: ROADMAP Queue 1, item 2 (torch.distributed)"
+    "not ported yet: ROADMAP Queue 1 (torch.distributed)"
 )
 
 
@@ -353,7 +353,7 @@ class SweepEngine:
       device: where the plans run; ``"cuda"`` (the default) raises without
         a card.
       mesh, ring_mesh: multi-GPU sharding; not ported, they raise
-        ``NotImplementedError`` (ROADMAP Queue 1, item 2).
+        ``NotImplementedError`` (ROADMAP Queue 1 (torch.distributed)).
     """
 
     def __init__(

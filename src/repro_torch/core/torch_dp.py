@@ -195,10 +195,10 @@ def solve_fused_batch_torch(costs: torch.Tensor, t_star, T: int, backend: str = 
 
 def solve_fused_batch_ring(*args, **kwargs):
     """Not ported: the JAX package's class-axis ring over several devices
-    needs ``torch.distributed`` (ROADMAP Queue 1, item 2)."""
+    needs ``torch.distributed`` (ROADMAP Queue 1 (torch.distributed))."""
     raise NotImplementedError(
         "solve_fused_batch_ring (the class-axis ring over several cards) is not "
-        "ported yet: ROADMAP Queue 1, item 2 (torch.distributed)"
+        "ported yet: ROADMAP Queue 1 (torch.distributed)"
     )
 
 

@@ -1,6 +1,8 @@
 """Serving launcher, after the JAX package's ``launch/serve.py``: batched
 greedy decoding against a decode cache (a KV cache; for xlstm-1.3b a
-recurrent state, for zamba2-2.7b both).
+recurrent state, for zamba2-2.7b both). paligemma-3b serves text only, as
+in the reference: the prompts go through its decoder's cache without an
+image. hubert-xlarge is refused (encoder-only: no decode).
 
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch gemma2-2b --batch 4 --prompt-len 32 --gen 16

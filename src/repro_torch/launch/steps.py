@@ -3,8 +3,8 @@
 ``build_train_step`` is the LM training step (loss, gradients, optimizer
 update), ``build_prefill_step`` the prefill and ``build_serve_step`` one
 greedy decode step against the decode cache (KV caches, and the recurrent
-states of the xLSTM and Zamba2 models), for the ported families (dense,
-MoE, ssm and hybrid).
+states of the xLSTM and Zamba2 models), for every family through the model
+API (:mod:`repro_torch.models.model`; the encoder has no serve step).
 """
 
 from __future__ import annotations
@@ -43,7 +43,8 @@ def build_train_step(cfg: ModelConfig):
 
 def build_prefill_step(cfg: ModelConfig):
     """``prefill_step(params, batch)``: float32 logits over the full
-    sequence (:func:`repro_torch.models.prefill_fn`)."""
+    sequence (:func:`repro_torch.models.prefill_fn`; the encoder's frames,
+    the VLM's text after its patches)."""
 
     def prefill_step(params, batch):
         return prefill_fn(params, cfg, batch)

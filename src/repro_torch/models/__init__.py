@@ -1,9 +1,11 @@
-"""The LM model zoo of the port: the dense family (``dense.py``), the MoE
-family (``moe.py``, ``moe_dispatch.py``, ``mla.py``), the xLSTM family
-(``xlstm.py``) and the Zamba2 hybrid (``hybrid.py``) on the SSM cells
-(``ssm.py``), with their prefill, loss and decode, the model API
-(``model.py``) and the converters from the JAX package's configs, parameter
-trees and caches (``convert.py``)."""
+"""The model zoo of the port, its six families: the dense family
+(``dense.py``), the MoE family (``moe.py``, ``moe_dispatch.py``,
+``mla.py``), the xLSTM family (``xlstm.py``) and the Zamba2 hybrid
+(``hybrid.py``) on the SSM cells (``ssm.py``), the HuBERT encoder
+(``encoder.py``) and the PaliGemma VLM (``vlm.py``) on the dense stack, with
+their prefill, loss and decode, the model API (``model.py``) and the
+converters from the JAX package's configs, parameter trees and caches
+(``convert.py``)."""
 
 from .convert import cache_from_jax, cache_to_jax, config_from_jax, params_from_jax
 from .model import (

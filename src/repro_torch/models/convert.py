@@ -60,31 +60,38 @@ def _unstack(tree, n, to_t):
     return [_map(tree, lambda a, i=i: to_t(np.asarray(a)[i])) for i in range(n)]
 
 
+# the top-level keys of each family's JAX parameter tree that hold stacked layers
+_STACKED = {"dense": ("layers",), "encoder": ("layers",), "vlm": ("layers",), "moe": ("moe_layers", "dense_layers"),
+            "ssm": ("groups",), "hybrid": ("mamba_groups",)}
+
+
 def params_from_jax(cfg: ModelConfig, tree, device="cuda"):
     """The port's parameters from a JAX ``init_params`` tree of numpy arrays
     (or a gradient tree of the same shape).
 
-    Dense: the JAX layer stack carries leading ``(n_groups, period)`` axes on
-    every leaf; entry ``[g, sub]`` becomes port layer ``g * period + sub``.
+    Dense, encoder and vlm: the JAX layer stack carries leading ``(n_groups,
+    period)`` axes on every leaf; entry ``[g, sub]`` becomes port layer ``g *
+    period + sub``; the other leaves (the encoder's ``frame_proj``,
+    ``mask_emb`` and ``head``, the VLM's ``patch_proj``) are not stacked.
     MoE: ``moe_layers`` and ``dense_layers`` are stacked on ``(n,)`` and
     become lists; ``mtp`` is not stacked. ssm (xLSTM): ``groups/mlstm``
     ``(n_groups, period - 1)`` becomes the list ``mlstm`` (block ``g *
     (period - 1) + j``), ``groups/slstm`` ``(n_groups,)`` the list
     ``slstm``. hybrid (Zamba2): ``mamba_groups`` ``(n_groups, period)``
     becomes the list ``mamba`` (block ``g * period + j``); ``shared`` is not
-    stacked. Dtypes are kept; tensors go to ``device``.
+    stacked. Dtypes are kept; tensors go to ``device``. An unknown family
+    raises ``ValueError``.
     """
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet (ROADMAP.md, Queue 1)")
+    if cfg.family not in _STACKED:
+        raise ValueError(cfg.family)
+    stacked = _STACKED[cfg.family]
     dev = resolve_device(device)
 
     def to_t(a):
         return tensor_from_numpy(a, dev)
 
-    stacked = {"dense": ("layers",), "moe": ("moe_layers", "dense_layers"), "ssm": ("groups",),
-               "hybrid": ("mamba_groups",)}[cfg.family]
     params = {k: _map(x, to_t) for k, x in tree.items() if k not in stacked}
-    if cfg.family == "dense":
+    if stacked == ("layers",):
         params["layers"] = _unstack(_map(tree["layers"], _merge_lead), cfg.num_layers, to_t)
     elif cfg.family == "ssm":
         G = cfg.num_layers // cfg.slstm_every
@@ -102,18 +109,21 @@ def params_from_jax(cfg: ModelConfig, tree, device="cuda"):
 def cache_from_jax(cfg: ModelConfig, cache, device="cuda"):
     """The port's decode cache from a JAX ``init_cache``/``decode_fn`` cache
     of numpy arrays. Dense: ``(k, v)`` of ``(n_groups, period, B, S, Hkv,
-    hd)`` becomes ``(L, B, S, Hkv, hd)`` with layer ``g * period + sub``.
-    MoE: ``{"moe"[, "dense"]}`` keeps its layout (pairs stacked on ``(n,)``;
-    MLA's ``(c_kv, k_rope)``). ssm: ``{"mlstm": (conv, (S, n, m)), "slstm":
+    hd)`` becomes ``(L, B, S, Hkv, hd)`` with layer ``g * period + sub``;
+    vlm: as dense. MoE: ``{"moe"[, "dense"]}`` keeps its layout (pairs
+    stacked on ``(n,)``; MLA's ``(c_kv, k_rope)``). ssm: ``{"mlstm": (conv, (S, n, m)), "slstm":
     (c, n, m, h)}``, the mLSTM leaves' ``(n_groups, period - 1)`` axes merged
     into one; hybrid: ``{"mamba": (conv, ssd), "attn": (k, v)}``, the Mamba2
-    leaves' ``(n_groups, period)`` axes merged into one."""
+    leaves' ``(n_groups, period)`` axes merged into one. The encoder has no
+    cache: ``None``."""
+    if cfg.family == "encoder":
+        return None
     dev = resolve_device(device)
 
     def to_t(a):
         return tensor_from_numpy(a, dev)
 
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm"):
         return tuple(to_t(_merge_lead(a)) for a in cache)
     if cfg.family == "moe":
         return {k: tuple(to_t(a) for a in pair) for k, pair in cache.items()}
@@ -121,7 +131,7 @@ def cache_from_jax(cfg: ModelConfig, cache, device="cuda"):
         return {"mlstm": _map(cache["mlstm"], lambda a: to_t(_merge_lead(a))), "slstm": _map(cache["slstm"], to_t)}
     if cfg.family == "hybrid":
         return {"mamba": _map(cache["mamba"], lambda a: to_t(_merge_lead(a))), "attn": _map(cache["attn"], to_t)}
-    raise NotImplementedError(f"family {cfg.family!r} is not ported yet (ROADMAP.md, Queue 1)")
+    raise ValueError(cfg.family)
 
 
 def cache_to_jax(cfg: ModelConfig, cache):
@@ -134,7 +144,9 @@ def cache_to_jax(cfg: ModelConfig, cache):
     def split_lead(period):
         return lambda t: to_np(t).reshape((t.shape[0] // period, period) + tuple(t.shape[1:]))
 
-    if cfg.family == "dense":
+    if cfg.family == "encoder":
+        return None
+    if cfg.family in ("dense", "vlm"):
         return tuple(map(split_lead(len(attn_pattern(cfg))), cache))
     if cfg.family == "moe":
         return {k: tuple(to_np(t) for t in pair) for k, pair in cache.items()}
@@ -142,4 +154,4 @@ def cache_to_jax(cfg: ModelConfig, cache):
         return {"mlstm": _map(cache["mlstm"], split_lead(cfg.slstm_every - 1)), "slstm": _map(cache["slstm"], to_np)}
     if cfg.family == "hybrid":
         return {"mamba": _map(cache["mamba"], split_lead(cfg.shared_attn_every)), "attn": _map(cache["attn"], to_np)}
-    raise NotImplementedError(f"family {cfg.family!r} is not ported yet (ROADMAP.md, Queue 1)")
+    raise ValueError(cfg.family)

@@ -172,7 +172,8 @@ def write_cache(cache: torch.Tensor, x: torch.Tensor, write_pos: torch.Tensor) -
     return cache.index_copy_(1, idx, x.to(cache.dtype))
 
 
-def layer_apply(cfg: ModelConfig, p, h, kind: str, rope_sincos, *, q_pos, kv_pos, cache_kv=None, write_pos=None):
+def layer_apply(cfg: ModelConfig, p, h, kind: str, rope_sincos, *, q_pos, kv_pos, cache_kv=None, write_pos=None,
+                prefix_len=None):
     """One transformer block. Returns ``(h, new_kv)``: without a cache the
     fresh ``(k, v)`` of this call (after RoPE), with ``cache_kv = (k_cache,
     v_cache)`` (each ``(B, S_max, Hkv, hd)``) and ``write_pos`` (a 0-d
@@ -182,7 +183,10 @@ def layer_apply(cfg: ModelConfig, p, h, kind: str, rope_sincos, *, q_pos, kv_pos
     Decoding one token through a ``"sliding"`` layer of a cache longer than
     twice the window attends only to the ``window`` slots ending at
     ``write_pos`` (start clipped to ``[0, S_max - window]``), as the
-    reference's long-context branch does."""
+    reference's long-context branch does. ``prefix_len`` (a ``"prefix"``
+    layer's bidirectional prefix, PaliGemma's image patches) goes to
+    :func:`repro_torch.models.layers.attention`, which takes the plain route
+    under it, as the reference does."""
     sin, cos = rope_sincos
     a_in = rms_norm(h, p["ln1"])
     q = apply_rope(_proj(a_in, p["attn"]["wq"]), sin, cos)
@@ -204,8 +208,8 @@ def layer_apply(cfg: ModelConfig, p, h, kind: str, rope_sincos, *, q_pos, kv_pos
 
     out = attention(
         q, k_use, v_use,
-        q_pos=q_pos, kv_pos=kv_pos_use, kind=kind, window=cfg.window, attn_softcap=cfg.attn_softcap,
-        block_q=cfg.attn_block_q, impl=cfg.attn_impl,
+        q_pos=q_pos, kv_pos=kv_pos_use, kind=kind, window=cfg.window, prefix_len=prefix_len,
+        attn_softcap=cfg.attn_softcap, block_q=cfg.attn_block_q, impl=cfg.attn_impl,
     )
     attn_out = _out_proj(out, p["attn"]["wo"])
     if "ln1b" in p:
@@ -234,13 +238,14 @@ def _maybe_remat(cfg: ModelConfig, fn):
     return fn
 
 
-def stack_forward(cfg: ModelConfig, layers, h, *, collect_cache=False):
+def stack_forward(cfg: ModelConfig, layers, h, *, prefix_len=None, collect_cache=False):
     """The layer stack over the full sequence, in groups of
     ``period = len(attn_pattern(cfg))`` layers (the reference's scan body);
-    sublayer ``sub`` of a group has attention kind ``attn_pattern(cfg)[sub]``.
-    Returns ``(h, caches)``: with ``collect_cache`` the pair ``(k, v)`` of
-    every layer's keys and values after RoPE, stacked ``(L, B, S, Hkv,
-    hd)`` as a decode cache is laid out, else ``None``."""
+    sublayer ``sub`` of a group has attention kind ``attn_pattern(cfg)[sub]``
+    (``prefix_len``: see :func:`layer_apply`). Returns ``(h, caches)``: with
+    ``collect_cache`` the pair ``(k, v)`` of every layer's keys and values
+    after RoPE, stacked ``(L, B, S, Hkv, hd)`` as a decode cache is laid
+    out, else ``None``."""
     S = h.shape[1]
     pattern = attn_pattern(cfg)
     pos = torch.arange(S, device=h.device)
@@ -249,7 +254,7 @@ def stack_forward(cfg: ModelConfig, layers, h, *, collect_cache=False):
     def group_body(h, group):
         kvs = []
         for kind, p in zip(pattern, group):
-            h, kv = layer_apply(cfg, p, h, kind, rope, q_pos=pos, kv_pos=pos)
+            h, kv = layer_apply(cfg, p, h, kind, rope, q_pos=pos, kv_pos=pos, prefix_len=prefix_len)
             kvs.append(kv if collect_cache else None)
         return h, kvs
 
@@ -307,12 +312,12 @@ def _logits(cfg: ModelConfig, params, h):
     return logits.float().div_(cfg.logit_softcap).tanh_().mul_(cfg.logit_softcap)
 
 
-def dense_forward(params, cfg: ModelConfig, tokens, *, collect_cache=False):
+def dense_forward(params, cfg: ModelConfig, tokens, *, prefix_len=None, collect_cache=False):
     """tokens ``(B, S)`` -> ``(logits, caches)``: float32 logits ``(B, S,
     V)`` and, with ``collect_cache``, every layer's ``(k, v)``
     (:func:`stack_forward`), else ``None``."""
     h = _embed(cfg, params, tokens)
-    h, caches = stack_forward(cfg, params["layers"], h, collect_cache=collect_cache)
+    h, caches = stack_forward(cfg, params["layers"], h, prefix_len=prefix_len, collect_cache=collect_cache)
     return _logits(cfg, params, h), caches
 
 

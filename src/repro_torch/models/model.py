@@ -1,11 +1,13 @@
 """Model API of the port: family dispatch, decode caches, dummy batches and
 parameter/FLOPs accounting, after the JAX package's ``models/model.py``.
 
-The port holds the ``dense``, ``moe``, ``ssm`` (xLSTM) and ``hybrid``
-(Zamba2) families: forward (prefill), loss (training), cache and decode
-step. The ``encoder`` and ``vlm`` families come with later slices
-(ROADMAP.md, Queue 1) and raise ``NotImplementedError`` until then, as does
-``input_specs`` (it comes with the dry run).
+The port holds all six families of the reference's zoo: ``dense``,
+``moe``, ``ssm`` (xLSTM), ``hybrid`` (Zamba2), ``encoder`` (HuBERT) and
+``vlm`` (PaliGemma), each with its forward (prefill), loss (training),
+decode cache and step (the encoder has neither: ``init_cache`` returns
+``None`` and ``decode_fn`` raises, as in the reference). An unknown family
+raises ``ValueError``. ``input_specs`` is not ported (it comes with the dry
+run, ROADMAP.md Queue 1).
 
 Entry points run on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``; without a CUDA device they raise rather than run on the CPU.
@@ -21,7 +23,7 @@ import torch
 from ..configs.base import InputShape, ModelConfig
 from ..core.torch_dp import resolve_device
 from ..optim.optimizers import tree_leaves
-from . import dense, hybrid, moe, xlstm
+from . import dense, encoder, hybrid, moe, vlm, xlstm
 
 __all__ = [
     "active_param_count",
@@ -38,59 +40,67 @@ __all__ = [
     "supports_mode",
 ]
 
-_PORTED = ("dense", "moe", "ssm", "hybrid")
-
-
-def _ported(cfg: ModelConfig):
-    if cfg.family not in _PORTED:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.arch}) is not ported yet; the port holds the {', '.join(_PORTED)} "
-            "families (ROADMAP.md, Queue 1)"
-        )
-
-
 def init_params(cfg: ModelConfig, gen=0, device="cuda"):
     """Random parameters. ``gen`` is a ``torch.Generator`` (its device is
     used) or an int seed for a new generator on ``device``."""
-    _ported(cfg)
     if not isinstance(gen, torch.Generator):
         gen = torch.Generator(device=resolve_device(device)).manual_seed(int(gen))
+    if cfg.family == "dense":
+        return dense.init_dense(cfg, gen)
     if cfg.family == "moe":
         return moe.init_moe_model(cfg, gen)
     if cfg.family == "ssm":
         return xlstm.init_xlstm(cfg, gen)
     if cfg.family == "hybrid":
         return hybrid.init_zamba(cfg, gen)
-    return dense.init_dense(cfg, gen)
+    if cfg.family == "encoder":
+        return encoder.init_hubert(cfg, gen)
+    if cfg.family == "vlm":
+        return vlm.init_paligemma(cfg, gen)
+    raise ValueError(cfg.family)
 
 
 def loss_fn(params, cfg: ModelConfig, batch):
-    """The training objective: ``batch["tokens"]`` -> the mean next-token
-    cross-entropy (MoE: plus the router and MTP terms), a float32 scalar that
-    carries a gradient when grad mode is on and a parameter requires one."""
-    _ported(cfg)
+    """The training objective, a float32 scalar that carries a gradient when
+    grad mode is on and a parameter requires one: for the LMs
+    (``batch["tokens"]``) the mean next-token cross-entropy (MoE: plus the
+    router and MTP terms; vlm: of the text after ``batch["patches"]``), for
+    the encoder the masked prediction of ``batch["labels"]`` at
+    ``batch["mask"]`` from ``batch["frames"]``."""
+    if cfg.family == "dense":
+        return dense.dense_loss(params, cfg, batch)
     if cfg.family == "moe":
         return moe.moe_loss(params, cfg, batch)
     if cfg.family == "ssm":
         return xlstm.xlstm_loss(params, cfg, batch)
     if cfg.family == "hybrid":
         return hybrid.zamba_loss(params, cfg, batch)
-    return dense.dense_loss(params, cfg, batch)
+    if cfg.family == "encoder":
+        return encoder.hubert_loss(params, cfg, batch)
+    if cfg.family == "vlm":
+        return vlm.paligemma_loss(params, cfg, batch)
+    raise ValueError(cfg.family)
 
 
 def prefill_fn(params, cfg: ModelConfig, batch):
     """Forward over the full sequence: ``batch["tokens"] (B, S)`` -> float32
-    logits ``(B, S, V)``, on the device of the parameters. Runs under
-    ``torch.inference_mode``."""
-    _ported(cfg)
+    logits ``(B, S, V)`` (encoder: ``batch["frames"] (B, S, F)``, no mask;
+    vlm: logits over the text positions after ``batch["patches"]``), on the
+    device of the parameters. Runs under ``torch.inference_mode``."""
     with torch.inference_mode():
+        if cfg.family == "dense":
+            return dense.dense_forward(params, cfg, batch["tokens"])[0]
         if cfg.family == "moe":
             return moe.moe_forward(params, cfg, batch["tokens"])[0]
         if cfg.family == "ssm":
             return xlstm.xlstm_forward(params, cfg, batch["tokens"])[0]
         if cfg.family == "hybrid":
             return hybrid.zamba_forward(params, cfg, batch["tokens"])[0]
-        return dense.dense_forward(params, cfg, batch["tokens"])[0]
+        if cfg.family == "encoder":
+            return encoder.hubert_forward(params, cfg, batch["frames"])
+        if cfg.family == "vlm":
+            return vlm.paligemma_forward(params, cfg, batch["patches"], batch["tokens"])[0]
+    raise ValueError(cfg.family)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
@@ -98,15 +108,21 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
     tokens, on ``device`` (layouts: :mod:`repro_torch.models.dense`,
     :mod:`repro_torch.models.moe`, :mod:`repro_torch.models.xlstm` (a
     recurrent state that ``max_len`` does not size),
-    :mod:`repro_torch.models.hybrid`)."""
-    _ported(cfg)
+    :mod:`repro_torch.models.hybrid`; vlm: the dense cache). The encoder
+    has none: ``None``."""
+    if cfg.family == "dense":
+        return dense.init_dense_cache(cfg, batch, max_len, device)
     if cfg.family == "moe":
         return moe.init_moe_cache(cfg, batch, max_len, device)
     if cfg.family == "ssm":
         return xlstm.init_xlstm_cache(cfg, batch, max_len, device)
     if cfg.family == "hybrid":
         return hybrid.init_zamba_cache(cfg, batch, max_len, device)
-    return dense.init_dense_cache(cfg, batch, max_len, device)
+    if cfg.family == "vlm":
+        return vlm.init_paligemma_cache(cfg, batch, max_len, device)
+    if cfg.family == "encoder":
+        return None
+    raise ValueError(cfg.family)
 
 
 def decode_fn(params, cfg: ModelConfig, cache, tokens, pos):
@@ -114,16 +130,19 @@ def decode_fn(params, cfg: ModelConfig, cache, tokens, pos):
     or a 0-d integer tensor; no host sync) -> ``(logits (B, 1, V), cache)``.
     KV caches are updated in place and returned; recurrent states (xLSTM's,
     Zamba2's conv and SSD states) are returned new. Runs under
-    ``torch.inference_mode``."""
-    _ported(cfg)
+    ``torch.inference_mode``. The encoder has no decode step: ``ValueError``."""
     with torch.inference_mode():
+        if cfg.family == "dense":
+            return dense.dense_decode_step(params, cfg, cache, tokens, pos)
         if cfg.family == "moe":
             return moe.moe_decode_step(params, cfg, cache, tokens, pos)
         if cfg.family == "ssm":
             return xlstm.xlstm_decode_step(params, cfg, cache, tokens, pos)
         if cfg.family == "hybrid":
             return hybrid.zamba_decode_step(params, cfg, cache, tokens, pos)
-        return dense.dense_decode_step(params, cfg, cache, tokens, pos)
+        if cfg.family == "vlm":
+            return vlm.paligemma_decode_step(params, cfg, cache, tokens, pos)
+    raise ValueError(f"{cfg.family} has no decode step")
 
 
 def supports_mode(cfg: ModelConfig, shape: InputShape) -> tuple:
@@ -142,9 +161,9 @@ def layer_stacks(cfg: ModelConfig) -> Dict[str, tuple]:
     dense stack on ``(n_groups, period)``, the MoE model's lists on
     ``(n,)``, xLSTM's mLSTM blocks on ``(n_groups, period - 1)`` and its
     sLSTM blocks on ``(n_groups,)``, Zamba2's Mamba2 blocks on ``(n_groups,
-    period)``. Adafactor factors and clips the stacked leaves
-    (:func:`repro_torch.optim.adafactor`'s ``stacks``)."""
-    _ported(cfg)
+    period)``; the encoder's and the VLM's layers, like the dense stack, on
+    ``(n_groups, period)`` with period 1. Adafactor factors and clips the
+    stacked leaves (:func:`repro_torch.optim.adafactor`'s ``stacks``)."""
     if cfg.family == "moe":
         return {"moe_layers": (cfg.num_layers - cfg.dense_prefix_layers,),
                 "dense_layers": (cfg.dense_prefix_layers,)}
@@ -153,21 +172,41 @@ def layer_stacks(cfg: ModelConfig) -> Dict[str, tuple]:
         return {"mlstm": (G, cfg.slstm_every - 1), "slstm": (G,)}
     if cfg.family == "hybrid":
         return {"mamba": (cfg.num_layers // cfg.shared_attn_every, cfg.shared_attn_every)}
-    period = len(dense.attn_pattern(cfg))
-    return {"layers": (cfg.num_layers // period, period)}
+    if cfg.family in ("dense", "encoder", "vlm"):
+        period = len(dense.attn_pattern(cfg))
+        return {"layers": (cfg.num_layers // period, period)}
+    raise ValueError(cfg.family)
 
 
 def make_dummy_batch(cfg: ModelConfig, B: int, S: int, mode: str, rng: np.random.Generator,
                      device="cuda") -> Dict[str, Any]:
-    """Random tokens from a numpy generator (the reference's draw), as int64
-    on ``device``: ``(B, S)``, plus one target column in ``train`` mode (two
-    with MTP)."""
-    _ported(cfg)
+    """A random batch from a numpy generator, drawn as the reference draws
+    it, on ``device``; integers as int64, floats as float32. LMs: tokens
+    ``(B, S)``, plus one target column in ``train`` mode (two with MTP).
+    Encoder: ``frames (B, S, frame_dim)``, ``mask (B, S)`` (30% of frames
+    masked) and ``labels (B, S)``. vlm: ``patches (B, num_patches,
+    patch_dim)`` and ``max(S - num_patches, 16)`` tokens (plus the target
+    column in ``train`` mode)."""
+    dev = resolve_device(device)
+
+    def ints(a):
+        return torch.from_numpy(a.astype(np.int32)).long().to(dev)
+
+    def floats(a):
+        return torch.from_numpy(a.astype(np.float32)).to(dev)
+
     extra = 1 if mode == "train" else 0
+    if cfg.family == "encoder":
+        frames = floats(rng.normal(size=(B, S, cfg.frame_dim)))
+        mask = torch.from_numpy(rng.random((B, S)) < 0.3).to(dev)
+        return {"frames": frames, "mask": mask, "labels": ints(rng.integers(0, cfg.vocab_size, (B, S)))}
+    if cfg.family == "vlm":
+        S_txt = max(S - cfg.num_patches, 16)
+        patches = floats(rng.normal(size=(B, cfg.num_patches, cfg.patch_dim)))
+        return {"patches": patches, "tokens": ints(rng.integers(0, cfg.vocab_size, (B, S_txt + extra)))}
     if cfg.use_mtp and mode == "train":
         extra = 2
-    tokens = rng.integers(0, cfg.vocab_size, (B, S + extra)).astype(np.int32)
-    return {"tokens": torch.from_numpy(tokens).long().to(resolve_device(device))}
+    return {"tokens": ints(rng.integers(0, cfg.vocab_size, (B, S + extra)))}
 
 
 # ---------------------------------------------------------------------------
@@ -206,7 +245,6 @@ def model_flops_per_token(params, cfg: ModelConfig, seq_len: int, mode: str = "t
     (dense, moe, vlm, encoder; not ssm or hybrid), the attention term
     12·L·d_attn·S (train) or 4·L·d_attn·S (inference), halved for
     causality, as the reference counts it."""
-    _ported(cfg)
     mult = 6.0 if mode == "train" else 2.0
     flops = mult * active_param_count(params, cfg)
     if cfg.family in ("dense", "moe", "vlm", "encoder"):

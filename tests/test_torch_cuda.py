@@ -18,8 +18,9 @@ card engine against the CPU's; a toy-LM FL campaign trained and planned on
 the card against the CPU's, and pipelined against serial; SMOKE decode of a
 dense and two MoE archs on the card against the CPU, and the cache written
 in place; SMOKE xlstm and zamba2 prefill and decode against the CPU, and
-zamba2's float32 full-width cut (D = 80) on the flash route against the
-plain route.
+zamba2's and hubert's float32 full-width cuts (D = 80) on the flash route
+against the plain route, hubert's bidirectional D = 80 launch and its SMOKE
+prefill on the kernel route.
 
 Every test here needs a CUDA card and ``nvcc`` (the kernel has no CPU mode),
 is marked ``cuda`` and skips without them. The file imports no JAX, so it
@@ -453,13 +454,24 @@ def test_cuda_head_dim_80_runs_the_flash_kernels(cuda, dtype):
     forward, dQ and dK/dV kernels on zero-padded inputs, and o and the
     gradients match the plain version at the built head dims' tolerances
     (float32: the reference's; bfloat16: chip_smoke.py's limits)."""
+    _head_dim_80_matches_plain(cuda, dtype, 4, 2, 256, "sliding", 100, 30.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_head_dim_80_bidirectional_at_hubert_heads(cuda, dtype):
+    """hubert-xlarge's attention: H = Hkv = 16, D = 80, bidirectional, no
+    softcap, on the D = 128 kernels, as the D = 80 test above holds it."""
+    _head_dim_80_matches_plain(cuda, dtype, 16, 16, 640, "bidirectional", 0, 0.0)
+
+
+def _head_dim_80_matches_plain(cuda, dtype, H, Hkv, S, kind, window, softcap):
     from repro_torch.models.layers import attention
 
     rng = np.random.default_rng(80)
-    S, D, kind, window, softcap = 256, 80, "sliding", 100, 30.0
+    D = 80
     q, k, v = (torch.from_numpy(rng.normal(size=(2, S, h, D)).astype(np.float32) * 0.5).to(cuda, dtype)
-               .requires_grad_() for h in (4, 2, 2))
-    do = torch.from_numpy(rng.normal(size=(2, S, 4, D)).astype(np.float32)).to(cuda, dtype)
+               .requires_grad_() for h in (H, Hkv, Hkv))
+    do = torch.from_numpy(rng.normal(size=(2, S, H, D)).astype(np.float32)).to(cuda, dtype)
     pos = torch.arange(S, device=cuda)
     before = (fa.launches, fa.launches_dq, fa.launches_dkv, fa.launches_fwd_tc)
     got = attention(q, k, v, q_pos=pos, kv_pos=pos, kind=kind, window=window, attn_softcap=softcap, impl="flash")
@@ -468,7 +480,7 @@ def test_cuda_head_dim_80_runs_the_flash_kernels(cuda, dtype):
     tc = int(dtype == torch.bfloat16)
     assert (fa.launches, fa.launches_dq, fa.launches_dkv, fa.launches_fwd_tc) == (
         before[0] + 1, before[1] + 1, before[2] + 1, before[3] + tc)
-    assert got.shape == (2, S, 4, D) and got.dtype == dtype
+    assert got.shape == (2, S, H, D) and got.dtype == dtype
     q32, k32, v32, do32 = (x.detach().float().transpose(1, 2) for x in (q, k, v, do))
     o32, lse32 = fa.flash_attention_ref(q32, k32, v32, kind, window, softcap)
     o = got.detach().transpose(1, 2)
@@ -890,6 +902,49 @@ def test_cuda_zamba2_float32_cut_flash_route_matches_plain_route(cuda):
     loss, grads = value_and_grad(params, cfg, batch)
     assert (fa.launches, fa.launches_dq, fa.launches_dkv) == (before[0] + 2, before[1] + 1, before[2] + 1)
     loss_p, grads_p = value_and_grad(params, plain, batch)
+    assert abs(float(loss) - float(loss_p)) < 2e-5
+    for g, w in zip(tree_leaves(grads), tree_leaves(grads_p)):
+        torch.testing.assert_close(g, w, rtol=2e-3, atol=2e-5)
+
+
+def test_cuda_smoke_hubert_prefill_kernel_route_matches_plain_route(cuda):
+    """SMOKE hubert (float32, D = 64): one bidirectional flash launch per
+    layer, the logits within 1e-4 of the plain route, and of the CPU's."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, make_dummy_batch, prefill_fn
+
+    cfg = get_config("hubert-xlarge", smoke=True).replace(attn_impl="flash")
+    params = init_params(cfg, 0, device="cpu")
+    batch = make_dummy_batch(cfg, 2, 300, "prefill", np.random.default_rng(0), device="cpu")
+    params_d, batch_d = _to(params, cuda), _to(batch, cuda)
+    before = fa.launches
+    got = prefill_fn(params_d, cfg, batch_d)
+    assert fa.launches == before + cfg.num_layers
+    torch.testing.assert_close(got, prefill_fn(params_d, cfg.replace(attn_impl="plain"), batch_d), rtol=1e-4,
+                               atol=1e-4)
+    torch.testing.assert_close(got.cpu(), prefill_fn(params, cfg, batch), rtol=1e-4, atol=1e-4)
+
+
+def test_cuda_hubert_float32_cut_flash_route_matches_plain_route(cuda):
+    """hubert-xlarge at full width (H = Hkv = 16, D = 80: the D = 128
+    kernels on zero-padded inputs, bidirectional), float32, cut to 2 layers:
+    the masked-prediction loss and gradients of the flash route against the
+    plain route at chip_smoke.py's model limits (loss 2e-5, gradients rtol
+    2e-3, atol 2e-5), with 2 forward, dQ and dK/dV launches each."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import value_and_grad
+    from repro_torch.models import init_params, make_dummy_batch
+    from repro_torch.optim import tree_leaves
+
+    cfg = get_config("hubert-xlarge").replace(num_layers=2, param_dtype="float32", compute_dtype="float32",
+                                              attn_impl="flash", remat="none")
+    assert (cfg.num_heads, cfg.hd, fa.kernel_head_dim(cfg.hd)) == (16, 80, 128)
+    params = init_params(cfg, 0, device="cuda")
+    batch = make_dummy_batch(cfg, 1, 512, "train", np.random.default_rng(0), device="cuda")
+    before = (fa.launches, fa.launches_dq, fa.launches_dkv)
+    loss, grads = value_and_grad(params, cfg, batch)
+    assert (fa.launches, fa.launches_dq, fa.launches_dkv) == (before[0] + 2, before[1] + 2, before[2] + 2)
+    loss_p, grads_p = value_and_grad(params, cfg.replace(attn_impl="plain"), batch)
     assert abs(float(loss) - float(loss_p)) < 2e-5
     for g, w in zip(tree_leaves(grads), tree_leaves(grads_p)):
         torch.testing.assert_close(g, w, rtol=2e-3, atol=2e-5)

@@ -205,10 +205,9 @@ def test_serve_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch):
         init_cache(cfg, 1, 4)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         init_cache(get_config("olmoe-1b-7b", smoke=True), 1, 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_cache(cfg.replace(family="encoder"), 1, 4, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        decode_fn({}, cfg.replace(family="vlm"), None, None, 0)
+    assert init_cache(cfg.replace(family="encoder"), 1, 4, device="cpu") is None  # the reference's
+    with pytest.raises(ValueError, match="encoder has no decode step"):
+        decode_fn({}, cfg.replace(family="encoder"), None, None, 0)
     with pytest.raises(SystemExit, match="encoder-only"):
         serve.serve_config(cfg.replace(family="encoder"))
 
@@ -266,14 +265,10 @@ def test_cache_converters_round_trip(arch):
 
 
 def test_supports_mode_matches_jax_for_every_ported_arch():
-    ported = ARCHS + ["xlstm-1.3b", "zamba2-2.7b"]
-    assert set(list_archs()) == set(ported) and set(ported) <= set(jax_list_archs())
+    ported = ARCHS + ["xlstm-1.3b", "zamba2-2.7b", "hubert-xlarge", "paligemma-3b"]
+    assert list_archs() == jax_list_archs() == sorted(ported)
     for arch in ported:
         for smoke in (False, True):
             cfg_j = jax_get_config(arch, smoke=smoke)
             for shape in INPUT_SHAPES.values():
                 assert supports_mode(config_from_jax(cfg_j), shape) == jax_supports_mode(cfg_j, shape), (arch, shape)
-    for family in ("encoder", "vlm"):  # pure config logic, for the families still to port
-        cfg_j = jax_get_config("gemma2-2b").replace(family=family, attn_kind="causal")
-        for shape in INPUT_SHAPES.values():
-            assert supports_mode(config_from_jax(cfg_j), shape) == jax_supports_mode(cfg_j, shape)

@@ -42,7 +42,8 @@ def test_importing_every_port_module_pulls_in_no_jax():
         "repro_torch.models.mla", "repro_torch.configs.granite_20b", "repro_torch.configs.minitron_8b",
         "repro_torch.configs.olmoe_1b_7b", "repro_torch.configs.deepseek_v3_671b", "repro_torch.models.ssm",
         "repro_torch.models.xlstm", "repro_torch.models.hybrid", "repro_torch.configs.xlstm_1_3b",
-        "repro_torch.configs.zamba2_2_7b",
+        "repro_torch.configs.zamba2_2_7b", "repro_torch.models.encoder", "repro_torch.models.vlm",
+        "repro_torch.configs.hubert_xlarge", "repro_torch.configs.paligemma_3b",
     } <= set(mods)
     code = (
         "import importlib, sys\n"

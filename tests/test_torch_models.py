@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from repro.configs import get_config as jax_get_config
+from repro.configs import list_archs as jax_list_archs
 from repro.models import init_params as jax_init_params
 from repro.models import param_count as jax_param_count
 from repro.models import prefill_fn as jax_prefill_fn
@@ -38,6 +39,7 @@ from repro_torch.models.convert import tensor_from_numpy
 ARCHS = ["gemma2-2b", "deepseek-7b", "granite-20b", "minitron-8b"]
 MOE_ARCHS = ["olmoe-1b-7b", "deepseek-v3-671b"]
 SSM_ARCHS = ["xlstm-1.3b", "zamba2-2.7b"]
+ENC_VLM_ARCHS = ["hubert-xlarge", "paligemma-3b"]
 # float32 elementwise ops on the same inputs: only the order of the few
 # reductions (mean of squares, matrix products) differs
 TOL_LAYER = dict(rtol=2e-5, atol=2e-5)
@@ -111,8 +113,8 @@ def test_plain_attention_matches_jax(block_q):
 
 
 def test_configs_match_jax_and_translate_attn_impl():
-    assert list_archs() == sorted(ARCHS + MOE_ARCHS + SSM_ARCHS)
-    for arch in ARCHS + MOE_ARCHS + SSM_ARCHS:
+    assert list_archs() == jax_list_archs() == sorted(ARCHS + MOE_ARCHS + SSM_ARCHS + ENC_VLM_ARCHS)
+    for arch in list_archs():
         for smoke in (False, True):
             jcfg = jax_get_config(arch, smoke=smoke)
             cfg = config_from_jax(jcfg)
@@ -121,8 +123,10 @@ def test_configs_match_jax_and_translate_attn_impl():
             assert config_from_jax(jcfg.replace(attn_impl="pallas")).attn_impl == "flash"
     assert ATTN_IMPL_FROM_JAX == {"xla": "plain", "pallas": "flash"}
     assert get_config("gemma2-2b").pdtype() == torch.bfloat16
-    with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("hubert-xlarge")
+    with pytest.raises(KeyError, match="unknown arch"):  # a name in neither package
+        get_config("wav2vec2-large")
+    with pytest.raises(KeyError):
+        jax_get_config("wav2vec2-large")
     with pytest.raises(ValueError):
         get_config("gemma2-2b").replace(param_dtype="float16").pdtype()
     with pytest.raises(ValueError):
@@ -224,8 +228,8 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch):
         init_params(cfg, 0)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make_dummy_batch(cfg, 1, 8, "prefill", np.random.default_rng(0))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        prefill_fn({}, cfg.replace(family="encoder"), {})
+    with pytest.raises(ValueError, match="audio"):  # an unknown family, as the reference raises
+        prefill_fn({}, cfg.replace(family="audio"), {})
 
 
 def test_tensor_from_numpy_needs_a_card_unless_asked_for_the_cpu(monkeypatch):

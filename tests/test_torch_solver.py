@@ -276,7 +276,7 @@ def test_service_and_fleet_raise_not_implemented():
     want = tpareto.pareto_frontier(p, tt, device=CPU)
     assert [(q.time, q.energy) for q in front] == [(q.time, q.energy) for q in want]
     assert [(q.time, q.energy) for q in by_window["a"]] == [(q.time, q.energy) for q in want]
-    with pytest.raises(NotImplementedError, match="Queue 1, item 2"):
+    with pytest.raises(NotImplementedError, match=r"Queue 1 \(torch.distributed\)"):
         tsweep.SweepEngine(mesh=object(), device=CPU)
 
 

@@ -54,7 +54,8 @@ from repro_torch.models import hybrid, xlstm
 from repro_torch.optim import adafactor, tree_leaves
 
 ARCHS = ["xlstm-1.3b", "zamba2-2.7b"]
-PORTED = ["gemma2-2b", "deepseek-7b", "granite-20b", "minitron-8b", "olmoe-1b-7b", "deepseek-v3-671b"] + ARCHS
+PORTED = ["gemma2-2b", "deepseek-7b", "granite-20b", "minitron-8b", "olmoe-1b-7b", "deepseek-v3-671b"] + ARCHS + [
+    "hubert-xlarge", "paligemma-3b"]
 B, S, T = 2, 32, 8
 TOL_LOGITS = dict(rtol=1e-4, atol=1e-4)
 # recurrent states, like the logits, carry the rounding of every earlier step
