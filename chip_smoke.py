@@ -256,6 +256,24 @@ Phases, in order; any failure ends the run with a non-zero exit code:
                 launcher's defaults, tokens/s. Every flash launch's shape
                 must be one phases 6 and 9 held, and its first launch is
                 held on its own inputs; the phase's wall time.
+18. multi-device sweeps — the sweep engine over a sweep mesh that one
+                process drives, at the main shape of phase 4: (a) the batch
+                axis over ``make_sweep_mesh()`` (every card) and over the
+                card repeated 4 times (one CUDA graph per position, each on
+                its own stream): X and K_last identical to the unsharded
+                engine, the same ``cache_stats()``, 128 row launches and one
+                backtrack per position a solve; (b) the class ring over 4
+                positions of the card (every turn in one graph), there and
+                at bench_fleet.py's flat shape (n = 2,048, T = 8,192, U <=
+                64): X and K_last bit-identical to the unsharded engine and
+                to ``solve_fused_batch_torch``, n_b row launches and 4
+                backtracks a solve; warm solve and graph replay in turns
+                with the unsharded engine, slab bytes a position, peak and
+                reserved memory; (c) the
+                backtrack launched alone (``minplus_backtrack_cuda``) on the
+                ring's slabs against ``backtrack_ref``, and its time; (d) the
+                fleet on the ring engine at quantum 1 against the flat DP,
+                and bench_fleet.py's instance against the unsharded engine.
 
 The line before the last is a JSON object of every kernel with its launch
 count and times; the last line is ``{"ok": true, "device": {...}}``.
@@ -510,6 +528,17 @@ PALI_ARCH, PALI_PREFILL, PALI_TRAIN = "paligemma-3b", (2, 8192), (1, 8192)
 ENC_TRAIN_STEPS = 3
 ENC_FLASH_CASES = tuple((B, 16, 16, 4096, 80, "bidirectional", 4096, 0.0) for B in (4, 2))
 ENC_FLASH_BWD_CASES = ((2, 16, 16, 4096, 80, "bidirectional", 4096, 0.0),)
+# Phase 18: the sweep engine over a sweep mesh, one process driving every
+# position. (a) the batch axis over the machine's real mesh
+# (make_sweep_mesh(): each card) and over the card repeated MESH_POSITIONS
+# times, at the main shape; (b) the class ring over MESH_POSITIONS positions
+# of the card at the main shape and at benchmarks/bench_fleet.py's flat shape
+# (n = FLEET_N, T = 4n, U <= FLEET_UPPER, numpy seed FLEET_SEED); (c) the
+# backtrack launched alone on the ring's slabs; (d) the fleet on the ring
+# engine at quantum 1, the reference test's instance (numpy seed, n, T,
+# clusters), and bench_fleet.py's instance at its defaults.
+MESH_POSITIONS = 4
+RING_FLEET = (3, 16, 40, 4)
 
 
 def check(cond, msg):
@@ -1737,7 +1766,7 @@ def facade_phase(mp, dev, card, batch, X):
           f"backtracks")
     stats = eng.cache_stats()
     check((stats["compiles"], stats["hits"], stats["misses"]) == (1, 2, 1), f"cache_stats {stats}")
-    (key, plan), = eng._cache.items()
+    (key, (plan,)), = eng._cache.items()  # one position: one plan
     check(plan.graph is not None, "the bucket's plan captured no CUDA graph")
     for sol in sols:
         check(np.array_equal(np.stack(sol.schedules), X), "the facade's schedules differ from phase 4's")
@@ -1869,7 +1898,7 @@ def facade_phase(mp, dev, card, batch, X):
     log(f"[facade] (e) warm mixed solve (Solver.solve) {mixed_ms:.3f} ms (first {mixed_cold_ms:.3f} ms); by part: "
         + ", ".join(f"{k} {v:.3f} ms" for k, v in split_ms.items()))
 
-    splan = eng._cache[skey]
+    (splan,) = eng._cache[skey]
     sweep_ms = median_wall_ms(lambda: solver.sweep(p0, tt, grid), reps=3)
     tighten_ms = median_wall_ms(lambda: [tighten_for_deadline(p0, tt, float(d)) for d in grid], reps=3)
     tight = [tighten_for_deadline(p0, tt, float(d)) for d in grid]
@@ -2091,7 +2120,7 @@ def service_phase(mp, card):
         combine_ms = median_wall_ms(lambda: combine_batches(batches[:SERVE_MAX_BATCH]), reps=5)
         combined, _ = combine_batches(batches[:SERVE_MAX_BATCH])
         with torch.cuda.stream(eng._stream):
-            split = dispatch_split(eng._cache[key], combined, key[1:])
+            split = dispatch_split(eng._cache[key][0], combined, key[1:])
     finally:
         svc.close(timeout=120)
     log(f"[serve] (a) {card}")
@@ -4048,6 +4077,242 @@ def encoder_phase(fa, dev, card):
     return launches, {"hubert": figs, "paligemma": pali}, d80
 
 
+# -- phase 18: multi-device sweeps ----------------------------------------------
+
+
+def graph_replay_ms(eng, key, reps=10):
+    """Host-clock ms of replaying every position's graph of ``key`` (each
+    on its own stream) and synchronizing: the replay step of a warm
+    dispatch, as ``dispatch_split`` times it."""
+    plans = eng._cache[key]
+
+    def replay():
+        for plan in plans:
+            with torch.cuda.stream(plan.streams[0]):
+                plan.graph.replay()
+
+    return median_wall_ms(replay, reps=reps)
+
+
+def peak_gb(fn):
+    """Device memory ``fn`` takes above what was held before it (GB)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 1e9
+
+
+def multi_device_phase(mp, dev, card):
+    """Phase 18: batch sharding and the class ring through ``SweepEngine``
+    (every check bit for bit), their launches, times in turns with the
+    unsharded engine, slab bytes and peak memory. Returns the launches of
+    the ring's and the batch mesh's solves at the main shape (each counted
+    from 0), the backtrack's largest deviation from its plain version on the
+    ring's slabs, and the backtrack's times on a ring slab."""
+    from repro_torch.core import ProblemBatch, Solver, random_problem, remove_lower_limits, solve_schedule_dp_batch
+    from repro_torch.core import torch_dp
+    from repro_torch.core.sweep import SweepEngine, SweepMesh, make_sweep_mesh
+    from repro_torch.core.torch_dp import pack_problem, solve_fused_batch_ring, solve_fused_batch_torch
+    from repro_torch.kernels.ref import backtrack_ref
+
+    t_phase = time.perf_counter()
+    D = MESH_POSITIONS
+
+    def zero():
+        mp.launches = mp.launches_scan = mp.launches_backtrack = 0
+
+    def counts():
+        return {"row": mp.launches, "scan": mp.launches_scan, "backtrack": mp.launches_backtrack}
+
+    prng = np.random.default_rng(SEED)
+    batch = ProblemBatch.from_problems([random_problem(prng, n=N_MAIN, T=T_MAIN, regime="arbitrary",
+                                                       max_upper=U_MAIN) for _ in range(B_MAIN)])
+    X = solve_schedule_dp_batch(batch, device=dev)
+    fleet_p = random_problem(np.random.default_rng(FLEET_SEED), n=FLEET_N, T=4 * FLEET_N, max_upper=FLEET_UPPER)
+    flat = ProblemBatch.from_problems([fleet_p])
+    real = make_sweep_mesh(device=dev)
+    check(real.devices.size == real.shape["sweep"] == torch.cuda.device_count(),
+          f"make_sweep_mesh() has {real.devices.size} positions, the machine {torch.cuda.device_count()} cards")
+    rep = SweepMesh([dev] * D)
+    one = SweepEngine(device=dev)
+    want = one.dispatch(batch)
+    check(np.array_equal(want.result(), X), "the unsharded engine differs from solve_schedule_dp_batch")
+    (key,) = one._cache  # the main shape's bucket; B_MAIN is a multiple of MESH_POSITIONS
+    nb = key[2]
+
+    # (a) the batch axis over a mesh
+    meshes = {f"mesh of the {real.devices.size} card(s)": SweepEngine(mesh=real, device=dev),
+              f"mesh of {D} positions of the card": SweepEngine(mesh=rep, device=dev)}
+    mesh_launches = {}
+    for name, eng in meshes.items():
+        zero()
+        hs = [eng.dispatch(batch) for _ in range(3)]  # eager warm-up and capture per position, two replays
+        mesh_launches[name] = counts()
+        for h in hs:
+            check(np.array_equal(h.result(), X), f"{name}: the schedules differ from the unsharded solve")
+            check(np.array_equal(h.k_last().view(np.int32), want.k_last().view(np.int32)),
+                  f"{name}: K_last differs from the unsharded engine's")
+        P = eng._ndev
+        check(mesh_launches[name] == {"row": 3 * P * nb, "scan": P, "backtrack": 3 * P},
+              f"{name}: three solves launched {mesh_launches[name]}; expected {P} positions x 3 x {nb} rows, "
+              f"{P} scan calls (the warm-ups) and 3 x {P} backtracks")
+        stats = eng.cache_stats()
+        check((stats["compiles"], stats["hits"], stats["misses"]) == (1, 2, 1) and list(eng._cache) == [key],
+              f"{name}: cache_stats {stats}, buckets {list(eng._cache)}")
+        check(len(eng._cache[key]) == P and all(p.graph is not None for p in eng._cache[key]),
+              f"{name}: not one captured graph per position")
+    one.solve(batch)
+    one.solve(batch)
+    check(all(e.cache_stats() == one.cache_stats() for e in meshes.values()),
+          "a mesh engine's cache_stats differ from the unsharded engine's after the same calls")
+
+    # (b) the class ring over D positions of the card
+    ring = SweepEngine(ring_mesh=rep, device=dev)
+    zero()
+    hs = [ring.dispatch(batch) for _ in range(3)]
+    ring_launches = counts()
+    check(ring_launches == {"row": 3 * nb, "scan": D, "backtrack": 3 * D},
+          f"the ring's three solves launched {ring_launches}; expected 3 x {nb} rows, {D} scan calls (the warm-up's "
+          f"turns) and 3 x {D} backtracks")
+    b0 = remove_lower_limits(batch)
+    costs, t_star, Tmax = pack_problem(b0, dev), torch.from_numpy(b0.T).to(dev), int(b0.T.max())
+    Xf, Kf = solve_fused_batch_torch(costs, t_star, Tmax, backend="cuda")
+    for h in hs:
+        check(np.array_equal(h.result(), X), "the ring's schedules differ from the unsharded solve")
+        k = h.k_last()
+        check(np.array_equal(k.view(np.int32), want.k_last().view(np.int32)), "the ring's K_last differs")
+        check(np.array_equal(k[:, : Tmax + 1].view(np.int32), Kf.cpu().numpy().view(np.int32)),
+              "the ring's K_last differs from solve_fused_batch_torch's")
+    check(np.array_equal(Xf.cpu().numpy() + batch.lower, X), "solve_fused_batch_torch differs from the entry point")
+    check(ring.cache_stats() == one.cache_stats() and list(ring._cache) == [key]
+          and ring._cache[key][0].graph is not None,
+          f"the ring engine's cache_stats {ring.cache_stats()} or buckets {list(ring._cache)}")
+    # the fused ring solve itself, eager, with the backtrack's inputs kept for (c)
+    seen = []
+    zero()
+    with spying(torch_dp, "minplus_backtrack_cuda", lambda out, I, t: seen.append((I, t, out))):
+        Xr, Kr = solve_fused_batch_ring(costs, t_star, Tmax, "cuda", rep, "sweep")
+    direct = counts()
+    check(direct == {"row": N_MAIN, "scan": D, "backtrack": D}, f"solve_fused_batch_ring launched {direct}")
+    check(torch.equal(Xr, Xf) and torch.equal(Kr.view(torch.int32), Kf.view(torch.int32)),
+          "solve_fused_batch_ring differs from solve_fused_batch_torch")
+
+    # (c) the backtrack launched alone, on the ring's slabs
+    check(len(seen) == D, f"the ring's reverse walk called the backtrack {len(seen)} times")
+    bt_err = 0
+    for I, t, out in seen:
+        bt_err = max(bt_err, int((out - backtrack_ref(I, t)).abs().max()))
+    check(bt_err == 0, f"minplus_backtrack_cuda differs from backtrack_ref on a ring slab by {bt_err}")
+    I0, t0 = seen[0][:2]
+    # 20 launches in one graph, timed by CUDA events: no host time between
+    # them (the profiler drops records late in a long run)
+    bt_graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(bt_graph):
+        for _ in range(20):
+            mp.minplus_backtrack_cuda(I0, t0)
+    bt_ms = median_event_ms(bt_graph.replay, reps=5) / 20
+    bt_plain_ms = median_event_ms(lambda: backtrack_ref(I0, t0), reps=5, per_rep=4)
+    bt_bound, bt_by = backtrack_bound_ms(I0.shape[0], I0.shape[1])
+
+    # the ring at bench_fleet.py's flat shape
+    fwant = one.dispatch(flat)
+    fkey = next(reversed(one._cache))
+    zero()
+    fh = [ring.dispatch(flat) for _ in range(3)]
+    fleet_launches = counts()
+    check(fleet_launches == {"row": 3 * fkey[2], "scan": D, "backtrack": 3 * D},
+          f"the ring's three flat solves launched {fleet_launches}")
+    f0 = remove_lower_limits(flat)
+    Xff, Kff = solve_fused_batch_torch(pack_problem(f0, dev), torch.from_numpy(f0.T).to(dev), int(f0.T.max()),
+                                       backend="cuda")
+    for h in fh:
+        check(np.array_equal(h.result(), fwant.result()) and np.array_equal(h.result(), Xff.cpu().numpy() + flat.lower),
+              "the ring's flat schedule differs from the unsharded solve")
+        check(np.array_equal(h.k_last().view(np.int32), fwant.k_last().view(np.int32))
+              and np.array_equal(h.k_last()[:, : int(f0.T.max()) + 1].view(np.int32), Kff.cpu().numpy().view(np.int32)),
+              "the ring's flat K_last differs")
+
+    # times, in turns with the unsharded engine, one process
+    def solve_ms(eng, b):
+        return median_wall_ms(lambda: eng.solve(b), reps=5)
+
+    legs = {"unsharded": (one, batch, key), **{k: (e, batch, key) for k, e in meshes.items()},
+            f"ring of {D}": (ring, batch, key), "unsharded, flat": (one, flat, fkey),
+            f"ring of {D}, flat": (ring, flat, fkey)}
+    warm, replay = {k: [] for k in legs}, {k: [] for k in legs}
+    for name in list(legs) + list(reversed(legs)):
+        eng, b, k = legs[name]
+        warm[name].append(solve_ms(eng, b))
+        replay[name].append(graph_replay_ms(eng, k))
+    warm = {k: statistics.mean(v) for k, v in warm.items()}
+    replay = {k: statistics.mean(v) for k, v in replay.items()}
+
+    # slab bytes and peak memory: a cold solve (plan build and capture) and a warm one
+    slab = {name: k[2] // (D if name.startswith("ring") else 1) * k[1] * (k[3] + 1) * 4
+            for name, (_, _, k) in legs.items() if "mesh" not in name}
+    peaks = {}
+    for name, make in (("unsharded", lambda: SweepEngine(device=dev)),
+                       (f"ring of {D}", lambda: SweepEngine(ring_mesh=rep, device=dev)),
+                       (f"mesh of {D} positions of the card", lambda: SweepEngine(mesh=rep, device=dev))):
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved()
+        eng = make()
+        cold = peak_gb(lambda: eng.solve(batch))
+        warm_gb = peak_gb(lambda: eng.solve(batch))
+        torch.cuda.empty_cache()  # what stays reserved is the plans' graph pools and buffers
+        peaks[name] = (cold, warm_gb, (torch.cuda.memory_reserved() - reserved) / 1e9)
+        del eng
+
+    # (d) the fleet on the ring engine
+    seed, n, T, k = RING_FLEET
+    pq = random_problem(np.random.default_rng(seed), n=n, T=T)
+    fs = Solver(engine=ring).solve_fleet(pq, clusters=k, quantum=1)
+    flat_obj = float(Solver(engine=one).solve([pq], algorithm="dp_batch").objectives[0])
+    check(abs(fs.objective - flat_obj) <= 1e-6, f"the fleet on the ring at quantum 1: {fs.objective} != {flat_obj}")
+    fs1 = Solver(engine=one).solve_fleet(pq, clusters=k, quantum=1)
+    check(np.array_equal(fs.schedule, fs1.schedule), "the fleet on the ring differs from the unsharded engine's")
+    big = Solver(engine=ring).solve_fleet(fleet_p)
+    big1 = Solver(engine=one).solve_fleet(fleet_p)
+    for f in ("labels", "allocations", "schedule"):
+        check(np.array_equal(getattr(big, f), getattr(big1, f)), f"bench_fleet's instance on the ring: {f} differ")
+    check(big.objective == big1.objective and np.array_equal(np.asarray(big.curves).view(np.int32),
+                                                             np.asarray(big1.curves).view(np.int32)),
+          "bench_fleet's instance on the ring: curves or objective differ")
+
+    log(f"[mesh] {card}")
+    log(f"[mesh] main shape B={B_MAIN}, n={N_MAIN}, T={T_MAIN}, W<={U_MAIN + 1} (bucket {one._bucket_label(key)}); "
+        f"make_sweep_mesh(): {real!r}")
+    for name in meshes:
+        log(f"[mesh] (a) SweepEngine(mesh={name}): X and K_last identical to the unsharded engine over 3 solves, "
+            f"cache_stats the same, one graph per position on its own stream; launches {mesh_launches[name]}")
+    log(f"[mesh] (b) SweepEngine(ring_mesh={D} positions of the card): X and K_last bit-identical to the unsharded "
+        f"engine and to solve_fused_batch_torch over 3 solves, all turns in one graph; launches {ring_launches}; the "
+        f"fused ring solve {direct}, bit-identical; at the flat shape n={FLEET_N}, T={fleet_p.T} (bucket "
+        f"{one._bucket_label(fkey)}): launches {fleet_launches}, bit-identical")
+    log(f"[mesh] (c) minplus_backtrack_cuda on the ring's {D} slabs ({tuple(I0.shape)} int32 each): identical to "
+        f"backtrack_ref (largest deviation {bt_err}); {bt_ms:.4f} ms a launch (CUDA events over a graph of 20 "
+        f"launches on the last position's slab, which stays in L2), plain "
+        f"{bt_plain_ms:.4f} ms, bound {1e3 * bt_bound:.5f} us ({bt_by})")
+    log(f"[mesh] (d) the fleet on the ring engine: n={n}, T={T}, {k} clusters, quantum 1: objective {fs.objective:.6f} "
+        f"= the flat DP's {flat_obj:.6f}, schedule as on the unsharded engine; bench_fleet's n={FLEET_N} at its "
+        f"defaults: labels, allocations, schedule, curves and objective as on the unsharded engine")
+    log(f"[mesh] times {card}: warm solve / graph replay (host clock, means of the medians of 5 and 10 in turns "
+        f"{' , '.join(legs)} and back): " + "; ".join(f"{k} {warm[k]:.3f} / {replay[k]:.3f} ms" for k in legs))
+    log("[mesh] argmin slab bytes per position at the bucket: " + "; ".join(
+        f"{k} {v / 1e6:.3f} MB" for k, v in slab.items()))
+    log("[mesh] peak device memory allocated above the held (cold solve: plan build and capture; warm solve) and "
+        "memory the engine's plans keep reserved (graph pools, static buffers): " + "; ".join(
+            f"{k} {c:.3f} / {w:.3f} GB, {r:.3f} GB" for k, (c, w, r) in peaks.items())
+        + " (one physical card holds every position's slab, so the ring's peak does not fall; the mesh's positions "
+          "build one after another)")
+    log(f"[mesh] phase 18 took {time.perf_counter() - t_phase:.1f} s")
+    return {"ring": ring_launches, "mesh": mesh_launches[f"mesh of {D} positions of the card"],
+            "ring_flat": fleet_launches, "bt_err": bt_err,
+            "bt_ring": {"ms": bt_ms, "plain_ms": bt_plain_ms, "bound_ms": bt_bound, "shape": list(I0.shape)}}
+
+
 def main() -> int:
     # -- phase 1: device ---------------------------------------------------
     if not torch.cuda.is_available():
@@ -4165,6 +4430,9 @@ def main() -> int:
     launches_enc, _, hubert_d80 = encoder_phase(fa, dev, card)
     enc_by_use = {f"{HUBERT_ARCH}: {use}": n for use, n in launches_enc.items()}
 
+    # -- phase 18: multi-device sweeps -------------------------------------------
+    md = multi_device_phase(mp, dev, card)
+
     kernels = [{
         "name": "minplus_cuda",
         "route": "cuda",
@@ -4177,6 +4445,9 @@ def main() -> int:
         "flat_launches": launches_flat["row"],
         "fl_launches": launches_fl["row"],
         "fl_launches_by_part": {k: v["row"] for k, v in launches_fl_parts.items()},
+        "ring_launches": md["ring"]["row"],
+        "ring_flat_launches": md["ring_flat"]["row"],
+        "mesh_launches": md["mesh"]["row"],
         "profiler_sessions_rerun": PROFILER_RERUNS["minplus_row_kernel"],
         "max_abs_err": max_abs_err,
         **st["row"],
@@ -4192,8 +4463,13 @@ def main() -> int:
         "flat_launches": launches_flat["backtrack"],
         "fl_launches": launches_fl["backtrack"],
         "fl_launches_by_part": {k: v["backtrack"] for k, v in launches_fl_parts.items()},
+        "ring_launches": md["ring"]["backtrack"],
+        "ring_flat_launches": md["ring_flat"]["backtrack"],
+        "mesh_launches": md["mesh"]["backtrack"],
+        "ring_max_abs_err": md["bt_err"],
+        "ring_slab": md["bt_ring"],
         "profiler_sessions_rerun": PROFILER_RERUNS["minplus_backtrack_kernel"],
-        "max_abs_err": bt_err,
+        "max_abs_err": max(bt_err, md["bt_err"]),
         **st["backtrack"],
     }, {
         "name": "flash_attention",

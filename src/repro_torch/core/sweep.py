@@ -50,13 +50,28 @@ Table 2 algorithm: the DP sub-batch first, then the selection sub-batch,
 then MarDecUn/MarDec on the host; a :class:`RegimeSplitHandle` reassembles
 rows in original order.
 
-Multi-GPU sweeps (the JAX package's ``mesh`` batch sharding and
-``ring_mesh`` class ring) are not ported: they raise
-``NotImplementedError`` (ROADMAP Queue 1 (torch.distributed)).
+Multi-device sweeps, over a :class:`~repro_torch.core.torch_dp.SweepMesh`
+(:func:`make_sweep_mesh`), which one process drives, as one JAX controller
+drives the reference's mesh:
+
+  * ``mesh=`` shards the batch axis: ``B`` rounds up to a multiple of the
+    mesh size and each position runs the bucket's plan over its ``B/D`` rows
+    on its own device and stream (its own CUDA graph on the card); the
+    handle waits on one event per position and gathers the rows in order;
+  * ``ring_mesh=`` runs the class axis as a ring
+    (:func:`~repro_torch.core.torch_dp.solve_fused_batch_ring`): ``n``
+    rounds up to a multiple of the ring size. On one card every turn goes
+    into the bucket's one graph; across cards the turns run eagerly, each on
+    its device's engine stream, ordered by the peer copies (a capture across
+    devices was not tried: the card's machine has one card).
+
+Selection buckets stay unsharded, as in the reference. Bucket keys, labels
+and ``cache_stats()`` read as the reference's with the same mesh sizes.
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
 from collections import OrderedDict
 from typing import Optional
@@ -78,12 +93,21 @@ from .problem import (
     restore_lower_limits,
     total_cost_batch,
 )
-from .torch_dp import _pack_on_device, _solve_fused_batch, resolve_device
+from .torch_dp import (
+    SweepMesh,
+    _canonical_device,
+    _mesh_positions,
+    _pack_on_device,
+    _solve_fused_batch,
+    resolve_device,
+    solve_fused_batch_ring,
+)
 
 __all__ = [
     "RegimeSplitHandle",
     "SweepEngine",
     "SweepHandle",
+    "SweepMesh",
     "bucket_shape",
     "default_engine",
     "make_sweep_mesh",
@@ -93,14 +117,12 @@ __all__ = [
     "solve_schedule_batch_cached",
 ]
 
-_MULTI_GPU = (
-    "multi-GPU sweeps (batch sharding over a mesh, the class-axis ring) are "
-    "not ported yet: ROADMAP Queue 1 (torch.distributed)"
-)
-
-
 def _next_pow2(x: int) -> int:
     return 1 if x <= 1 else 1 << (int(x) - 1).bit_length()
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-int(x) // m) * m
 
 
 def bucket_shape(B: int, n: int, T: int, W: int):
@@ -121,56 +143,65 @@ def request_bucket(batch: ProblemBatch):
     return _next_pow2(batch.n), _next_pow2(Tp), _next_pow2(batch.W)
 
 
-def make_sweep_mesh(axis: str = "sweep"):
-    """Not ported: a sweep mesh over several cards needs
-    ``torch.distributed``."""
-    raise NotImplementedError(_MULTI_GPU)
+def make_sweep_mesh(axis: str = "sweep", device="cuda") -> SweepMesh:
+    """1-D mesh over every visible device of ``device``'s type: each card
+    (``"cuda"``, the default; raises without one), or the one CPU. For more
+    positions than devices (a card or the CPU repeated), build a
+    :class:`~repro_torch.core.torch_dp.SweepMesh` from a device list."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        return SweepMesh([torch.device("cuda", i) for i in range(torch.cuda.device_count())], axis)
+    return SweepMesh([dev], axis)
 
 
 class _Plan:
-    """One bucket's executable: ``body`` over inputs of the bucket's shape.
+    """One bucket's executable on one position: ``body`` over inputs of the
+    position's shard of the bucket's shape.
 
-    On the CPU each call runs ``body`` on the inputs. On the card the first
-    call runs it eagerly on static copies of the inputs and captures it into
-    a CUDA graph; later calls copy into the static buffers and replay.
-    ``row_launches`` is the number of min-plus row kernels the graph holds
-    (with one backtrack after them when it is not 0). Calls are serialised
-    by the engine."""
+    Without streams (the CPU), or with streams on several cards (the class
+    ring across cards), each call runs ``body`` on the inputs. With one
+    stream, the first call runs it eagerly on static device copies of the
+    inputs and captures it on that stream into a CUDA graph; later calls
+    copy into the static buffers and replay. ``row_launches`` and
+    ``backtracks`` are the min-plus row and backtrack kernels the graph
+    holds; a replay adds them to the counters. Calls are serialised by the
+    engine, which makes ``streams`` current around them."""
 
-    def __init__(self, body, device: torch.device, stream, row_launches=0):
+    def __init__(self, body, device: torch.device, streams=(), row_launches=0, backtracks=0):
         self.body = body
         self.device = device
-        self.stream = stream
+        self.streams = tuple(streams)
         self.row_launches = row_launches
+        self.backtracks = backtracks
         self.inputs = None  # static input buffers (card)
         self.outputs = None  # the graph's static outputs (card)
         self.graph = None
 
     def __call__(self, *arrays):
-        if self.device.type != "cuda":
-            return self.body(*(torch.from_numpy(a) for a in arrays))
+        if len(self.streams) != 1:
+            return self.body(*(torch.from_numpy(a).to(self.device) for a in arrays))
         if self.graph is None:
             self.inputs = tuple(torch.from_numpy(a).to(self.device) for a in arrays)
             out = self.body(*self.inputs)  # the warm-up, and the answer
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, stream=self.stream, capture_error_mode="thread_local"):
+            with torch.cuda.graph(graph, stream=self.streams[0], capture_error_mode="thread_local"):
                 self.outputs = self.body(*self.inputs)
             self.graph = graph
             return out
         for buf, a in zip(self.inputs, arrays):
             buf.copy_(torch.from_numpy(a))
         self.graph.replay()
-        if self.row_launches:
-            _minplus.launches += self.row_launches
-            _minplus.launches_backtrack += 1
+        _minplus.launches += self.row_launches
+        _minplus.launches_backtrack += self.backtracks
         return tuple(o.clone() for o in self.outputs)
 
 
 class _DeviceSchedulePart:
-    """Launch/materialize seam shared by the DP and selection handles: a
-    padded ``(Bb, nb)`` schedule tensor, still computing when it is on the
-    card (``event`` marks its end), plus the ORIGINAL (unpadded) batch to
-    unpad against.
+    """Launch/materialize seam shared by the DP and selection handles: the
+    padded ``(Bb, nb)`` schedules as shards along the batch axis (one per
+    position of a batch mesh, else one), still computing when they are on
+    the card (``events`` mark their ends, one per position), plus the
+    ORIGINAL (unpadded) batch to unpad against.
 
     Materialization is lock-guarded: handles are handed across threads, and
     without the lock two concurrent first calls to :meth:`result` would race
@@ -178,22 +209,25 @@ class _DeviceSchedulePart:
     to different callers.
     """
 
-    def __init__(self, raw, batch, event=None):
-        self._raw = raw  # (Bb, nb) int32 tensor
+    def __init__(self, raw, batch, events=()):
+        self._raw = raw  # shards of the (Bb, nb) int32 schedules, in row order
         self._batch = batch  # the ORIGINAL (unpadded) ProblemBatch
-        self._event = event  # None on the CPU: the solve has landed
+        self._events = events  # empty on the CPU: the solve has landed
         self._out: Optional[np.ndarray] = None
         self._mat_lock = threading.Lock()  # guards every host-side cache
 
     def done(self) -> bool:
         """True once the solve has landed (the device work behind it has
-        finished)."""
-        return self._out is not None or self._event is None or self._event.query()
+        finished on every position)."""
+        return self._out is not None or all(e.query() for e in self._events)
 
-    def _host(self, t: torch.Tensor) -> np.ndarray:
-        if self._event is not None:
-            self._event.synchronize()
-        return t.cpu().numpy()
+    def _host(self, shards) -> np.ndarray:
+        """The shards on the host, joined along the batch axis."""
+        for e in self._events:
+            e.synchronize()
+        if len(shards) == 1:
+            return shards[0].cpu().numpy()
+        return np.concatenate([t.cpu().numpy() for t in shards])
 
     def result(self) -> np.ndarray:
         """The ``(B, n)`` int64 schedules — blocks until the solve lands.
@@ -217,9 +251,9 @@ class SweepHandle(_DeviceSchedulePart):
     ``sum_i C_i(L_i)`` to recover original-instance energies.
     """
 
-    def __init__(self, raw, k_last, batch, t_star, event=None):
-        super().__init__(raw, batch, event)
-        self._k_last = k_last  # (Bb, Tb+1) final DP row tensor
+    def __init__(self, raw, k_last, batch, t_star, events=()):
+        super().__init__(raw, batch, events)
+        self._k_last = k_last  # shards of the (Bb, Tb+1) final DP rows
         self._t_star = t_star  # (Bb,) filled capacities of the padded batch
         self._k_host: Optional[np.ndarray] = None  # cached k_last transfer
 
@@ -261,9 +295,9 @@ class _SelectionPart(_DeviceSchedulePart):
     regime-split dispatch): like :class:`SweepHandle`, :meth:`result`
     waits, unpads, and restores lower limits."""
 
-    def __init__(self, raw_x, raw_obj, batch, event=None):
-        super().__init__(raw_x, batch, event)
-        self._raw_obj = raw_obj  # (Bb,) float32 0-lower-limit objectives
+    def __init__(self, raw_x, raw_obj, batch, events=()):
+        super().__init__(raw_x, batch, events)
+        self._raw_obj = raw_obj  # shards of the (Bb,) float32 0-lower-limit objectives
         self._obj_host: Optional[np.ndarray] = None
 
     def objectives(self) -> np.ndarray:
@@ -335,25 +369,28 @@ class RegimeSplitHandle:
         )
 
 
-def _canonical_device(device) -> torch.device:
-    dev = resolve_device(device)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    return dev
-
-
 class SweepEngine:
-    """Plan-cached batched (MC)^2MKP solver on one device.
+    """Plan-cached batched (MC)^2MKP solver on one device, or over a sweep
+    mesh.
 
     Args:
       backend: min-plus backend (:func:`~repro_torch.kernels.ops.resolve_backend`):
         "auto" resolves by the device ("cuda" on the card, "blocked" on the
         CPU); "ref" forces the dense plain version.
       max_entries: LRU capacity — distinct shape buckets kept warm.
+      mesh: a :class:`~repro_torch.core.torch_dp.SweepMesh` to shard the
+        BATCH axis over: each position solves its rows of the bucket on its
+        own device and stream; bit-identical to one device.
+      mesh_axis: the batch mesh's axis name (default: its only axis).
+      ring_mesh: a sweep mesh to run the CLASS axis over as a ring
+        (:func:`~repro_torch.core.torch_dp.solve_fused_batch_ring`): the row
+        is handed around the positions, each keeping only its own argmin
+        slab; bit-identical to the unsharded scan. For one very wide problem
+        (large ``n``); mutually exclusive with ``mesh`` (large ``B``).
+      ring_axis: the ring mesh's axis name (default: its only axis).
       device: where the plans run; ``"cuda"`` (the default) raises without
-        a card.
-      mesh, ring_mesh: multi-GPU sharding; not ported, they raise
-        ``NotImplementedError`` (ROADMAP Queue 1 (torch.distributed)).
+        a card. With a mesh, its devices must be of this type, and the
+        engine's device is the mesh's first.
     """
 
     def __init__(
@@ -361,14 +398,31 @@ class SweepEngine:
         backend: str = "auto",
         max_entries: int = 64,
         mesh=None,
+        mesh_axis: Optional[str] = None,
         ring_mesh=None,
+        ring_axis: Optional[str] = None,
         device="cuda",
     ):
         if max_entries < 1:
             raise ValueError("max_entries must be >= 1")
-        if mesh is not None or ring_mesh is not None:
-            raise NotImplementedError(_MULTI_GPU)
-        self.device = _canonical_device(device)
+        if mesh is not None and ring_mesh is not None:
+            raise ValueError(
+                "mesh (batch-axis sharding) and ring_mesh (class-axis ring) "
+                "are mutually exclusive — build one engine per strategy"
+            )
+        device = _canonical_device(device)
+        # the batch axis' positions: the mesh's devices, else the one device
+        positions, ring = (device,), ()
+        self.mesh, self.mesh_axis, self.ring_mesh, self.ring_axis = mesh, None, ring_mesh, None
+        if mesh is not None:
+            self.mesh_axis, positions = _mesh_positions(mesh, mesh_axis)
+        if ring_mesh is not None:
+            self.ring_axis, ring = _mesh_positions(ring_mesh, ring_axis)
+            positions = ring[:1]
+        if positions[0].type != device.type:
+            raise ValueError(f"the mesh's devices ({positions[0].type}) conflict with device={str(device)!r}")
+        self.device, self._positions = positions[0], positions
+        self._ndev, self._ring_ndev = len(positions), max(len(ring), 1)
         self.backend = resolve_backend(backend, self.device)
         self.max_entries = int(max_entries)
         self._cache: OrderedDict = OrderedDict()
@@ -378,7 +432,15 @@ class SweepEngine:
         self._lock = threading.Lock()
         # Serialises dispatches: a bucket's static buffers are shared.
         self._run_lock = threading.Lock()
-        self._stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+        # the streams each batch position's plan runs on: one on the card (a
+        # repeated card gets one a position, so its positions overlap as on
+        # separate cards), none on the CPU; the ring adds one on each other
+        # card it visits
+        cuda = self.device.type == "cuda"
+        self._plan_streams = tuple((torch.cuda.Stream(d),) if cuda else () for d in positions)
+        self._stream = self._plan_streams[0][0] if cuda else None
+        others = dict.fromkeys(d for d in ring if cuda and d != self.device)
+        self._ring_streams = self._plan_streams[0] + tuple(torch.cuda.Stream(d) for d in others)
 
     # ---- cache ---------------------------------------------------------
 
@@ -392,10 +454,10 @@ class SweepEngine:
     def cache_stats(self) -> dict:
         """Counters since construction (or the last :meth:`clear`).
         ``compiles`` counts plan builds (on the card, each is one warm-up
-        and one graph capture) — with a warm cache it stays flat no matter
-        how many solves run. ``per_bucket_hits`` breaks the warm hits down
-        by bucket (keyed by :meth:`_bucket_label`; counts survive eviction
-        — they describe traffic, not cache residency)."""
+        and one graph capture per position) — with a warm cache it stays
+        flat no matter how many solves run. ``per_bucket_hits`` breaks the
+        warm hits down by bucket (keyed by :meth:`_bucket_label`; counts
+        survive eviction — they describe traffic, not cache residency)."""
         with self._lock:
             return {
                 "hits": self._hits,
@@ -416,24 +478,26 @@ class SweepEngine:
             self._hits = self._misses = self._compiles = self._evictions = 0
             self._bucket_hits = {}
 
-    def _entry(self, key) -> _Plan:
+    def _entry(self, key) -> tuple:
         with self._lock:
-            plan = self._cache.get(key)
-            if plan is not None:
+            plans = self._cache.get(key)
+            if plans is not None:
                 self._hits += 1
                 self._bucket_hits[key] = self._bucket_hits.get(key, 0) + 1
                 self._cache.move_to_end(key)
-                return plan
+                return plans
             self._misses += 1
             self._compiles += 1
-            plan = self._build(key)
-            self._cache[key] = plan
+            plans = self._build(key)
+            self._cache[key] = plans
             while len(self._cache) > self.max_entries:
                 self._cache.popitem(last=False)
                 self._evictions += 1
-            return plan
+            return plans
 
-    def _build(self, key) -> _Plan:
+    def _build(self, key) -> tuple:
+        """A bucket's plans: one per position of the batch axis (a selection
+        bucket and a ring bucket have one)."""
         if key[0] == "marginal":
 
             def run_sel(costs64, lower, upper, t_star):
@@ -441,52 +505,75 @@ class SweepEngine:
                 # table, O(B·nW·log nW)
                 return marginal_select(_pack_on_device(costs64, lower, upper), upper - lower, t_star)
 
-            return _Plan(run_sel, self.device, self._stream)
+            return (_Plan(run_sel, self.device, self._plan_streams[0]),)
 
         _, _, nb, Tb, _ = key
         backend = self.backend
+        kernels = backend == "cuda"
+        if self.ring_mesh is not None:
+            ring_mesh, ring_axis = self.ring_mesh, self.ring_axis
+
+            def run_ring(costs64, lower, upper, t_star):
+                return solve_fused_batch_ring(_pack_on_device(costs64, lower, upper), t_star, Tb, backend, ring_mesh,
+                                              ring_axis)
+
+            return (_Plan(run_ring, self.device, self._ring_streams, nb if kernels else 0,
+                          self._ring_ndev if kernels else 0),)
 
         def run(costs64, lower, upper, t_star):
             # fused DP + backtrack: only (X, K_last) leave the plan, never
             # the (n, B, T+1) argmin slab
             return _solve_fused_batch(_pack_on_device(costs64, lower, upper), t_star, Tb, backend=backend)
 
-        return _Plan(run, self.device, self._stream, nb if backend == "cuda" else 0)
+        return tuple(
+            _Plan(run, d, streams, nb if kernels else 0, int(kernels))
+            for d, streams in zip(self._positions, self._plan_streams)
+        )
 
     def _run(self, key, padded: ProblemBatch):
-        """Runs ``key``'s plan on the padded batch. Returns its outputs, the
-        padded workloads ``T'`` and, on the card, the event after them."""
+        """Runs ``key``'s plans on the padded batch, each on its shard of
+        rows. Returns their outputs, the padded workloads ``T'`` and, on the
+        card, one event after each plan's work."""
         t_star = padded.T - padded.lower.sum(axis=1)
         arrays = (padded.costs, padded.lower, padded.upper, t_star)
+        outs, events = [], []
         with self._run_lock:
-            plan = self._entry(key)
-            if self._stream is None:
-                return plan(*arrays), t_star, None
-            with torch.cuda.stream(self._stream):
-                out = plan(*arrays)
-                event = torch.cuda.Event()
-                event.record()
-            return out, t_star, event
+            plans = self._entry(key)
+            rows = len(t_star) // len(plans)
+            for p, plan in enumerate(plans):
+                shard = [a[p * rows : (p + 1) * rows] for a in arrays]
+                with contextlib.ExitStack() as current:
+                    for s in plan.streams:
+                        current.enter_context(torch.cuda.stream(s))
+                    outs.append(plan(*shard))
+                if plan.streams:
+                    events.append(torch.cuda.Event())
+                    events[-1].record(plan.streams[0])
+        return outs, t_star, tuple(events)
 
     # ---- solving -------------------------------------------------------
 
     def _dispatch_dp(self, batch: ProblemBatch) -> SweepHandle:
         nb, Tb, Wb = request_bucket(batch)  # same math as the JAX engine's
-        Bb = _next_pow2(batch.B)
-        (X, k_last), t_star, event = self._run(("dp", Bb, nb, Tb, Wb), batch.pad_to(B=Bb, n=nb, W=Wb))
-        return SweepHandle(X, k_last, batch, t_star.astype(np.int32), event)
+        # the ring splits the class axis evenly and the mesh the batch axis:
+        # their buckets round up to multiples of the sizes (padding is inert)
+        nb = _round_up(nb, self._ring_ndev)
+        Bb = _round_up(_next_pow2(batch.B), self._ndev)
+        outs, t_star, events = self._run(("dp", Bb, nb, Tb, Wb), batch.pad_to(B=Bb, n=nb, W=Wb))
+        return SweepHandle([o[0] for o in outs], [o[1] for o in outs], batch, t_star.astype(np.int32), events)
 
     def _dispatch_selection(self, batch: ProblemBatch):
         """Runs the MarIn/MarCo slice on the selection plan of its own shape
         bucket (``("marginal", B, n, W)`` — no ``T`` in the key: the
         workload is an input, not a shape). Marginal buckets share the
-        engine's LRU and counters with the DP buckets."""
+        engine's LRU and counters with the DP buckets, and run unsharded on
+        the engine's device, as in the reference."""
         if batch.W < 2:  # every resource pinned at its lower limit: T' == 0
             zeros = np.zeros((batch.B, batch.n), dtype=np.int64)
             return _HostPart(restore_lower_limits(batch, zeros), np.zeros(batch.B))
         Bb, nb, _, Wb = bucket_shape(batch.B, batch.n, 1, batch.W)
-        (x, obj), _, event = self._run(("marginal", Bb, nb, Wb), batch.pad_to(B=Bb, n=nb, W=Wb))
-        return _SelectionPart(x, obj, batch, event)
+        [(x, obj)], _, events = self._run(("marginal", Bb, nb, Wb), batch.pad_to(B=Bb, n=nb, W=Wb))
+        return _SelectionPart([x], [obj], batch, events)
 
     @staticmethod
     def _host_part(batch: ProblemBatch, algorithm: str) -> _HostPart:

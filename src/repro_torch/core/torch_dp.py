@@ -10,7 +10,9 @@ op and no Python step per class. The other backends run the plain versions,
 a Python loop of row updates and of gather steps. The fused solver
 (:func:`solve_fused_batch_torch`) returns only the ``(B, n)`` schedules plus
 the final DP row ``K_last``, so nothing bigger than the answer has to leave
-the device.
+the device. :func:`solve_fused_batch_ring` runs the same solve with the
+class axis as a ring over the positions of a :class:`SweepMesh`, each
+keeping only its own part of the argmin slab.
 
 Inputs are the 0-lower-limit equivalent instance (Section 5.2) as dense
 arrays: ``costs (n, W)`` padded with BIG beyond each ``U_i``.
@@ -28,7 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..kernels.minplus import minplus_scan_cuda
+from ..kernels.minplus import minplus_backtrack_cuda, minplus_scan_cuda
 from ..kernels.ops import BIG, minplus_step_batch, resolve_backend
 from ..kernels.ref import backtrack_ref, minplus_scan_ref
 from .problem import (
@@ -40,6 +42,7 @@ from .problem import (
 )
 
 __all__ = [
+    "SweepMesh",
     "solve_schedule_dp_torch",
     "solve_schedule_dp_batch",
     "solve_fused_batch_torch",
@@ -188,18 +191,116 @@ def solve_fused_batch_torch(costs: torch.Tensor, t_star, T: int, backend: str = 
     """
     T = int(T)
     t_star = torch.as_tensor(t_star)
-    if t_star.device.type == "cpu" and t_star.numel() and not (0 <= int(t_star.min()) <= int(t_star.max()) <= T):
-        raise ValueError(f"t_star must lie in [0, T={T}], got [{int(t_star.min())}, {int(t_star.max())}]")
+    _check_t_range(t_star, T)
     return _solve_fused_batch(costs.to(torch.float32), t_star.to(costs.device), T, backend=backend)
 
 
-def solve_fused_batch_ring(*args, **kwargs):
-    """Not ported: the JAX package's class-axis ring over several devices
-    needs ``torch.distributed`` (ROADMAP Queue 1 (torch.distributed))."""
-    raise NotImplementedError(
-        "solve_fused_batch_ring (the class-axis ring over several cards) is not "
-        "ported yet: ROADMAP Queue 1 (torch.distributed)"
-    )
+class SweepMesh:
+    """A 1-D mesh of positions over an explicit device sequence: the port's
+    counterpart of the JAX package's ``jax.sharding.Mesh`` for the sweep
+    engine's batch sharding and class ring. One process drives every
+    position, as one JAX controller drives its mesh.
+
+    A device may repeat: positions on one device each hold their own shard
+    and slab, as the reference's forced host devices
+    (``--xla_force_host_platform_device_count``) do on the CPU. The mesh
+    answers what callers of the reference's mesh read: ``axis_names``,
+    ``shape[axis]`` and ``devices.size``; ``positions`` is the device tuple.
+    Every position must be of one device type; a CUDA position raises without
+    a card.
+    """
+
+    def __init__(self, devices, axis: str = "sweep"):
+        positions = tuple(_canonical_device(d) for d in devices)
+        if not positions:
+            raise ValueError("a sweep mesh needs at least one device")
+        if len({d.type for d in positions}) != 1:
+            raise ValueError(f"a sweep mesh's devices must share one type, got {[str(d) for d in positions]}")
+        self.positions = positions
+        self.axis_names = (str(axis),)
+        self.shape = {str(axis): len(positions)}
+        self.devices = np.array(positions, dtype=object)
+
+    def __repr__(self) -> str:
+        return f"SweepMesh({[str(d) for d in self.positions]}, axis={self.axis_names[0]!r})"
+
+
+def _canonical_device(device) -> torch.device:
+    """:func:`resolve_device` with a CUDA device's index filled in."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def _mesh_positions(mesh, axis=None):
+    """``(axis, devices)`` of a :class:`SweepMesh` along ``axis`` (its only
+    axis by default); anything else is refused."""
+    if not isinstance(mesh, SweepMesh):
+        raise TypeError(f"a sweep mesh must be a SweepMesh (make_sweep_mesh), got {type(mesh).__name__}")
+    axis = mesh.axis_names[0] if axis is None else axis
+    if axis not in mesh.axis_names:
+        raise ValueError(f"axis {axis!r} is not an axis of {mesh!r}")
+    return axis, mesh.positions
+
+
+def _check_t_range(t_star: torch.Tensor, T: int) -> None:
+    """Refuses ``t_star`` outside ``[0, T]`` where it is known on the host."""
+    if t_star.device.type == "cpu" and t_star.numel() and not (0 <= int(t_star.min()) <= int(t_star.max()) <= T):
+        raise ValueError(f"t_star must lie in [0, T={T}], got [{int(t_star.min())}, {int(t_star.max())}]")
+
+
+def solve_fused_batch_ring(costs: torch.Tensor, t_star, T: int, backend: str, mesh, axis: str):
+    """Fused DP + backtrack with the CLASS axis run as a ring over
+    ``mesh[axis]`` (the JAX package's ``solve_fused_batch_ring``): the same
+    ``(X (B, n), K_last (B, T+1))`` as :func:`solve_fused_batch_torch`, bit
+    for bit, on ``costs``' device. ``n`` must be divisible by the ring size
+    ``D`` (the sweep engine pads its n-bucket up to a multiple).
+
+    Position ``d`` holds classes ``[d n/D, (d+1) n/D)`` and its own ``(n/D,
+    B, T+1)`` int32 argmin slab on its own device. The scan is sequential in
+    ``n``, so the row is handed around the ring: on turn ``d`` position ``d``
+    continues it through its classes with the unsharded scan's op sequence
+    and hands a copy of it to the next position (a peer copy across cards).
+    The row after the last turn is ``K_last``. Then the reverse walk:
+    positions ``D-1 .. 0`` each backtrack their own slab from the workload
+    carry ``t`` (:func:`~repro_torch.kernels.minplus.minplus_backtrack_cuda`
+    on the card), which becomes ``t - x.sum(1)`` (int64) and goes back one
+    position. Compute is pipelined, not divided: what shards is the argmin
+    slab, whose bytes per position fall by ``D``.
+
+    Every step runs on the current stream of its position's device; PyTorch
+    orders a copy between two devices against the current streams of both.
+    """
+    _, devices = _mesh_positions(mesh, axis)
+    D = len(devices)
+    B, n, _ = costs.shape
+    if n % D:
+        raise ValueError(f"the ring splits the class axis evenly: n={n} is not divisible by the ring size {D}")
+    T = int(T)
+    t_star = torch.as_tensor(t_star)
+    _check_t_range(t_star, T)
+    backend = resolve_backend(backend, devices[0])
+    costs = costs.to(torch.float32)
+    n_loc = n // D
+    row, slabs = None, []
+    for d, dev in enumerate(devices):  # forward turns
+        mine = costs[:, d * n_loc : (d + 1) * n_loc].to(dev)
+        if row is None:
+            row, slab = _dp_buffers(mine, T)
+        else:
+            row = row.to(dev, copy=True)  # the hand-on: never a buffer the last turn reuses
+            slab = torch.empty((n_loc, B, T + 1), dtype=torch.int32, device=dev)
+        row = _dp_scan_from(row, mine, slab, backend=backend)
+        slabs.append(slab)
+    k_last = row.to(costs.device)
+    backtrack = minplus_backtrack_cuda if backend == "cuda" else backtrack_ref
+    t, xs = t_star.to(devices[-1], torch.int64), [None] * D
+    for d in range(D - 1, -1, -1):  # the reverse walk
+        t = t.to(devices[d])
+        xs[d] = backtrack(slabs[d], t)
+        t = t - xs[d].sum(1)
+    return torch.cat([x.to(costs.device) for x in xs], dim=1), k_last
 
 
 def solve_schedule_dp_torch(problem: Problem, backend: str = "auto", device="cuda") -> np.ndarray:

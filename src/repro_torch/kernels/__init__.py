@@ -4,7 +4,8 @@
 (``csrc/minplus.cu``, built by ``build`` at their first launch): the banded
 min-plus row update behind ``minplus_cuda_batch``, the whole class scan in
 one host call behind ``minplus_scan_cuda``, which also launches the
-backtrack when given ``t_star``. ``blocked``: the tiled PyTorch CPU backend.
+backtrack when given ``t_star``, and the backtrack alone behind
+``minplus_backtrack_cuda``. ``blocked``: the tiled PyTorch CPU backend.
 ``ref``: the dense PyTorch oracle and the plain scan and backtrack, the
 kernels' plain versions.
 ``ops`` exposes the dispatching wrappers — ``backend="auto"`` selects by the
@@ -22,6 +23,7 @@ Import it as a module; it is not re-exported here, so
 from .blocked import auto_block_sizes, minplus_blocked_batch
 from .minplus import (
     hopper_tile_sizes,
+    minplus_backtrack_cuda,
     minplus_cuda,
     minplus_cuda_batch,
     minplus_scan_cuda,
@@ -36,6 +38,7 @@ __all__ = [
     "auto_block_sizes",
     "backtrack_ref",
     "hopper_tile_sizes",
+    "minplus_backtrack_cuda",
     "minplus_blocked_batch",
     "minplus_cuda",
     "minplus_cuda_batch",

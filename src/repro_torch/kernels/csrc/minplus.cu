@@ -309,6 +309,19 @@ extern "C" int minplus_band_launch(const void* kprev, const void* cost, void* ko
                                      round_bw(BW), static_cast<cudaStream_t>(stream)));
 }
 
+// The backtrack alone on `stream`: per instance b, from t_star[b] (int64),
+// x_i = I[i, b, t]; t -= x_i for i = n-1 .. 0, into X (B, n) int32, reading
+// the (n, B, Tp) int32 slab I. Launches nothing when n == 0. Returns
+// cudaGetLastError().
+extern "C" int minplus_backtrack_launch(const void* I, const void* t_star, void* X, int n, int B, int Tp,
+                                        void* stream) {
+  if (n < 0 || B < 1 || Tp < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0) return 0;
+  minplus_backtrack_kernel<<<(B + kThreads - 1) / kThreads, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(I), static_cast<const long long*>(t_star), static_cast<int*>(X), n, B, Tp);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The whole class scan in one host call: n row launches on `stream`, class i
 // reading row (i % 2 ? kbuf : k0) and writing the other, with its argmins in
 // I[i] of the (n, B, Tp) int32 slab. costs is float32 (B, n, W) read with
@@ -333,7 +346,5 @@ extern "C" int minplus_scan_launch(void* k0, void* kbuf, const void* costs, void
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   if (X == nullptr || n == 0) return 0;
-  minplus_backtrack_kernel<<<(B + kThreads - 1) / kThreads, kThreads, 0, st>>>(
-      slab, static_cast<const long long*>(t_star), static_cast<int*>(X), n, B, Tp);
-  return static_cast<int>(cudaGetLastError());
+  return minplus_backtrack_launch(slab, t_star, X, n, B, Tp, stream);
 }

@@ -6,7 +6,8 @@ call, and the backtrack through the argmin slab.
 ``minplus_cuda_batch`` launches the row kernel once. ``minplus_scan_cuda``
 runs the ``n`` classes of a solve in one host call (the C function issues
 the ``n`` row launches on the stream) and, given ``t_star``, the backtrack
-kernel after them. On a CUDA tensor each launches its kernels or raises; on
+kernel after them; ``minplus_backtrack_cuda`` launches the backtrack alone
+(the class ring's reverse walk). On a CUDA tensor each launches its kernels or raises; on
 a CPU tensor each runs
 its plain PyTorch version (:mod:`repro_torch.kernels.ref`:
 ``minplus_step_ref_batch``, ``minplus_scan_ref``, ``backtrack_ref``). Nothing
@@ -38,6 +39,7 @@ __all__ = [
     "minplus_cuda",
     "minplus_cuda_batch",
     "minplus_scan_cuda",
+    "minplus_backtrack_cuda",
     "hopper_tile_sizes",
     "smem_bytes",
     "DEFAULT_BT",
@@ -310,6 +312,39 @@ def minplus_scan_cuda(
     return (k0 if n % 2 == 0 else kbuf), X
 
 
+def minplus_backtrack_cuda(I: torch.Tensor, t_star: torch.Tensor) -> torch.Tensor:
+    """The backtrack alone: the reverse walk through the contiguous ``(n, B,
+    T+1)`` int32 argmin slab ``I`` from ``t_star (B,)`` (integers, on ``I``'s
+    device), ``x_i = I[i, b, t_b]; t_b -= x_i``. Returns the ``(B, n)`` int32
+    schedules. The class ring (:func:`repro_torch.core.torch_dp.solve_fused_batch_ring`)
+    walks each position's slab with it, after every forward turn has ended.
+
+    On a CUDA tensor it launches the backtrack kernel on the current stream
+    (none when ``n == 0``), where a ``t_b`` outside the row gives ``x_i = 0``;
+    on a CPU tensor it runs :func:`backtrack_ref`, which raises there.
+    """
+    global launches_backtrack
+    _check("I", I, torch.int32, 3)
+    n, B, Tp = I.shape
+    if B < 1 or Tp < 1:
+        raise ValueError(f"bad slab shape {tuple(I.shape)}")
+    t = _check_t_star(t_star, B, I.device)
+
+    if I.device.type == "cpu":
+        return backtrack_ref(I, t)
+    _on_card(I, "minplus_backtrack_cuda", B)
+
+    X = torch.empty((B, n), dtype=torch.int32, device=I.device)
+    fns = _launch_fns()
+    with torch.cuda.device(I.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fns.backtrack(I.data_ptr(), t.data_ptr(), X.data_ptr(), n, B, Tp, stream)
+    _raise_on(rc, "minplus_backtrack_launch", n=n, B=B, Tp=Tp)
+    if n > 0 and not torch.cuda.is_current_stream_capturing():
+        launches_backtrack += 1
+    return X
+
+
 _launch = None
 
 
@@ -323,6 +358,7 @@ def _launch_fns():
         argtypes = {
             "band": ("minplus_band_launch", [P] * 4 + [I32] * 5 + [P]),
             "scan": ("minplus_scan_launch", [P] * 6 + [I32] * 4 + [I64] * 3 + [I32] * 2 + [P]),
+            "backtrack": ("minplus_backtrack_launch", [P] * 3 + [I32] * 3 + [P]),
         }
         bound = {}
         for key, (name, types) in argtypes.items():

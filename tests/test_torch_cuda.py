@@ -12,7 +12,8 @@ step of a SMOKE model on the kernel route against the plain route, and the
 launches of a step; the sweep engine's bucket plans (eager first call, then
 CUDA-graph replays) against the CPU engine bit for bit, with shared static
 buffers under interleaved and concurrent dispatches, and the launches a
-replay counts; the selection's signed-zero order and the facade's regime
+replay counts; the backtrack launched alone, the class ring and the batch
+mesh over four positions of the card; the selection's signed-zero order and the facade's regime
 split against the CPU; the scheduling service and the fleet solve over a
 card engine against the CPU's; a toy-LM FL campaign trained and planned on
 the card against the CPU's, and pipelined against serial; SMOKE decode of a
@@ -526,7 +527,8 @@ def test_cuda_engine_replay_matches_eager_and_plain(cuda):
         assert h.done()
     s = eng.cache_stats()
     assert (s["compiles"], s["hits"], s["misses"]) == (1, 2, 1)
-    assert eng._cache[next(iter(eng._cache))].graph is not None
+    (plan,) = eng._cache[next(iter(eng._cache))]  # one position: one plan
+    assert plan.graph is not None
 
 
 def test_cuda_engine_interleaved_dispatches_keep_separate_answers(cuda):
@@ -590,6 +592,77 @@ def test_cuda_engine_eight_producers_on_one_bucket(cuda):
         assert not t.is_alive()
     assert not errors, errors
     assert eng.cache_stats()["compiles"] == 1
+
+
+@pytest.mark.parametrize("n,B,Tp", [(1, 1, 1), (7, 3, 1500), (32, 16, 10001), (0, 4, 9)])
+def test_cuda_backtrack_launch_matches_plain(cuda, n, B, Tp):
+    """The backtrack launched alone (the class ring's reverse walk) against
+    the plain backtrack, from ragged starting points; one launch counted
+    (none for n = 0)."""
+    rng = np.random.default_rng(n + B + Tp)
+    I = torch.from_numpy(rng.integers(0, 5, (n, B, Tp)).astype(np.int32)).to(cuda)
+    t = torch.from_numpy(rng.integers(0, Tp, B)).to(cuda)
+    before = mp.launches_backtrack
+    X = mp.minplus_backtrack_cuda(I, t)
+    torch.cuda.synchronize()
+    assert mp.launches_backtrack == before + (n > 0)
+    assert X.shape == (B, n) and torch.equal(X, _backtrack_batch(I, t))
+
+
+def test_cuda_ring_over_four_positions_of_the_card(cuda):
+    """The class ring over the card repeated 4 times: the fused ring solve
+    and the ring engine (eager first call, then one graph replay) give the
+    unsharded solve's X and K_last bits, with n row launches and 4
+    backtracks per solve."""
+    from repro_torch.core.sweep import SweepEngine, SweepMesh, request_bucket
+    from repro_torch.core.torch_dp import solve_fused_batch_ring
+
+    ring = SweepMesh(["cuda"] * 4)
+    batch = engine_batch(5, n=12)
+    b0 = remove_lower_limits(batch)
+    costs, t_star, T = pack_problem(b0, cuda), torch.from_numpy(b0.T).to(cuda), int(b0.T.max())
+    Xw, Kw = solve_fused_batch_torch(costs, t_star, T, backend="cuda")
+    before = (mp.launches, mp.launches_scan, mp.launches_backtrack)
+    X, K = solve_fused_batch_ring(costs, t_star, T, "cuda", ring, "sweep")
+    assert (mp.launches, mp.launches_scan, mp.launches_backtrack) == (before[0] + 12, before[1] + 4, before[2] + 4)
+    assert torch.equal(X, Xw) and torch.equal(K.view(torch.int32), Kw.view(torch.int32))
+
+    eng, one = SweepEngine(ring_mesh=ring), SweepEngine(device="cuda")
+    want = one.dispatch(batch)
+    nb = request_bucket(batch)[0]
+    for k in range(3):  # eager warm-up and capture, then two replays
+        before = (mp.launches, mp.launches_scan, mp.launches_backtrack)
+        h = eng.dispatch(batch)
+        np.testing.assert_array_equal(h.result(), want.result())
+        np.testing.assert_array_equal(h.k_last().view(np.int32), want.k_last().view(np.int32))
+        scans = 4 if k == 0 else 0
+        assert (mp.launches, mp.launches_scan, mp.launches_backtrack) == (before[0] + nb, before[1] + scans,
+                                                                          before[2] + 4)
+    s = eng.cache_stats()
+    assert (s["compiles"], s["hits"], s["misses"]) == (1, 2, 1) and list(eng._cache) == list(one._cache)
+    (plan,) = eng._cache[next(iter(eng._cache))]
+    assert plan.graph is not None
+
+
+def test_cuda_batch_mesh_over_four_positions_of_the_card(cuda):
+    """The batch axis over the card repeated 4 times: one graph per
+    position on its own stream, the rows gathered in order, bit for bit the
+    unsharded engine's."""
+    from repro_torch.core.sweep import SweepEngine, SweepMesh, request_bucket
+
+    eng, one = SweepEngine(mesh=SweepMesh(["cuda"] * 4)), SweepEngine(device="cuda")
+    batch = engine_batch(6, B=6)
+    want = one.dispatch(batch)
+    nb = request_bucket(batch)[0]
+    for _ in range(3):
+        before = (mp.launches, mp.launches_backtrack)
+        h = eng.dispatch(batch)
+        np.testing.assert_array_equal(h.result(), want.result())
+        np.testing.assert_array_equal(h.k_last().view(np.int32), want.k_last().view(np.int32))
+        assert (mp.launches, mp.launches_backtrack) == (before[0] + 4 * nb, before[1] + 4)
+    (key, plans), = eng._cache.items()
+    assert key[1] == 8 and len(plans) == 4 and all(p.graph is not None for p in plans)
+    assert len({p.streams[0] for p in plans}) == 4
 
 
 def test_cuda_marginal_select_keeps_the_heap_order_on_signed_zeros(cuda):

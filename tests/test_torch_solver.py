@@ -7,8 +7,7 @@ Schedules, resolved algorithms (the DP names translated: ``dp_torch`` for
 ``dp_jax``, ``dp_torch_cuda`` for ``dp_jax_pallas``), regimes and Pareto
 points must be identical, ``k_last`` rows bit-identical float32 and
 ``Solution.objective`` an equal float64. The served and fleet paths
-(``service=``, ``solve_fleet``) must run; multi-GPU sweeps must still raise
-``NotImplementedError``.
+(``service=``, ``solve_fleet``) and the multi-device sweeps must run.
 """
 
 import itertools
@@ -248,11 +247,12 @@ def test_solution_objective_is_exact_float64():
 def test_service_and_fleet_raise_not_implemented():
     """Serving and the fleet solve are ported: ``service=`` and
     ``solve_fleet`` run and agree with the engine path, and a service over
-    another engine is refused as in the reference. Only multi-GPU sweeps
-    still raise ``NotImplementedError``. The name is older than these two
-    layers of the port and is kept so that test reports stay comparable
-    across its history: read it as "service and fleet run, multi-GPU
-    still raises"."""
+    another engine is refused as in the reference. Multi-device sweeps
+    raised ``NotImplementedError`` until they were ported; now a ring
+    engine's fleet solve is the CPU engine's, and a malformed mesh is
+    refused. The name is older than these layers
+    of the port and is kept so that test reports stay comparable across its
+    history: read it as "service, fleet and multi-device sweeps run"."""
     from repro_torch.core.fleet import FleetSolution
     from repro_torch.serve import SchedulerService
 
@@ -276,8 +276,13 @@ def test_service_and_fleet_raise_not_implemented():
     want = tpareto.pareto_frontier(p, tt, device=CPU)
     assert [(q.time, q.energy) for q in front] == [(q.time, q.energy) for q in want]
     assert [(q.time, q.energy) for q in by_window["a"]] == [(q.time, q.energy) for q in want]
-    with pytest.raises(NotImplementedError, match=r"Queue 1 \(torch.distributed\)"):
+    with pytest.raises((TypeError, ValueError)):  # multi-device sweeps run; a malformed mesh is refused
         tsweep.SweepEngine(mesh=object(), device=CPU)
+    ring = tsweep.SweepMesh([CPU] * 2)
+    np.testing.assert_array_equal(
+        Solver(engine=tsweep.SweepEngine(ring_mesh=ring, device=CPU)).solve_fleet(p).schedule,
+        cpu_solver().solve_fleet(p).schedule,
+    )
 
 
 def test_solver_without_a_card_raises_by_default():

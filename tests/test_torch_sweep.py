@@ -15,6 +15,7 @@ import threading
 
 import numpy as np
 import pytest
+import torch
 
 from repro.core import costs as jcosts
 from repro.core import problem as jprob
@@ -425,12 +426,26 @@ def test_default_engines_key_on_the_resolved_backend_and_device():
 
 
 def test_multi_gpu_sweeps_raise_not_implemented():
+    """The mesh entry points run now (the name is older than them and is
+    kept so that test reports stay comparable across the port's history:
+    read it as "multi-device sweeps run, and refuse a malformed mesh").
+    ``tests/test_torch_multi_device.py`` holds them against the reference."""
+    mesh = tsweep.make_sweep_mesh(device=CPU)
+    assert mesh.axis_names == ("sweep",) and mesh.shape["sweep"] == mesh.devices.size == 1
+    probs = random_mixed_problems(np.random.default_rng(4), 3)
+    want = tdp.solve_schedule_dp_batch(probs, device=CPU)
+    for kw in ({"mesh": mesh}, {"ring_mesh": mesh}):
+        np.testing.assert_array_equal(tsweep.SweepEngine(device=CPU, **kw).solve(probs), want)
+    costs = tdp.pack_problem(tprob.remove_lower_limits(tprob.ProblemBatch.from_problems(probs)), CPU)
+    t_star = [int(p.T - p.lower.sum()) for p in probs]
+    T = max(t_star)
+    X, k_last = tdp.solve_fused_batch_ring(costs, t_star, T, "ref", mesh, "sweep")
+    Xw, kw = tdp.solve_fused_batch_torch(costs, t_star, T, backend="ref")
+    assert torch.equal(X, Xw) and torch.equal(k_last.view(torch.int32), kw.view(torch.int32))
     for kw in ({"mesh": object()}, {"ring_mesh": object()}):
-        with pytest.raises(NotImplementedError, match=r"Queue 1 \(torch.distributed\)"):
+        with pytest.raises((TypeError, ValueError)):
             tsweep.SweepEngine(device=CPU, **kw)
-    with pytest.raises(NotImplementedError, match=r"Queue 1 \(torch.distributed\)"):
-        tsweep.make_sweep_mesh()
-    with pytest.raises(NotImplementedError, match=r"Queue 1 \(torch.distributed\)"):
-        tdp.solve_fused_batch_ring()
+    with pytest.raises((TypeError, ValueError)):
+        tdp.solve_fused_batch_ring(costs, t_star, T, "ref", object(), "sweep")
     with pytest.raises(ValueError):
         tsweep.SweepEngine(device=CPU, max_entries=0)
