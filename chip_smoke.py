@@ -274,6 +274,28 @@ Phases, in order; any failure ends the run with a non-zero exit code:
                 ring's slabs against ``backtrack_ref``, and its time; (d) the
                 fleet on the ring engine at quantum 1 against the flat DP,
                 and bench_fleet.py's instance against the unsharded engine.
+19. distributed — the LM zoo over ``torch.distributed``: an NCCL process
+                group of world size 1 on the card (a ``FileStore`` under
+                ``build/``), ``make_smoke_mesh((1, 1))`` on "cuda", every
+                tensor a DTensor placed by the logical-axis rules: (a)
+                gemma2-2b FULL, phase 10's shape, 2 sharded train steps
+                (``act_seq`` on "model", the flash kernels on local shards
+                under ``local_map``) against the unsharded steps from the
+                same parameters: losses within 2e-4, every parameter within
+                rtol 3e-3, atol 3e-4 (the reference's limits), 52 forward,
+                26 dQ and 26 dK/dV tensor-core launches a step; both steps
+                in turns by CUDA events, peak memory and busy share; (b)
+                olmoe-1b-7b FULL, one MoE layer in float32 at capacity 4.0
+                on 4 x 2,048 tokens: ``moe_impl="a2a"`` (the exchange over
+                NCCL) within 2e-4 of dense, einsum beside them, the three
+                timed; a bf16 prefill with a2a, its first flash launch
+                held against the plain version on its own inputs (a shape
+                phase 6 holds), its relative L2 from the same weights in
+                float32 within 1.05 x dense's, a2a against dense printed;
+                (c) gemma2-2b FULL serve at phase 15 (b)'s
+                shape: the cache placed by ``cache_pspecs``, 16 greedy
+                tokens identical to the unsharded serve step's, the cache's
+                local storage written in place, ms a token of both in turns.
 
 The line before the last is a JSON object of every kernel with its launch
 count and times; the last line is ``{"ok": true, "device": {...}}``.
@@ -539,6 +561,32 @@ ENC_FLASH_BWD_CASES = ((2, 16, 16, 4096, 80, "bidirectional", 4096, 0.0),)
 # clusters), and bench_fleet.py's instance at its defaults.
 MESH_POSITIONS = 4
 RING_FLEET = (3, 16, 40, 4)
+# Phase 19: the LM zoo over torch.distributed, an NCCL process group of
+# world size 1 on the card and a (1, 1) ("data", "model") DeviceMesh. (a)
+# gemma2-2b FULL sharded train step at phase 10's shape, DIST_TRAIN_STEPS
+# steps against the unsharded step from the same parameters, then
+# DIST_TIMING_ROUNDS rounds of both in turns; (b) olmoe-1b-7b FULL: one MoE
+# layer's moe_ffn in float32 at capacity 4.0 on DIST_MOE tokens (a2a, dense,
+# einsum), then a bf16 prefill at that shape, a2a against dense; (c)
+# gemma2-2b FULL sharded serve step at phase 15 (b)'s shape, DIST_SERVE_G
+# greedy tokens against the unsharded serve step's.
+DIST_TRAIN_STEPS = 2
+DIST_TIMING_ROUNDS = 2
+DIST_MOE = (4, 2048)
+DIST_MOE_CAPACITY = 4.0
+DIST_SERVE_G = 16
+DIST_LOSS_ATOL = 2e-4  # the reference's limits (tests/test_distribution.py)
+DIST_PARAM_TOL = dict(rtol=3e-3, atol=3e-4)
+DIST_MOE_ATOL = 2e-4
+DIST_PREFILL_REL_L2 = 2e-2
+# (b)'s bf16 a2a prefill is held by its distance from the same weights in
+# float32: at most DIST_PREFILL_F32_RATIO times the dense prefill's. Both are
+# bf16 evaluations of one float32 function; a wrong dispatch moves a2a's.
+DIST_PREFILL_F32_RATIO = 1.05
+# (b)'s flash launches: olmoe-1b-7b (H = Hkv = 16, D = 128) at DIST_MOE's
+# tokens. Phase 6 holds the kernel there in both dtypes; (b) fails on a
+# launch at a shape not listed.
+DIST_FLASH_CASES = ((DIST_MOE[0], 16, 16, DIST_MOE[1], 128, "causal", 0, 0.0),)
 
 
 def check(cond, msg):
@@ -792,7 +840,7 @@ def flash_phase(fa, dev):
                   (1, 2, 2, 8192, 128, "bidirectional", 0, 0.0, dtype)]
         cases += [(B, 8, 8 // G, S, D, kind, window, softcap, dtype) for B, G, S, D, kind, window, softcap in HEAD_DIM_CASES]
         cases += [(B, H, Hkv, S, 128, kind, 0, 0.0, dtype) for B, H, Hkv, S, kind in SERVE_HEAD_CASES]
-        cases += [(*case, dtype) for case in SERVE_FLASH_CASES + SSM_FLASH_CASES + ENC_FLASH_CASES]
+        cases += [(*case, dtype) for case in SERVE_FLASH_CASES + SSM_FLASH_CASES + ENC_FLASH_CASES + DIST_FLASH_CASES]
     worst = {torch.float32: [0.0] * 3, torch.bfloat16: [0.0] * 3}
     for B, H, Hkv, S, D, kind, window, softcap, dtype in cases:
         q, k, v = flash_inputs(gen, B, H, Hkv, S, D, dtype, dev)
@@ -807,7 +855,8 @@ def flash_phase(fa, dev):
             torch.cuda.empty_cache()
     f32, b16 = worst[torch.float32], worst[torch.bfloat16]
     log(f"[flash] {len(cases)} cases ({padded_head_dims(fa)} among them; phase 15's {len(SERVE_FLASH_CASES)}, "
-        f"phase 16's {len(SSM_FLASH_CASES)} and phase 17's {len(ENC_FLASH_CASES)} launch shapes in both dtypes) "
+        f"phase 16's {len(SSM_FLASH_CASES)}, phase 17's {len(ENC_FLASH_CASES)} and phase 19's {len(DIST_FLASH_CASES)} "
+        f"launch shapes in both dtypes) "
         f"within tolerance of the plain version: "
         f"float32 rtol=atol={F32_TOL} on o and "
         f"lse (largest |do| {f32[1]:.3e}, |dlse| {f32[2]:.3e}); bfloat16 I/O o within {BF16_GRID_TOL} of the plain "
@@ -4313,6 +4362,346 @@ def multi_device_phase(mp, dev, card):
             "bt_ring": {"ms": bt_ms, "plain_ms": bt_plain_ms, "bound_ms": bt_bound, "shape": list(I0.shape)}}
 
 
+# -- phase 19: the LM zoo over torch.distributed -----------------------------------
+
+
+def whole(x):
+    """A DTensor's whole value; a plain tensor as it is."""
+    return x.full_tensor() if hasattr(x, "full_tensor") else x
+
+
+def host_copy(tree):
+    """A copy of a tree of tensors or DTensors on the host."""
+    from repro_torch.optim import tree_map
+
+    return tree_map(lambda x: whole(x).detach().to("cpu", copy=True), tree)
+
+
+def placement_leaves(tree) -> list:
+    """The placement lists of a tree that ``train_shardings`` gives, in
+    tree order."""
+    from torch.distributed.tensor import Placement
+
+    if isinstance(tree, list) and tree and all(isinstance(p, Placement) for p in tree):
+        return [tree]
+    items = tree.values() if isinstance(tree, dict) else tree
+    return [pl for x in items for pl in placement_leaves(x)]
+
+
+def event_ms(fn):
+    """The device time of one call of ``fn`` between two CUDA events."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end), out
+
+
+def dist_train_part(fa, dev, card, mesh):
+    """Phase 19 (a): gemma2-2b FULL sharded train steps against the
+    unsharded ones from the same parameters. Returns the flash launches of
+    the sharded steps (forward, dQ, dK/dV)."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import build_train_step
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.steps import batch_pspecs, train_shardings
+    from repro_torch.models import init_params, make_dummy_batch
+    from repro_torch.optim import AdamState, tree_leaves, tree_map
+
+    cfg = get_config(ARCH).replace(attn_impl="flash")
+    L, n = cfg.num_layers, DIST_TRAIN_STEPS
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED))
+    batch = make_dummy_batch(cfg, B_TRAIN, S_TRAIN, "train", np.random.default_rng(SEED), device=dev)
+    start = host_copy(params)
+    step, opt = build_train_step(cfg)
+
+    # unsharded: the reference run, its parameters kept on the host
+    state = opt.init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses_u = []
+    for _ in range(n):
+        params, state, loss = step(params, state, batch)
+        losses_u.append(float(loss))
+    peak_u = torch.cuda.max_memory_allocated() / 1e9
+    want = host_copy(params)
+    del params, state
+    torch.cuda.empty_cache()
+
+    # sharded, from the same parameters
+    with shd.mesh_context(mesh, {"act_seq": "model"}):
+        pd = shd.distribute_params(tree_map(lambda x: x.to(dev), start))
+        od = opt.init(pd)
+        bd = {k: distribute_tensor(v, mesh, shd.spec_to_placements(spec, mesh))
+              for (k, v), spec in zip(batch.items(), batch_pspecs(cfg, batch, B_TRAIN).values())}
+        p_pl, o_pl, b_pl = train_shardings(cfg, pd, od, batch, B_TRAIN)
+        check(all(list(x.placements) == pl for x, pl in zip(tree_leaves(pd), placement_leaves(p_pl)))
+              and all(list(x.placements) == pl for x, pl in zip(tree_leaves(od.mu), placement_leaves(o_pl.mu)))
+              and all(list(x.placements) == pl for x, pl in zip(bd.values(), placement_leaves(b_pl))),
+              "(a) the DTensors' placements differ from train_shardings'")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.launches = fa.launches_dq = fa.launches_dkv = 0
+        fa.launches_fwd_tc = fa.launches_dq_tc = fa.launches_dkv_tc = 0
+        losses_s = []
+        for i in range(n):
+            n0 = flash_counts(fa)
+            pd, od, loss = step(pd, od, bd)
+            losses_s.append(float(whole(loss)))
+            per = tuple(b - a for a, b in zip(n0, flash_counts(fa)))
+            check(per == (2 * L, L, L) * 2, f"(a) sharded step {i + 1}: flash (forward, dQ, dK/dV) and tensor-core "
+                                            f"launches {per}, expected {(2 * L, L, L) * 2}")
+        launches = (fa.launches, fa.launches_dq, fa.launches_dkv)
+        peak_s = torch.cuda.max_memory_allocated() / 1e9
+    d_loss = max(abs(a - b) for a, b in zip(losses_s, losses_u))
+    check(all(math.isfinite(x) for x in losses_s) and d_loss < DIST_LOSS_ATOL,
+          f"(a) losses sharded {losses_s} against unsharded {losses_u}")
+    worst, worst_rel = 0.0, 0.0
+    for a, b in zip(tree_leaves(pd), tree_leaves(want)):
+        a, b = whole(a).float(), b.to(dev).float()
+        diff = (a - b).abs()
+        worst = max(worst, float(diff.max()))
+        worst_rel = max(worst_rel, float((diff / b.abs().clamp_min(1e-30)).max()))
+        check(torch.allclose(a, b, **DIST_PARAM_TOL), f"(a) a parameter after {n} sharded steps differs: max "
+                                                      f"|diff| {float(diff.max()):.3e}")
+    del a, b, diff, want, start
+    log(f"[dist] (a) {ARCH} FULL, B={B_TRAIN}, S={S_TRAIN}, remat {cfg.remat}, {cfg.optimizer}: {n} sharded train "
+        f"steps (DTensors on the (1, 1) mesh, act_seq on 'model') against the unsharded steps from the same "
+        f"parameters: losses {', '.join(f'{x:.6f}' for x in losses_s)} against "
+        f"{', '.join(f'{x:.6f}' for x in losses_u)} (max |diff| {d_loss:.3e}, limit {DIST_LOSS_ATOL}); parameters "
+        f"max |diff| {worst:.3e}, max relative {worst_rel:.3e} (limit rtol {DIST_PARAM_TOL['rtol']}, atol "
+        f"{DIST_PARAM_TOL['atol']}); per sharded step {2 * L} forward, {L} dQ, {L} dK/dV flash launches, all "
+        f"tensor-core, inside local_map; peak device memory sharded {peak_s:.2f} GB, unsharded {peak_u:.2f} GB")
+
+    # both in turns on one state: at world size 1 the local shards are the
+    # whole tensors, so the unsharded step runs on the DTensors' storage
+    pu = tree_map(lambda x: x.to_local(), pd)
+    ou = AdamState(step=od.step, mu=tree_map(lambda x: x.to_local(), od.mu), nu=tree_map(lambda x: x.to_local(), od.nu))
+    times = {"sharded": [], "unsharded": []}
+    with shd.mesh_context(mesh, {"act_seq": "model"}):
+        for _ in range(DIST_TIMING_ROUNDS):
+            for which in ("unsharded", "sharded", "sharded", "unsharded"):
+                if which == "sharded":
+                    ms, (pd, od, _) = event_ms(lambda: step(pd, od, bd))
+                else:
+                    with shd.mesh_context(None):
+                        ms, (pu, ou, _) = event_ms(lambda: step(pu, ou, batch))
+                times[which].append(ms)
+        total_s, _, kinds_s, n_s = device_time_table(lambda p, b: step(p, od, b), pd, bd)
+    with shd.mesh_context(None):
+        total_u, _, kinds_u, n_u = device_time_table(lambda p, b: step(p, ou, b), pu, batch)
+    med = {k: statistics.median(v) for k, v in times.items()}
+    log(f"[dist] {card}")
+    log(f"[dist] (a) train step in turns (unsharded, sharded, sharded, unsharded) x {DIST_TIMING_ROUNDS}, CUDA "
+        f"events: sharded {med['sharded']:.3f} ms (steps {', '.join(f'{x:.3f}' for x in times['sharded'])}), "
+        f"unsharded {med['unsharded']:.3f} ms ({', '.join(f'{x:.3f}' for x in times['unsharded'])}), "
+        f"sharded/unsharded {med['sharded'] / med['unsharded']:.4f}; by the profiler one step is busy "
+        f"{total_s:.3f} ms sharded ({n_s} kernel launches, busy share {total_s / med['sharded']:.3f}) and "
+        f"{total_u:.3f} ms unsharded ({n_u} launches, busy share {total_u / med['unsharded']:.3f}); by kind sharded "
+        f"{kinds_text(kinds_s)}, unsharded {kinds_text(kinds_u)}")
+    del pd, od, pu, ou, bd, batch, step, opt
+    torch.cuda.empty_cache()
+    return launches, dict(ms=med, peak_gb=(peak_s, peak_u), busy=(total_s / med["sharded"], total_u / med["unsharded"]),
+                          loss_diff=d_loss, param_diff=worst)
+
+
+def dist_moe_part(fa, dev, card, mesh):
+    """Phase 19 (b): olmoe-1b-7b FULL, one MoE layer in float32 through the
+    three dispatches, then a bf16 prefill with a2a against dense. Returns
+    the prefill's flash launches."""
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import build_prefill_step
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.steps import batch_pspecs
+    from repro_torch.models import init_params, make_dummy_batch
+    from repro_torch.models.moe import _init_moe_ffn
+    from repro_torch.models.moe_dispatch import moe_ffn
+    from repro_torch.optim import tree_map
+
+    B, S = DIST_MOE
+    cfg = get_config(MOE_ARCH).replace(capacity_factor=DIST_MOE_CAPACITY)
+    c32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    p = _init_moe_ffn(c32, gen)
+    x = torch.randn((B, S, cfg.d_model), generator=gen, device=dev) * 0.3
+    ys, ms = {}, {}
+    with torch.no_grad():
+        for impl in ("dense", "einsum"):
+            ys[impl] = moe_ffn(c32.replace(moe_impl=impl), p, x)[0]
+            ms[impl] = median_event_ms(lambda impl=impl: moe_ffn(c32.replace(moe_impl=impl), p, x), reps=3, warmup=1)
+            torch.cuda.empty_cache()
+        with shd.mesh_context(mesh):
+            pd = shd.distribute_params({"moe": p})["moe"]
+            xd = distribute_tensor(x, mesh, [Replicate()] * mesh.ndim)
+            ys["a2a"] = whole(moe_ffn(c32.replace(moe_impl="a2a"), pd, xd)[0])
+            ms["a2a"] = median_event_ms(lambda: moe_ffn(c32.replace(moe_impl="a2a"), pd, xd), reps=3, warmup=1)
+    err = {k: float((ys[k] - ys["dense"]).abs().max()) for k in ("a2a", "einsum")}
+    check(err["a2a"] <= DIST_MOE_ATOL, f"(b) a2a against dense: max |diff| {err['a2a']:.3e}")
+    T = B * S
+    log(f"[dist] (b) {MOE_ARCH} FULL, one MoE layer in float32 ({cfg.num_experts} experts, top {cfg.top_k}, "
+        f"capacity {cfg.capacity_factor}) on {B} x {S} tokens: a2a (one peer over NCCL) against dense max |diff| "
+        f"{err['a2a']:.3e} (limit {DIST_MOE_ATOL}), einsum against dense {err['einsum']:.3e}; {card}: dense "
+        f"{ms['dense']:.3f} ms, einsum {ms['einsum']:.3f} ms, a2a {ms['a2a']:.3f} ms (CUDA events, median of 3; "
+        f"{T / ms['a2a'] * 1e3:.0f} tokens/s through a2a)")
+    del p, x, ys, pd, xd
+    torch.cuda.empty_cache()
+
+    cfg = cfg.replace(attn_impl="flash")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED))
+    batch = make_dummy_batch(cfg, B, S, "prefill", np.random.default_rng(SEED), device=dev)
+    want = build_prefill_step(cfg.replace(moe_impl="dense"))(params, batch)
+    ein = build_prefill_step(cfg.replace(moe_impl="einsum"))(params, batch)
+    c32 = cfg.replace(param_dtype="float32", compute_dtype="float32", moe_impl="dense")
+    p32 = tree_map(lambda x: x.float(), params)
+    want32 = build_prefill_step(c32)(p32, batch)
+    del p32
+    torch.cuda.empty_cache()
+    def sharded_prefill():
+        with shd.mesh_context(mesh):
+            pd = shd.distribute_params(params)
+            bd = {k: distribute_tensor(v, mesh, shd.spec_to_placements(spec, mesh))
+                  for (k, v), spec in zip(batch.items(), batch_pspecs(cfg, batch, B).values())}
+            n0 = fa.launches
+            got = whole(build_prefill_step(cfg.replace(moe_impl="a2a"))(pd, bd))
+            return got, fa.launches - n0
+
+    got, launches = run_with_launches_held(fa, "(b) a2a prefill", sharded_prefill, cases=DIST_FLASH_CASES, tag="dist")
+    check(launches == cfg.num_layers, f"(b) the sharded prefill launched {launches} flash kernels")
+    check(bool(torch.isfinite(got).all()), "(b) non-finite a2a prefill logits")
+    rel_l2 = lambda a, b: float((a - b).norm() / b.norm())  # noqa: E731
+    rel = {"a2a-dense": rel_l2(got, want), "einsum-dense": rel_l2(ein, want), "a2a-einsum": rel_l2(got, ein),
+           "dense-f32": rel_l2(want, want32), "a2a-f32": rel_l2(got, want32)}
+    # a2a and dense are two bf16 evaluations of one float32 function: a2a
+    # no farther from it than dense, within DIST_PREFILL_F32_RATIO (which
+    # bounds a2a-dense by (1 + ratio) x dense's distance, by the triangle
+    # inequality); the float32 layer check above holds the dispatch itself
+    limit = DIST_PREFILL_F32_RATIO * rel["dense-f32"]
+    check(rel["a2a-f32"] <= limit, f"(b) bf16 prefill, a2a farther from float32 than dense: relative L2 {rel}")
+    log(f"[dist] (b) {MOE_ARCH} FULL bf16 prefill of {B} x {S} tokens at capacity {cfg.capacity_factor}, moe_impl "
+        f"a2a on the mesh, from the same weights in float32 (dense): a2a {rel['a2a-f32']:.3e}, dense "
+        f"{rel['dense-f32']:.3e} (limit for a2a {DIST_PREFILL_F32_RATIO} x dense's = {limit:.3e}); relative L2 of "
+        f"the logits a2a against dense {rel['a2a-dense']:.3e} (printed; the issue's {DIST_PREFILL_REL_L2} "
+        f"{'met' if rel['a2a-dense'] <= DIST_PREFILL_REL_L2 else 'missed'}), einsum against dense "
+        f"{rel['einsum-dense']:.3e}, a2a against einsum {rel['a2a-einsum']:.3e}; {launches} flash launches on "
+        f"local shards")
+    del ein, want32
+    del params, got, want
+    torch.cuda.empty_cache()
+    return launches, dict(ms=ms, err=err, prefill_rel_l2=rel)
+
+
+def dist_serve_part(fa, dev, card, mesh):
+    """Phase 19 (c): gemma2-2b FULL sharded serve steps against the
+    unsharded ones, from a cache filled by one prefill of the prompt."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import build_serve_step
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.steps import batch_pspecs, cache_pspecs
+    from repro_torch.models import init_cache, init_params
+    from repro_torch.models.dense import _embed, _logits, stack_forward
+
+    B, S, slots = LONG_SHAPE[0], LONG_SHAPE[1], LONG_SHAPE[1] + LONG_SHAPE[2]
+    G = DIST_SERVE_G
+    cfg = get_config(ARCH).replace(attn_impl="flash")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED))
+    tokens = torch.from_numpy(np.random.default_rng(SEED + 1).integers(0, cfg.vocab_size, (B, S))).long().to(dev)
+    with torch.inference_mode():
+        h, (k, v) = stack_forward(cfg, params["layers"], _embed(cfg, params, tokens), collect_cache=True)
+        first = _logits(cfg, params, h[:, -1:]).argmax(dim=-1)
+        del h
+    cache = init_cache(cfg, B, slots)
+    cache[0][:, :, :S].copy_(k)
+    cache[1][:, :, :S].copy_(v)
+    del k, v
+    cache_s = tuple(c.clone() for c in cache)
+    step = build_serve_step(cfg)
+
+    def greedy(params, cache, tok):
+        toks, ptrs, moved = [], None, False
+        for i in range(G):
+            tok, cache = step(params, cache, tok, S + i)
+            toks.append(whole(tok))
+            local = [c.to_local() if hasattr(c, "to_local") else c for c in cache]
+            ptrs = ptrs or [t.data_ptr() for t in local]
+            moved |= [t.data_ptr() for t in local] != ptrs
+        return torch.cat(toks, dim=1), cache, moved
+
+    want, cache, moved_u = greedy(params, cache, first)
+    with shd.mesh_context(mesh):
+        pd = shd.distribute_params(params)
+        cd = tuple(distribute_tensor(c, mesh, shd.spec_to_placements(spec, mesh))
+                   for c, spec in zip(cache_s, cache_pspecs(cfg, cache_s, B, slots)))
+        del cache_s
+        ptrs = [c.to_local().data_ptr() for c in cd]
+        td = distribute_tensor(first, mesh, shd.spec_to_placements(batch_pspecs(cfg, first, B), mesh))
+        got, cd, moved_s = greedy(pd, cd, td)
+        check([c.to_local().data_ptr() for c in cd] == ptrs and not moved_s,
+              "(c) the sharded cache's local storage moved")
+    check(not moved_u, "(c) the unsharded cache moved")
+    check(torch.equal(got, want), f"(c) sharded greedy tokens differ from the unsharded ones at "
+                                  f"{int((got != want).sum())} of {got.numel()}")
+    pos = S + G - 1
+    tok_u, times = want[:, -1:], {"sharded": [], "unsharded": []}
+    with shd.mesh_context(mesh):
+        tok_s = distribute_tensor(tok_u, mesh, td.placements)
+        for _ in range(DIST_TIMING_ROUNDS):
+            for which in ("unsharded", "sharded", "sharded", "unsharded"):
+                if which == "sharded":
+                    ms = median_event_ms(lambda: step(pd, cd, tok_s, pos), reps=3, per_rep=3, warmup=1)
+                else:
+                    with shd.mesh_context(None):
+                        ms = median_event_ms(lambda: step(params, cache, tok_u, pos), reps=3, per_rep=3, warmup=1)
+                times[which].append(ms)
+    med = {k: statistics.median(v) for k, v in times.items()}
+    log(f"[dist] (c) {ARCH} FULL serve, B={B}, a cache of {slots} slots filled by a prefill of {S} tokens, placed "
+        f"by cache_pspecs ({cache_gb(cd):.3f} GB): {G} sharded greedy tokens identical to the unsharded serve "
+        f"step's, the cache's local storage the same every step; {card}: ms a token in turns (CUDA events, 3 "
+        f"steps a pair, median of 3, x {DIST_TIMING_ROUNDS} rounds) sharded {med['sharded']:.4f} "
+        f"({', '.join(f'{x:.4f}' for x in times['sharded'])}), unsharded {med['unsharded']:.4f} "
+        f"({', '.join(f'{x:.4f}' for x in times['unsharded'])}), sharded/unsharded "
+        f"{med['sharded'] / med['unsharded']:.4f}")
+    del params, pd, cache, cd
+    torch.cuda.empty_cache()
+    return dict(ms=med)
+
+
+def distributed_phase(fa, dev, card):
+    """Phase 19: the LM zoo over torch.distributed (the constants' comment).
+    Returns the flash launches of the sharded runs by part."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_smoke_mesh
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    store = Path(__file__).resolve().parent / "build" / "phase19.store"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0, world_size=1,
+                            device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        check(dist.get_backend() == "nccl", f"the process group's backend is {dist.get_backend()}, not nccl")
+        mesh = make_smoke_mesh((1, 1))
+        check(mesh.device_type == "cuda" and tuple(mesh.mesh_dim_names) == ("data", "model"), f"mesh {mesh}")
+        log(f"[dist] NCCL process group of world size {dist.get_world_size()} (FileStore {store.name}), mesh {mesh}")
+        train_launches, train = dist_train_part(fa, dev, card, mesh)
+        moe_launches, moe = dist_moe_part(fa, dev, card, mesh)
+        serve = dist_serve_part(fa, dev, card, mesh)
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+    launches = {"train": train_launches, "moe_prefill": moe_launches}
+    log(f"[dist] phase 19 wall time {time.perf_counter() - t0:.1f} s; flash launches of the sharded runs {launches}")
+    return launches, dict(train=train, moe=moe, serve=serve)
+
+
 def main() -> int:
     # -- phase 1: device ---------------------------------------------------
     if not torch.cuda.is_available():
@@ -4433,6 +4822,10 @@ def main() -> int:
     # -- phase 18: multi-device sweeps -------------------------------------------
     md = multi_device_phase(mp, dev, card)
 
+    # -- phase 19: the LM zoo over torch.distributed -------------------------------
+    dist_launches, _ = distributed_phase(fa, dev, card)
+    dist_train = dist_launches["train"]
+
     kernels = [{
         "name": "minplus_cuda",
         "route": "cuda",
@@ -4484,6 +4877,9 @@ def main() -> int:
         "encoder_launches_by_part": {**{k: v for k, v in enc_by_use.items() if "dq" not in k and "dkv" not in k},
                                      f"{PALI_ARCH}: all": 0},
         "hubert_d80": {k: v for k, v in hubert_d80.items() if k.startswith("fwd")},
+        "distributed_launches": dist_train[0] + dist_launches["moe_prefill"],
+        "distributed_launches_by_part": {"gemma2-2b train": dist_train[0], f"{MOE_ARCH} prefill":
+                                         dist_launches["moe_prefill"]},
         "max_abs_err": flash_err_max,
         **ft,
     }, {
@@ -4497,6 +4893,7 @@ def main() -> int:
         "zamba2_d80": d80[f"dq_S{ZAMBA_TRAIN_S}"],
         "encoder_launches_by_part": {k: v for k, v in enc_by_use.items() if k.endswith("train dq")},
         "hubert_d80": hubert_d80[f"dq_S{HUBERT_TRAIN[1]}"],
+        "distributed_launches": dist_train[1],
         "max_abs_err": dq_err,
         **dq_t,
     }, {
@@ -4510,6 +4907,7 @@ def main() -> int:
         "zamba2_d80": d80[f"dkv_S{ZAMBA_TRAIN_S}"],
         "encoder_launches_by_part": {k: v for k, v in enc_by_use.items() if k.endswith("train dkv")},
         "hubert_d80": hubert_d80[f"dkv_S{HUBERT_TRAIN[1]}"],
+        "distributed_launches": dist_train[2],
         "max_abs_err": dkv_err,
         **dkv_t,
     }]

@@ -1,7 +1,21 @@
-"""Launchers of the port: step builders (``steps.py``), the FL training
+"""Launchers of the port: the mesh context and sharding rules
+(``sharding.py``, ``mesh.py``), step builders (``steps.py``), the FL training
 launcher (``train.py``, ``python -m repro_torch.launch.train``) and the
-serving launcher (``serve.py``, ``python -m repro_torch.launch.serve``)."""
+serving launcher (``serve.py``, ``python -m repro_torch.launch.serve``).
 
-from .steps import build_prefill_step, build_serve_step, build_train_step, value_and_grad
+The step builders load on first use: the models import ``sharding`` from
+this package, and ``steps`` imports the models."""
 
-__all__ = ["build_prefill_step", "build_serve_step", "build_train_step", "value_and_grad"]
+from .sharding import current_mesh, mesh_context, param_pspecs, set_mesh, shard
+
+_STEPS = ("build_prefill_step", "build_serve_step", "build_train_step", "value_and_grad")
+
+__all__ = ["set_mesh", "current_mesh", "mesh_context", "shard", "param_pspecs", *_STEPS]
+
+
+def __getattr__(name):
+    if name in _STEPS:
+        from . import steps
+
+        return getattr(steps, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

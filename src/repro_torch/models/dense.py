@@ -9,8 +9,9 @@ Parameters are a dict ``{"emb", "layers", "ln_f"[, "lm_head"]}`` whose
 (:func:`repro_torch.models.convert.params_from_jax`). The stack is a Python
 loop over groups of ``period`` layers with ``kind = pattern[sub]``; under
 ``cfg.remat == "full"`` each group is checkpointed, as the reference
-checkpoints its scan body. The reference's ``shard`` calls are the identity
-on one device and are dropped.
+checkpoints its scan body. The reference's ``shard`` calls stand at the
+same points (:func:`repro_torch.launch.sharding.shard`): the identity
+without a mesh, a DTensor redistribution under one.
 
 The decode cache is a pair ``(k, v)`` of tensors ``(L, B, S_max, Hkv, hd)``
 with one leading layer axis (the reference's ``(n_groups, period)`` axes
@@ -28,10 +29,13 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..core.torch_dp import resolve_device
+from ..launch.sharding import axis_size, like, shard, whole_groups
 from .layers import apply_rope, attention, gelu, make_rope, mlp_act, mlp_gated, rms_norm, softcap, squared_relu
 
 __all__ = [
@@ -134,6 +138,7 @@ def init_dense(cfg: ModelConfig, gen: torch.Generator):
 
 
 def _mlp(cfg: ModelConfig, p, x):
+    x = shard(x, "batch", None, None)
     if cfg.mlp_kind == "gated_silu":
         return mlp_gated(p, x, F.silu)
     if cfg.mlp_kind == "gated_gelu":
@@ -145,7 +150,11 @@ def _mlp(cfg: ModelConfig, p, x):
 
 def _proj(x, w):
     """``einsum("bsd,dhk->bshk", x, w)`` as one matrix product."""
-    return (x @ w.reshape(w.shape[0], -1)).reshape(*x.shape[:-1], *w.shape[1:])
+    w2 = w.reshape(w.shape[0], -1)
+    if isinstance(w2, DTensor):  # heads split evenly, or replicated
+        w2 = whole_groups(w2, 1, w.shape[1])
+        return whole_groups(x @ w2, -1, w.shape[1]).reshape(*x.shape[:-1], *w.shape[1:])
+    return (x @ w2).reshape(*x.shape[:-1], *w.shape[1:])
 
 
 def _out_proj(out, wo):
@@ -168,8 +177,26 @@ def write_cache(cache: torch.Tensor, x: torch.Tensor, write_pos: torch.Tensor) -
     start is clamped to ``[0, S_max - Sq]``, as ``dynamic_update_slice``
     clamps it."""
     Sq, S_max = x.shape[1], cache.shape[1]
-    idx = write_pos.clamp(0, S_max - Sq) + torch.arange(Sq, device=cache.device)
+    idx = write_pos.clamp(0, S_max - Sq) + like(write_pos, torch.arange(Sq, device=cache.device))
+    if isinstance(cache, DTensor):
+        x = x.to(cache.dtype).redistribute(cache.device_mesh, cache.placements)
+        return _on_cache_shards(lambda c, i, xl: c.index_copy_(1, i, xl), cache, idx, x)
     return cache.index_copy_(1, idx, x.to(cache.dtype))
+
+
+def _on_cache_shards(op, cache, idx, *xs):
+    """``op(cache, idx, *xs)`` on each rank's local shards (``local_map``),
+    for the cache ops along the sequence dim (1) that have no sharding rule
+    in every torch version (``index_copy_``, ``index_select``): ``xs`` in
+    the cache's placements, ``idx`` replicated; the cache is not
+    redistributed, so an in-place op writes its local storage. A cache
+    split on its sequence dim raises ``NotImplementedError``."""
+    mesh, pl = cache.device_mesh, list(cache.placements)
+    if Shard(1) in pl:
+        raise NotImplementedError("a decode cache split on its sequence dim (cache_pspecs' long-context case)")
+    rep = [Replicate()] * mesh.ndim
+    return local_map(op, out_placements=pl, in_placements=(pl, rep) + (pl,) * len(xs), device_mesh=mesh)(
+        cache, idx, *xs)
 
 
 def layer_apply(cfg: ModelConfig, p, h, kind: str, rope_sincos, *, q_pos, kv_pos, cache_kv=None, write_pos=None,
@@ -188,10 +215,11 @@ def layer_apply(cfg: ModelConfig, p, h, kind: str, rope_sincos, *, q_pos, kv_pos
     :func:`repro_torch.models.layers.attention`, which takes the plain route
     under it, as the reference does."""
     sin, cos = rope_sincos
+    kv_heads_spec = "tensor" if cfg.num_kv_heads % max(axis_size("tensor"), 1) == 0 else None
     a_in = rms_norm(h, p["ln1"])
-    q = apply_rope(_proj(a_in, p["attn"]["wq"]), sin, cos)
-    k = apply_rope(_proj(a_in, p["attn"]["wk"]), sin, cos)
-    v = _proj(a_in, p["attn"]["wv"])
+    q = shard(apply_rope(_proj(a_in, p["attn"]["wq"]), sin, cos), "batch", None, "tensor", None)
+    k = shard(apply_rope(_proj(a_in, p["attn"]["wk"]), sin, cos), "batch", None, kv_heads_spec, None)
+    v = shard(_proj(a_in, p["attn"]["wv"]), "batch", None, kv_heads_spec, None)
 
     if cache_kv is not None and write_pos is not None:
         k_cache, v_cache = (write_cache(c, x, write_pos) for c, x in zip(cache_kv, (k, v)))
@@ -200,8 +228,12 @@ def layer_apply(cfg: ModelConfig, p, h, kind: str, rope_sincos, *, q_pos, kv_pos
         S_max = k_cache.shape[1]
         if kind == "sliding" and q.shape[1] == 1 and S_max > 2 * cfg.window:
             start = (write_pos - cfg.window + 1).clamp(0, S_max - cfg.window)
-            kv_pos_use = start + torch.arange(cfg.window, device=h.device)
-            k_use, v_use = k_cache.index_select(1, kv_pos_use), v_cache.index_select(1, kv_pos_use)
+            kv_pos_use = start + like(start, torch.arange(cfg.window, device=h.device))
+            if isinstance(k_cache, DTensor):
+                k_use, v_use = (_on_cache_shards(lambda c, i: c.index_select(1, i), c, kv_pos_use)
+                                for c in (k_cache, v_cache))
+            else:
+                k_use, v_use = k_cache.index_select(1, kv_pos_use), v_cache.index_select(1, kv_pos_use)
     else:
         k_use, v_use, kv_pos_use = k, v, kv_pos
         new_kv = (k, v)
@@ -211,6 +243,8 @@ def layer_apply(cfg: ModelConfig, p, h, kind: str, rope_sincos, *, q_pos, kv_pos
         q_pos=q_pos, kv_pos=kv_pos_use, kind=kind, window=cfg.window, prefix_len=prefix_len,
         attn_softcap=cfg.attn_softcap, block_q=cfg.attn_block_q, impl=cfg.attn_impl,
     )
+    # head-parallel -> sequence-parallel handoff before the output projection
+    out = shard(out, "batch", "act_seq", None, None)
     attn_out = _out_proj(out, p["attn"]["wo"])
     if "ln1b" in p:
         attn_out = rms_norm(attn_out, p["ln1b"])
@@ -219,7 +253,7 @@ def layer_apply(cfg: ModelConfig, p, h, kind: str, rope_sincos, *, q_pos, kv_pos
     mlp_out = _mlp(cfg, p["mlp"], rms_norm(h, p["ln2"]))
     if "ln2b" in p:
         mlp_out = rms_norm(mlp_out, p["ln2b"])
-    return h + mlp_out, new_kv
+    return shard(h + mlp_out, "batch", "act_seq", None), new_kv
 
 
 def _maybe_remat(cfg: ModelConfig, fn):
@@ -248,7 +282,7 @@ def stack_forward(cfg: ModelConfig, layers, h, *, prefix_len=None, collect_cache
     out, else ``None``."""
     S = h.shape[1]
     pattern = attn_pattern(cfg)
-    pos = torch.arange(S, device=h.device)
+    pos = like(h, torch.arange(S, device=h.device))
     rope = make_rope(pos, cfg.hd, cfg.rope_base)
 
     def group_body(h, group):
@@ -274,9 +308,9 @@ def stack_decode(cfg: ModelConfig, layers, h, cache, pos):
     which it updates in place. Returns ``(h, cache)``."""
     pattern = attn_pattern(cfg)
     k_all, v_all = cache
-    pos = decode_position(pos, h.device)
+    pos = like(h, decode_position(pos, h.device))
     q_pos = pos[None]
-    kv_pos = torch.arange(k_all.shape[2], device=h.device)
+    kv_pos = like(h, torch.arange(k_all.shape[2], device=h.device))
     rope = make_rope(q_pos, cfg.hd, cfg.rope_base)
     for i, p in enumerate(layers):
         h, _ = layer_apply(cfg, p, h, pattern[i % len(pattern)], rope, q_pos=q_pos, kv_pos=kv_pos,
@@ -289,11 +323,27 @@ def stack_decode(cfg: ModelConfig, layers, h, cache, pos):
 # ---------------------------------------------------------------------------
 
 
+def _rows(table, ids):
+    """``table[ids]``; on DTensors under ``local_map``: the table
+    replicated, each rank looking up its own ids (placed as ``ids``), the
+    table's gradient summed over the mesh dims that split the ids. Only
+    redistributions and a local lookup, so no sharding rule of the index
+    ops is needed."""
+    if not isinstance(table, DTensor):
+        return table[ids]
+    mesh = table.device_mesh
+    ids = ids.redistribute(mesh, [Replicate() if p.is_partial() else p for p in ids.placements])
+    ip = list(ids.placements)
+    grad = [Partial() if isinstance(p, Shard) else Replicate() for p in ip]
+    return local_map(lambda t, i: t[i], out_placements=ip, in_placements=([Replicate()] * mesh.ndim, ip),
+                     in_grad_placements=(grad, ip), device_mesh=mesh, redistribute_inputs=True)(table, ids)
+
+
 def _embed(cfg: ModelConfig, params, tokens):
-    h = params["emb"][tokens].to(cfg.cdtype())
+    h = _rows(params["emb"], tokens).to(cfg.cdtype())
     if cfg.scale_embedding:
         h = h * torch.tensor(cfg.d_model ** 0.5, dtype=h.dtype, device=h.device)
-    return h
+    return shard(h, "batch", "act_seq", None)
 
 
 def _logits(cfg: ModelConfig, params, h):
@@ -304,7 +354,7 @@ def _logits(cfg: ModelConfig, params, h):
     for the backward pass and an in-place multiply would overwrite it."""
     h = rms_norm(h, params["ln_f"])
     head = params["emb"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = h @ head.to(h.dtype)
+    logits = shard(h @ head.to(h.dtype), "batch", None, "tensor")  # before the in-place softcap
     if not cfg.logit_softcap:
         return logits.float()
     if torch.is_grad_enabled():
@@ -364,13 +414,27 @@ class _NLL(torch.autograd.Function):
         return grad.scatter_add_(-1, targets[..., None], -g[..., None]), None
 
 
+def _nll_by_rows(x, targets):
+    """:class:`_NLL` of the DTensor logits ``x (B, S, V)`` under
+    ``local_map``, with the mesh dims that shard the vocab moved to the
+    sequence."""
+    mesh = x.device_mesh
+    rows = [Shard(1) if p == Shard(2) else p for p in x.placements]
+    x, targets = x.redistribute(mesh, rows), targets.redistribute(mesh, rows)
+    return local_map(_NLL.apply, out_placements=rows, in_placements=(rows, rows), device_mesh=mesh)(x, targets)
+
+
 def cross_entropy(logits, targets, valid=None):
     """Mean next-token negative log-likelihood in float32, over all
     positions or, with ``valid``, over the valid ones. The reference takes
     ``(x - m)[target]`` as a one-hot product so that a vocab-sharded ``x``
     stays sharded; on one device a gather gives the same value (the
-    product's sum has one nonzero term)."""
-    nll = _NLL.apply(logits.float(), targets)
+    product's sum has one nonzero term). On DTensors the vocab-sharded
+    logits are redistributed so that each rank holds whole rows of its
+    positions (vocab shards become sequence shards, one all-to-all), and
+    the rows' terms are formed locally (:func:`_nll_by_rows`)."""
+    x = logits.float()
+    nll = _nll_by_rows(x, targets) if isinstance(x, DTensor) else _NLL.apply(x, targets)
     if valid is None:
         return nll.mean()
     w = valid.float()

@@ -13,8 +13,10 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from ..kernels.flash_attention import flash_attention
+from ..launch.sharding import like
 
 __all__ = [
     "apply_rope",
@@ -50,7 +52,7 @@ def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
 def make_rope(positions: torch.Tensor, head_dim: int, base: float = 10000.0):
     """Returns (sin, cos) of shape ``positions.shape + (head_dim // 2,)``."""
     half = head_dim // 2
-    freqs = base ** (-torch.arange(0, half, dtype=torch.float32, device=positions.device) / half)
+    freqs = like(positions, base ** (-torch.arange(0, half, dtype=torch.float32, device=positions.device) / half))
     angles = positions.float()[..., None] * freqs
     return torch.sin(angles), torch.cos(angles)
 
@@ -75,7 +77,7 @@ def _build_mask(q_pos, kv_pos, kind: str, window: int = 0, prefix_len=None):
     qp = q_pos[:, None]
     kp = kv_pos[None, :]
     if kind == "bidirectional":
-        return torch.ones((q_pos.shape[0], kv_pos.shape[0]), dtype=torch.bool, device=q_pos.device)
+        return like(q_pos, torch.ones((q_pos.shape[0], kv_pos.shape[0]), dtype=torch.bool, device=q_pos.device))
     if kind == "causal":
         return kp <= qp
     if kind == "sliding":
@@ -103,6 +105,58 @@ def _flash_route(q, k, v, kind, prefix_len, kv_valid) -> bool:
         and q.shape[1] == k.shape[1]
         and q.shape[-1] == v.shape[-1]
     )
+
+
+def _flash_bshd(q, k, v, kind, window, softcap, scale):
+    """:func:`flash_attention` on ``(B, S, H, D)`` layouts."""
+    o, _ = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), kind, window, softcap, scale)
+    return o.transpose(1, 2)
+
+
+def _attention_local_map(q, k, v, kv_valid, masks, local_attention):
+    """Attention on DTensors: each rank runs ``local_attention(q, k, v,
+    kv_valid, *masks)`` (the one-device :func:`attention`, either route) on
+    its local shards under ``local_map``, as the reference's attention runs
+    per shard under GSPMD. q may be sharded on batch (dim 0) and heads
+    (dim 2), as the ``shard`` calls before it place it; k and v are
+    redistributed to q's placements, except on a mesh dim where q's heads
+    are sharded and the KV heads do not divide it (GQA with replicated KV).
+    There local head ``h`` is global head ``off + h``, whose KV head is
+    ``(off + h) // G``, so the body gets the KV heads its q heads use, and
+    k's and v's gradients on that mesh dim are partial sums. ``kv_valid``
+    follows q's batch; the mask positions (``masks``) are replicated."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh, H, Hkv = q.device_mesh, q.shape[2], k.shape[2]
+    qp = list(q.placements)
+    if any(p not in (Replicate(), Shard(0), Shard(2)) for p in qp):
+        raise ValueError(f"attention on a mesh: q must be sharded on batch and heads only, got {qp}")
+    kp, kgp, remap = [], [], False
+    for i, p in enumerate(qp):
+        remap_dim = p == Shard(2) and Hkv % mesh.size(i) != 0
+        remap |= remap_dim
+        kp.append(Replicate() if remap_dim else p)
+        kgp.append(Partial() if remap_dim else p)
+    bp = [p if p == Shard(0) else Replicate() for p in qp]
+    (_, _, Hl, _), off = compute_local_shape_and_global_offset(q.shape, mesh, qp)
+    G = H // Hkv
+
+    def body(ql, kl, vl, valid, *mask_args):
+        if remap:
+            if Hl % G == 0 and off[2] % G == 0:  # whole groups: KV heads [off / G, (off + Hl) / G)
+                kl, vl = (x.narrow(2, off[2] // G, Hl // G) for x in (kl, vl))
+            else:  # one KV head for each local q head
+                idx = (off[2] + torch.arange(Hl, device=kl.device)) // G
+                kl, vl = (x.index_select(2, idx) for x in (kl, vl))
+        return local_attention(ql, kl, vl, valid, *mask_args)
+
+    mask_pl = [[Replicate()] * mesh.ndim if isinstance(m, DTensor) else None for m in masks]
+    valid_pl = bp if isinstance(kv_valid, DTensor) else None
+    in_pl = (qp, kp, kp, valid_pl, *mask_pl)
+    return local_map(body, out_placements=qp, in_placements=in_pl, in_grad_placements=(qp, kgp, kgp, *in_pl[3:]),
+                     device_mesh=mesh, redistribute_inputs=True)(q, k, v, kv_valid, *masks)
 
 
 def attention(
@@ -135,13 +189,19 @@ def attention(
     is bounded at ``(B, H, block_q, Sk)`` (exact: each block sees the full
     key row); otherwise one dense einsum/softmax, with the probabilities cast
     to v's dtype before the value product, as the reference does.
+
+    On DTensors either route runs on each rank's local shards
+    (:func:`_attention_local_map`).
     """
+    if isinstance(q, DTensor):
+        def local_attention(ql, kl, vl, valid, qp, kvp, pl):
+            return attention(ql, kl, vl, q_pos=qp, kv_pos=kvp, kind=kind, window=window, prefix_len=pl,
+                             attn_softcap=attn_softcap, kv_valid=valid, scale=scale, block_q=block_q, impl=impl)
+
+        return _attention_local_map(q, k, v, kv_valid, (q_pos, kv_pos, prefix_len), local_attention)
     B, Sq, H, D = q.shape
     if impl == "flash" and _flash_route(q, k, v, kind, prefix_len, kv_valid):
-        o, _ = flash_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), kind, window, attn_softcap, scale
-        )
-        return o.transpose(1, 2)
+        return _flash_bshd(q, k, v, kind, window, attn_softcap, scale)
     if impl not in ("plain", "flash"):
         raise ValueError(f"impl must be 'plain' or 'flash', got {impl!r}")
     if block_q and Sq > block_q:

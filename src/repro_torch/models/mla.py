@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from ..configs.base import ModelConfig
+from ..launch.sharding import like, shard
 from .dense import _out_proj, _proj, dense_init, write_cache
 from .layers import apply_rope, attention, make_rope, rms_norm
 
@@ -64,12 +65,14 @@ def mla_forward(cfg: ModelConfig, p, x, *, q_pos, collect_cache=False):
     k_rope = apply_rope(kr[:, :, None, :], sin, cos)  # (B, S, 1, rd)
     k_nope = _proj(ckv, p["w_uk"])
     v = _proj(ckv, p["w_uv"])
-    q_full = torch.cat([q_nope, q_rope], -1)
-    k_full = torch.cat([k_nope, k_rope.expand(*k_nope.shape[:-1], rd)], -1)
+    q_full = shard(torch.cat([q_nope, q_rope], -1), "batch", None, "tensor", None)
+    k_full = shard(torch.cat([k_nope, k_rope.expand(*k_nope.shape[:-1], rd)], -1), "batch", None, "tensor", None)
     out = attention(
         q_full, k_full, v, q_pos=q_pos, kv_pos=q_pos, kind="causal",
         scale=(nd + rd) ** -0.5, block_q=cfg.attn_block_q, impl=cfg.attn_impl,
     )
+    # head-parallel -> sequence-parallel handoff (see dense.layer_apply)
+    out = shard(out, "batch", "act_seq", None, None)
     return _out_proj(out, p["wo"]), ((ckv, kr) if collect_cache else None)
 
 
@@ -105,7 +108,7 @@ def mla_decode_step(cfg: ModelConfig, p, x, cache, pos):
         torch.einsum("bshr,btr->bhst", q_c.float(), ckv32)
         + torch.einsum("bshk,btk->bhst", q_rope.float(), kr_cache.float())
     ) * scale  # (B, H, 1, S)
-    mask = torch.arange(S, device=x.device)[None, None, None, :] <= pos
+    mask = like(pos, torch.arange(S, device=x.device))[None, None, None, :] <= pos
     w = torch.softmax(logits.masked_fill(~mask, -1e30), dim=-1)
     out_c = torch.einsum("bhst,btr->bshr", w, ckv32)  # (B, 1, H, kr)
     out = torch.einsum("bshr,rhk->bshk", out_c.to(x.dtype), p["w_uv"])  # (B, 1, H, vd)

@@ -82,12 +82,22 @@ def loss_fn(params, cfg: ModelConfig, batch):
     raise ValueError(cfg.family)
 
 
+def _no_autograd(params):
+    """``torch.inference_mode``, or ``torch.no_grad`` on DTensor parameters
+    (a DTensor view made in inference mode of a tensor made outside it
+    fails: it cannot share the version counter)."""
+    from torch.distributed.tensor import DTensor
+
+    leaves = tree_leaves(params)
+    return torch.no_grad() if leaves and isinstance(leaves[0], DTensor) else torch.inference_mode()
+
+
 def prefill_fn(params, cfg: ModelConfig, batch):
     """Forward over the full sequence: ``batch["tokens"] (B, S)`` -> float32
     logits ``(B, S, V)`` (encoder: ``batch["frames"] (B, S, F)``, no mask;
     vlm: logits over the text positions after ``batch["patches"]``), on the
-    device of the parameters. Runs under ``torch.inference_mode``."""
-    with torch.inference_mode():
+    device of the parameters. Runs without autograd (:func:`_no_autograd`)."""
+    with _no_autograd(params):
         if cfg.family == "dense":
             return dense.dense_forward(params, cfg, batch["tokens"])[0]
         if cfg.family == "moe":
@@ -129,9 +139,9 @@ def decode_fn(params, cfg: ModelConfig, cache, tokens, pos):
     """One decode step: ``tokens (B, 1)`` at position ``pos`` (a Python int
     or a 0-d integer tensor; no host sync) -> ``(logits (B, 1, V), cache)``.
     KV caches are updated in place and returned; recurrent states (xLSTM's,
-    Zamba2's conv and SSD states) are returned new. Runs under
-    ``torch.inference_mode``. The encoder has no decode step: ``ValueError``."""
-    with torch.inference_mode():
+    Zamba2's conv and SSD states) are returned new. Runs without autograd
+    (:func:`_no_autograd`). The encoder has no decode step: ``ValueError``."""
+    with _no_autograd(params):
         if cfg.family == "dense":
             return dense.dense_decode_step(params, cfg, cache, tokens, pos)
         if cfg.family == "moe":

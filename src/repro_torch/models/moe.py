@@ -24,6 +24,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..core.torch_dp import resolve_device
+from ..launch.sharding import axis_size, like, shard
 from .dense import (
     _embed,
     _init_layer,
@@ -122,9 +123,10 @@ def _moe_attention(cfg: ModelConfig, p, h, *, q_pos, kv_pos, rope, cache=None, w
             return mla_decode_step(cfg, p["attn_mla"], h, cache, write_pos)
         return mla_forward(cfg, p["attn_mla"], h, q_pos=q_pos, collect_cache=collect)
     sin, cos = rope
-    q = apply_rope(_proj(h, p["attn"]["wq"]), sin, cos)
-    k = apply_rope(_proj(h, p["attn"]["wk"]), sin, cos)
-    v = _proj(h, p["attn"]["wv"])
+    kv_spec = "tensor" if cfg.num_kv_heads % max(axis_size("tensor"), 1) == 0 else None
+    q = shard(apply_rope(_proj(h, p["attn"]["wq"]), sin, cos), "batch", None, "tensor", None)
+    k = shard(apply_rope(_proj(h, p["attn"]["wk"]), sin, cos), "batch", None, kv_spec, None)
+    v = shard(_proj(h, p["attn"]["wv"]), "batch", None, kv_spec, None)
     if decoding:
         kc, vc = (write_cache(c, x, write_pos) for c, x in zip(cache, (k, v)))
         out = attention(q, kc, vc, q_pos=q_pos, kv_pos=kv_pos, kind="causal")
@@ -133,6 +135,8 @@ def _moe_attention(cfg: ModelConfig, p, h, *, q_pos, kv_pos, rope, cache=None, w
         out = attention(q, k, v, q_pos=q_pos, kv_pos=kv_pos, kind="causal", block_q=cfg.attn_block_q,
                         impl=cfg.attn_impl)
         new_cache = (k, v) if collect else None
+    # head-parallel -> sequence-parallel handoff (see dense.layer_apply)
+    out = shard(out, "batch", "act_seq", None, None)
     return _out_proj(out, p["attn"]["wo"]), new_cache
 
 
@@ -143,7 +147,7 @@ def moe_layer_apply(cfg: ModelConfig, p, h, *, q_pos, kv_pos, rope, cache=None, 
     )
     h = h + attn_out
     y, aux = moe_ffn(cfg, p["moe"], rms_norm(h, p["ln2"]))
-    return h + y, new_cache, aux
+    return shard(h + y, "batch", "act_seq", None), new_cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -162,7 +166,7 @@ def moe_forward(params, cfg: ModelConfig, tokens, *, collect_cache=False):
     collects them) stacked on a leading layer axis under ``collect_cache``,
     else ``None``."""
     h = _embed(cfg, params, tokens)
-    pos = torch.arange(h.shape[1], device=h.device)
+    pos = like(h, torch.arange(h.shape[1], device=h.device))
     rope = make_rope(pos, cfg.hd, cfg.rope_base)
     caches = {}
 
@@ -207,7 +211,7 @@ def moe_loss(params, cfg: ModelConfig, batch):
         nxt_emb = _embed(cfg, params, tokens[:, 1:-1])
         h_in = rms_norm(torch.cat([rms_norm(h, params["ln_f"]), nxt_emb], dim=-1), params["mtp"]["ln_in"])
         h2 = h_in @ params["mtp"]["proj"]
-        pos = torch.arange(h2.shape[1], device=h2.device)
+        pos = like(h2, torch.arange(h2.shape[1], device=h2.device))
         rope = make_rope(pos, cfg.hd, cfg.rope_base)
         h2, _ = layer_apply(cfg, params["mtp"]["layer"], h2, "causal", rope, q_pos=pos, kv_pos=pos)
         loss = loss + cfg.mtp_weight * cross_entropy(_logits(cfg, params, h2), tokens[:, 2:])
@@ -234,9 +238,9 @@ def moe_decode_step(params, cfg: ModelConfig, cache, tokens, pos):
     """tokens ``(B, 1)``; ``pos`` a Python int or 0-d integer tensor.
     Returns ``(logits (B, 1, V), cache)``, the cache updated in place."""
     h = _embed(cfg, params, tokens)
-    pos = decode_position(pos, h.device)
+    pos = like(h, decode_position(pos, h.device))
     q_pos = pos[None]
-    kv_pos = torch.arange(cache["moe"][0].shape[2], device=h.device)
+    kv_pos = like(h, torch.arange(cache["moe"][0].shape[2], device=h.device))
     rope = make_rope(q_pos, cfg.hd, cfg.rope_base)
 
     if cfg.dense_prefix_layers:

@@ -5,11 +5,13 @@
                  reference's oracle; O(T·E) work, exact when nothing drops).
   * ``einsum`` — Mesh-TF-style one-hot capacity dispatch: exact up to
                  capacity drops; for small token counts (decode).
-  * ``a2a``    — the reference's expert parallelism over a mesh. Without a
-                 mesh the reference runs ``dense``, and so does the port
-                 without a ``torch.distributed`` process group; with one it
-                 raises (the exchange over ``torch.distributed`` is ROADMAP.md
-                 Queue 1).
+  * ``a2a``    — expert parallelism over the active mesh: tokens sharded
+                 over all mesh axes, experts over the ``expert`` axes; two
+                 sorts, an ``all_to_all`` exchange each way over the expert
+                 axes' process group, per-expert padded products. The body
+                 runs on each rank's shards under ``local_map`` (the
+                 reference's ``shard_map``). Without an active mesh it runs
+                 ``dense``, as the reference does.
 
 All share the router: softmax, top-k, renormalise, and the switch-style
 load-balance auxiliary loss. The top k come from a stable descending sort,
@@ -21,12 +23,14 @@ which tokens the capacity drops.
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..launch.sharding import current_mesh, rules
 
 __all__ = ["einsum_capacity", "moe_ffn", "route"]
 
@@ -85,8 +89,121 @@ def _moe_einsum(cfg: ModelConfig, x2d, experts, gate_w, gate_idx, capacity: int)
     return torch.einsum("tec,ecd->td", combine, ys.float()).to(x2d.dtype)
 
 
-def _distributed() -> bool:
-    return torch.distributed.is_available() and torch.distributed.is_initialized()
+# ---------------------------------------------------------------------------
+# all-to-all expert parallelism (local_map)
+# ---------------------------------------------------------------------------
+
+
+def _sort_group(ids, num_groups, capacity, *payloads):
+    """Groups rows by ``ids`` into ``(num_groups, capacity, ...)`` padded
+    buffers (a stable sort, so rows keep their order within a group).
+
+    Returns ``(bufs, meta)`` where ``meta`` lets :func:`_ungroup` scatter
+    results back to the original row order. Rows beyond capacity are
+    dropped: they are written to one extra dump row, which is cut off."""
+    N = ids.shape[0]
+    order = torch.argsort(ids, stable=True)
+    sorted_ids = ids[order]
+    start = torch.searchsorted(sorted_ids, torch.arange(num_groups, device=ids.device), side="left")
+    pos_in_group = torch.arange(N, device=ids.device) - start[sorted_ids]
+    valid = pos_in_group < capacity
+    dest = torch.where(valid, sorted_ids * capacity + pos_in_group, num_groups * capacity)
+    bufs = []
+    for pl in payloads:
+        flat = pl.new_zeros((num_groups * capacity + 1,) + pl.shape[1:]).index_put((dest,), pl[order])
+        bufs.append(flat[:-1].reshape((num_groups, capacity) + pl.shape[1:]))
+    return bufs, (order, dest, valid)
+
+
+def _ungroup(buf, meta, N):
+    """Inverse of :func:`_sort_group` for one payload: ``(G, C, ...)`` ->
+    ``(N, ...)``, dropped rows zero."""
+    order, dest, valid = meta
+    flat = buf.reshape((-1,) + buf.shape[2:])
+    gathered = torch.where(
+        valid.reshape((-1,) + (1,) * (flat.ndim - 1)), flat[dest.clamp_max(flat.shape[0] - 1)], 0
+    )
+    return gathered[torch.argsort(order)]
+
+
+def _a2a_local(x, gate_w, gate_idx, w_gate, w_in, w_out, *, cfg, group, n_peers, e_local, cap_send, cap_expert):
+    """The per-rank body under ``local_map``: x ``(Tl, d)``; gate_w/idx
+    ``(Tl, k)``; the expert weights with a leading ``e_local`` axis. Peer
+    ``p`` of the exchange is rank ``p`` of ``group``, which holds experts
+    ``[p * e_local, (p + 1) * e_local)``."""
+    from torch.distributed import all_to_all_single
+    from torch.distributed.nn.functional import all_to_all_single as all_to_all_diff
+
+    Tl, d = x.shape
+    k = cfg.top_k
+    flat_ids = gate_idx.reshape(-1)  # (Tl*k,) global expert ids
+    flat_x = x.repeat_interleave(k, dim=0)  # (Tl*k, d) token copies
+    dest_peer = flat_ids // e_local
+    local_eid = flat_ids % e_local
+
+    (send_x, send_eid), meta_send = _sort_group(dest_peer, n_peers, cap_send, flat_x, local_eid)
+    # exchange: recv[p] = what peer p sent to me (one (cap_send, d) block per
+    # sender); invalid slots carry eid 0 and x == 0, harmless after the
+    # expert MLP and the combine
+    recv_x = all_to_all_diff(torch.empty_like(send_x), send_x.contiguous(), group=group)
+    recv_eid = torch.empty_like(send_eid)
+    all_to_all_single(recv_eid, send_eid.contiguous(), group=group)
+    flat_recv_x = recv_x.reshape(-1, d)
+    flat_recv_eid = recv_eid.reshape(-1)
+
+    (grp_x,), meta_grp = _sort_group(flat_recv_eid, e_local, cap_expert, flat_recv_x)
+    grp_y = _expert_mlp({"w_gate": w_gate, "w_in": w_in, "w_out": w_out}, grp_x)  # (e_local, cap_expert, d)
+    flat_y = _ungroup(grp_y, meta_grp, flat_recv_eid.shape[0])
+    back = flat_y.reshape(n_peers, cap_send, d).contiguous()
+    ret = all_to_all_diff(torch.empty_like(back), back, group=group)
+    flat_ret = _ungroup(ret, meta_send, flat_ids.shape[0])  # (Tl*k, d)
+    y = (flat_ret.reshape(Tl, k, d).float() * gate_w[..., None]).sum(1)
+    return y.to(x.dtype)
+
+
+def _ep_group(mesh, ep_axes):
+    """The process group over the expert axis. The ``expert`` rule names
+    one mesh axis in every configuration; two or more raise."""
+    if len(ep_axes) != 1:
+        raise NotImplementedError(f"moe_impl='a2a' over the expert axes {ep_axes}: one axis only")
+    return mesh.get_group(ep_axes[0])
+
+
+def _moe_a2a(cfg: ModelConfig, x2d, experts, gate_w, gate_idx):
+    """The reference's ``_moe_a2a`` on DTensors: tokens ``Shard(0)`` over
+    every mesh axis (data major), experts ``Shard(0)`` over the ``expert``
+    rule's axes; ``y`` comes back in ``x2d``'s placements (a partial sum
+    there replicated)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    if not isinstance(x2d, DTensor):
+        raise TypeError("moe_impl='a2a' under an active mesh needs DTensor activations")
+    mesh = current_mesh()
+    names = tuple(mesh.mesh_dim_names)
+    ep_axes = rules()["expert"]
+    ep_axes = (ep_axes,) if isinstance(ep_axes, str) else tuple(ep_axes)
+    n_peers = 1
+    for a in ep_axes:
+        n_peers *= int(mesh.size(names.index(a)))
+    e_local = cfg.num_experts // n_peers
+    T = x2d.shape[0]
+    n_tok_shards = mesh.size()
+    Tl = T // n_tok_shards
+    cap_send = max(8, int(-(-Tl * cfg.top_k * cfg.capacity_factor // n_peers) // 8 * 8 + 8))
+    cap_expert = max(8, int(-(-n_peers * cap_send * cfg.capacity_factor // e_local) // 8 * 8 + 8))
+
+    tok = [Shard(0)] * len(names)
+    exp = [Shard(0) if a in ep_axes else Replicate() for a in names]
+    exp_grad = [Shard(0) if a in ep_axes else Partial() for a in names]  # summed over the token shards
+    ws = [experts[n] for n in ("w_gate", "w_in", "w_out")]
+    args = [t.redistribute(mesh, tok) for t in (x2d, gate_w, gate_idx)]
+    args += [w.redistribute(mesh, exp) for w in ws]
+    body = functools.partial(_a2a_local, cfg=cfg, group=_ep_group(mesh, ep_axes), n_peers=n_peers,
+                             e_local=e_local, cap_send=cap_send, cap_expert=cap_expert)
+    y = local_map(body, out_placements=tok, in_placements=(tok, tok, tok, exp, exp, exp),
+                  in_grad_placements=(tok, tok, tok, exp_grad, exp_grad, exp_grad), device_mesh=mesh)(*args)
+    return y.redistribute(mesh, [Replicate() if p.is_partial() else p for p in x2d.placements])
 
 
 def moe_ffn(cfg: ModelConfig, p, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -97,17 +214,14 @@ def moe_ffn(cfg: ModelConfig, p, x: torch.Tensor) -> Tuple[torch.Tensor, torch.T
     gate_w, gate_idx, aux = route(cfg, x2d, p["router"])
 
     impl = cfg.moe_impl
-    if impl == "a2a":
-        if _distributed():
-            raise NotImplementedError(
-                "moe_impl='a2a' over torch.distributed is not ported yet (ROADMAP.md, Queue 1); without a "
-                "process group it runs the dense dispatch, as the reference does without a mesh"
-            )
+    if impl == "a2a" and current_mesh() is None:
         impl = "dense"
     if impl == "dense":
         y = _moe_dense(cfg, x2d, p["experts"], gate_w, gate_idx)
     elif impl == "einsum":
         y = _moe_einsum(cfg, x2d, p["experts"], gate_w, gate_idx, einsum_capacity(cfg, B * S))
+    elif impl == "a2a":
+        y = _moe_a2a(cfg, x2d, p["experts"], gate_w, gate_idx)
     else:
         raise ValueError(cfg.moe_impl)
 

@@ -124,7 +124,7 @@ def test_einsum_dispatch_drops_like_jax():
 def test_moe_ffn_with_shared_expert_matches_jax(impl):
     """deepseek-v3's MoE FFN (shared expert included) in each dispatch; the
     reference runs ``a2a`` without a mesh as ``dense``, and so does the
-    port without a process group."""
+    port."""
     cfg_j, cfg, p, x = _moe_inputs(T=24)
     x3 = x.reshape(2, 12, -1)
     assert "shared" in p

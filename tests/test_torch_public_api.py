@@ -1,8 +1,9 @@
 """The port's public surface against the reference's frozen one
 (``tests/test_public_api.py``): every facade name resolves in
 ``repro_torch`` and is defined in the port, ``repro_torch.__all__`` stays
-sorted, ``repro_torch.fl`` exports every name of the reference's ``fl``, and
-importing the port emits no DeprecationWarning."""
+sorted, ``repro_torch.fl`` and ``repro_torch.launch`` export every name of
+the reference's ``fl`` and ``launch``, and importing the port emits no
+DeprecationWarning."""
 
 from __future__ import annotations
 
@@ -15,6 +16,8 @@ from test_public_api import FACADE, FL_ALL
 
 import repro_torch
 import repro_torch.fl
+import repro_torch.launch
+from repro import launch as ref_launch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -37,6 +40,14 @@ def test_fl_exports_every_reference_name():
     assert FL_ALL <= set(repro_torch.fl.__all__)
     for name in repro_torch.fl.__all__:
         assert getattr(repro_torch.fl, name).__module__.startswith("repro_torch.")
+
+
+def test_launch_exports_every_reference_name():
+    """The mesh context and sharding names (``set_mesh``, ``shard`` ...)
+    beside the step builders, which load on first use."""
+    assert set(ref_launch.__all__) <= set(repro_torch.launch.__all__)
+    for name in repro_torch.launch.__all__:
+        assert getattr(repro_torch.launch, name).__module__.startswith("repro_torch.launch.")
 
 
 def test_import_emits_no_deprecation_warning():
