@@ -295,7 +295,22 @@ Phases, in order; any failure ends the run with a non-zero exit code:
                 (c) gemma2-2b FULL serve at phase 15 (b)'s
                 shape: the cache placed by ``cache_pspecs``, 16 greedy
                 tokens identical to the unsharded serve step's, the cache's
-                local storage written in place, ms a token of both in turns.
+                local storage written in place, ms a token of both in turns;
+                (d)-(h) the rest of the zoo, each sharded against unsharded
+                from the same parameters, equal exactly at world size 1
+                (every leaf placed by the spec functions), then in turns
+                with busy share, launches and peak memory: (d) xlstm-1.3b
+                cut to 8 layers, prefill and train, one ``local_map`` per
+                sLSTM scan; (e) zamba2-2.7b cut to 12 layers, prefill,
+                train and 16 serve tokens after a collect-state prefill;
+                (f) hubert-xlarge encode and train, paligemma-3b prefill,
+                train and 16 serve tokens, granite-20b cut to 4 layers
+                (one KV head) prefill; (g) olmoe-1b-7b cut to 4 layers, a2a
+                train steps against dense, and a float32 cut of 2 held to
+                the reference's limits; (h) gemma2-2b FULL's train step
+                under Adafactor (DTensor state), deepseek-v3 at 2 layers,
+                a prefill with a2a over the flattened ("data", "model")
+                group held by its float32 distance as (b)'s.
 
 The line before the last is a JSON object of every kernel with its launch
 count and times; the last line is ``{"ok": true, "device": {...}}``.
@@ -587,6 +602,56 @@ DIST_PREFILL_F32_RATIO = 1.05
 # tokens. Phase 6 holds the kernel there in both dtypes; (b) fails on a
 # launch at a shape not listed.
 DIST_FLASH_CASES = ((DIST_MOE[0], 16, 16, DIST_MOE[1], 128, "causal", 0, 0.0),)
+# Phase 19's backward launches: (g)'s olmoe-1b-7b train steps at DIST_MOE's
+# tokens, in float32 and bfloat16, and (h)'s gemma2-2b train step at phase
+# 10's shape (bfloat16). Phase 9 holds each shape against the plain
+# backward (the first in both dtypes, the second among its training
+# shapes); a part fails on a backward launch at a shape not listed.
+DIST_FLASH_BWD_CASES = DIST_FLASH_CASES
+DIST_TRAIN_FLASH_BWD_CASES = ((B_TRAIN, 8, 4, S_TRAIN, 256, "causal", 0, 50.0),
+                              (B_TRAIN, 8, 4, S_TRAIN, 256, "sliding", 4096, 50.0))
+# Phase 19 (d)-(h): the rest of the zoo on the same mesh, bfloat16 at full
+# width, each run sharded (DTensors placed by param_pspecs, batch_pspecs,
+# cache_pspecs and Adafactor's opt_state_pspecs) and unsharded from the
+# same parameters: at world size 1 every redistribution is a no-op, so the
+# two must agree exactly (the maximum difference is printed), then both are
+# timed in turns (unsharded, sharded, sharded, unsharded) x DIST_ZOO_ROUNDS
+# and each profiled once. Depth is cut where time or
+# memory forces it: (d) xlstm-1.3b at DIST_XLSTM_LAYERS (one group of 7
+# mLSTM blocks and the sLSTM block), prefill DIST_XLSTM_PREFILL, train
+# DIST_XLSTM_TRAIN; (e) zamba2-2.7b at DIST_ZAMBA_LAYERS (two shared-block
+# applications), prefill of ZAMBA_S, train at ZAMBA_TRAIN_S, DIST_SERVE_G
+# serve tokens after a collect-state prefill of ZAMBA_S - SSM_CHUNK (the
+# flash shapes of phase 16, SSM_FLASH_CASES); (f) hubert-xlarge encode
+# HUBERT_ENCODE and train HUBERT_TRAIN; paligemma-3b prefill PALI_PREFILL,
+# train PALI_TRAIN and DIST_SERVE_G serve tokens after a prefill of its
+# first PALI_PREFILL positions at B = DIST_PALI_SERVE_B; granite-20b at
+# DIST_GRANITE_LAYERS, prefill DENSE_S (one KV head: the singleton-shard
+# repair); (g) olmoe-1b-7b at DIST_OLMOE_LAYERS, DIST_TRAIN_STEPS sharded
+# a2a train steps (AdamW) at DIST_MOE against the unsharded (dense) ones,
+# a timing run whose losses are printed, and a float32 cut of
+# DIST_OLMOE_F32_LAYERS layers whose a2a step is held to the reference's
+# limits against the dense step; every train step's flash launches,
+# forward and backward, are held to phase 6's and phase 9's shapes and
+# against the plain versions on their own inputs; (h) gemma2-2b FULL's
+# train step (phase 10's shape) under Adafactor, every state leaf a DTensor
+# placed by opt_state_pspecs, and deepseek-v3 at MLA_CUT, prefill of MLA_S
+# tokens with moe_impl "a2a" at capacity DIST_MLA_CAPACITY under expert =
+# ("data", "model") (a flattened group of one), held by (b)'s float32 ratio
+# against the dense dispatch (the float32 reference: the same weights
+# widened on the card from a host copy, the dense dispatch). At random
+# init the router sends about half of the 1,024 tokens to one of the 256
+# experts, so a2a's per-expert buffers need that capacity to drop nothing
+# (checked against the largest load). A deepseek-v3 train step at full
+# width fits no card (one MoE layer's experts are 11.3 B parameters); it
+# runs at 8 CPU ranks in tests/test_torch_distribution_zoo.py.
+DIST_XLSTM_LAYERS, DIST_XLSTM_PREFILL, DIST_XLSTM_TRAIN = 8, (1, 2048), (1, 1024)
+DIST_ZAMBA_LAYERS = 12
+DIST_GRANITE_LAYERS = 4
+DIST_PALI_SERVE_B = 1
+DIST_OLMOE_LAYERS, DIST_OLMOE_F32_LAYERS = 4, 2
+DIST_MLA_CAPACITY = 8.0
+DIST_ZOO_ROUNDS = 1  # (d)-(h)'s turns: one round keeps the script within 850 s
 
 
 def check(cond, msg):
@@ -1172,7 +1237,7 @@ def flash_bwd_phase(fa, dev):
                         cases.append((2 if S <= 640 else 1, 8, 8 // G, S, D, kind, window, softcap, dtype))
     for dtype in (torch.float32, torch.bfloat16):
         cases += [(B, 8, 8 // G, S, D, kind, window, softcap, dtype) for B, G, S, D, kind, window, softcap in HEAD_DIM_CASES]
-        cases += [(*case, dtype) for case in SSM_FLASH_BWD_CASES + ENC_FLASH_BWD_CASES]
+        cases += [(*case, dtype) for case in SSM_FLASH_BWD_CASES + ENC_FLASH_BWD_CASES + DIST_FLASH_BWD_CASES]
     worst = {torch.float32: [0.0] * 3, torch.bfloat16: [0.0] * 3}
     for B, H, Hkv, S, D, kind, window, softcap, dtype in cases:
         args = bwd_inputs(fa, gen, B, H, Hkv, S, D, dtype, dev, kind, window, softcap)
@@ -1183,16 +1248,16 @@ def flash_bwd_phase(fa, dev):
                   f"softcap={softcap} {dtype} (max |d dq|, |d dk|, |d dv| {errs})")
         worst[dtype] = [max(a, b) for a, b in zip(worst[dtype], errs)]
     f32, b16 = worst[torch.float32], worst[torch.bfloat16]
-    log(f"[flash bwd] {len(cases)} cases ({padded_head_dims(fa)} among them, and the launch shapes of phases 16 "
-        f"and 17, {len(SSM_FLASH_BWD_CASES) + len(ENC_FLASH_BWD_CASES)}, in both dtypes) within tolerance of the plain "
+    log(f"[flash bwd] {len(cases)} cases ({padded_head_dims(fa)} among them, and the launch shapes of phases 16, "
+        f"17 and 19, {len(SSM_FLASH_BWD_CASES) + len(ENC_FLASH_BWD_CASES) + len(DIST_FLASH_BWD_CASES)}, in both "
+        f"dtypes) within tolerance of the plain "
         f"backward: float32 rtol={GRAD_RTOL} "
         f"atol={GRAD_ATOL} (largest |d dq|, |d dk|, |d dv| {f32[0]:.3e}, {f32[1]:.3e}, {f32[2]:.3e}); bfloat16 I/O "
         f"within rtol={BWD_BF16_RTOL:.3e} of the float32 gradients + {BWD_BF16_ATOL_REL} of their largest entry "
         f"(largest {b16[0]:.3e}, {b16[1]:.3e}, {b16[2]:.3e})")
 
-    shape = (B_TRAIN, 8, 4, S_TRAIN, 256)
     main, worst = {}, [0.0] * 3
-    for kind, window in (("causal", 0), ("sliding", 4096)):
+    for *shape, kind, window, _ in DIST_TRAIN_FLASH_BWD_CASES:
         args = bwd_inputs(fa, gen, *shape, torch.bfloat16, dev, kind, window, 50.0)
         got = fa.flash_attention_bwd(*args, kind, window, 50.0)
         torch.cuda.synchronize()
@@ -3342,14 +3407,16 @@ def serve_phase(fa, dev, card):
 # -- phase 16: the SSM families ---------------------------------------------
 
 
-def run_with_bwd_launches_held(fa, what, part, *args, cases=SSM_FLASH_BWD_CASES, tag="ssm"):
+def run_with_bwd_launches_held(fa, what, part, *args, cases=SSM_FLASH_BWD_CASES, tag="ssm", values=True):
     """Runs ``part(*args)`` while recording, for each distinct signature
     (B, H, Hkv, S, D, kind, window, softcap, dtype) of the flash backward
     calls the models make, the first call's inputs and its ``(dq, dk, dv)``
     (D is the kernel's: a model's D = 80 arrives zero-padded to 128). Then
     holds each against the plain backward on the same inputs
     (:func:`bwd_err`) and checks that the shape is one of ``cases``, which
-    phase 9 held. Returns ``part``'s result."""
+    phase 9 held (the window compared only for a sliding launch: the other
+    kinds ignore it). With ``values=False`` the shape is held and the
+    comparison only printed. Returns ``part``'s result."""
     seen = {}
 
     def record(out, q, k, v, o, lse, do, kind="causal", window=0, softcap=0.0, scale=None):
@@ -3359,17 +3426,23 @@ def run_with_bwd_launches_held(fa, what, part, *args, cases=SSM_FLASH_BWD_CASES,
 
     with spying(fa, "flash_attention_bwd", record):
         result = part(*args)
-    allowed = {(B, H, Hkv, S, fa.kernel_head_dim(D), kind, window, softcap)
-               for B, H, Hkv, S, D, kind, window, softcap in cases}
+
+    def sig(B, H, Hkv, S, D, kind, window, softcap):
+        return B, H, Hkv, S, fa.kernel_head_dim(D), kind, window if kind == "sliding" else 0, softcap
+
+    allowed = {sig(*case) for case in cases}
     for key in list(seen):
         inputs, got, scale = seen.pop(key)
         *shape, dtype = key
-        check(tuple(shape) in allowed, f"{what}: a flash backward launch at {tuple(shape)}, which phase 9 did not hold "
-                                       f"against the plain version")
+        check(sig(*shape) in allowed, f"{what}: a flash backward launch at {tuple(shape)}, which phase 9 did not hold "
+                                      f"against the plain version")
         ok, errs, _ = bwd_err(fa, got, inputs, *shape[5:], scale)
-        check(ok, f"{what}: the flash backward at {key} != plain on its inputs (max |d dq|, |d dk|, |d dv| {errs})")
+        if values:
+            check(ok, f"{what}: the flash backward at {key} != plain on its inputs (max |d dq|, |d dk|, |d dv| "
+                      f"{errs})")
+        verdict = "within" if ok else "NOT within (printed, not held)"
         log(f"[{tag}] {what}: backward launch (B, H, Hkv, S, D, kind, window, softcap) {tuple(shape)} {dtype}, the "
-            f"first of its shape: within phase 9's tolerance of the plain backward on its own inputs (max |d dq| "
+            f"first of its shape: {verdict} phase 9's tolerance of the plain backward on its own inputs (max |d dq| "
             f"{errs[0]:.3e}, |d dk| {errs[1]:.3e}, |d dv| {errs[2]:.3e})")
         del inputs, got
         torch.cuda.empty_cache()
@@ -4435,7 +4508,7 @@ def dist_train_part(fa, dev, card, mesh):
     with shd.mesh_context(mesh, {"act_seq": "model"}):
         pd = shd.distribute_params(tree_map(lambda x: x.to(dev), start))
         od = opt.init(pd)
-        bd = {k: distribute_tensor(v, mesh, shd.spec_to_placements(spec, mesh))
+        bd = {k: distribute_tensor(v, mesh, shd.spec_to_placements(spec, mesh, v.shape))
               for (k, v), spec in zip(batch.items(), batch_pspecs(cfg, batch, B_TRAIN).values())}
         p_pl, o_pl, b_pl = train_shardings(cfg, pd, od, batch, B_TRAIN)
         check(all(list(x.placements) == pl for x, pl in zip(tree_leaves(pd), placement_leaves(p_pl)))
@@ -4564,7 +4637,7 @@ def dist_moe_part(fa, dev, card, mesh):
     def sharded_prefill():
         with shd.mesh_context(mesh):
             pd = shd.distribute_params(params)
-            bd = {k: distribute_tensor(v, mesh, shd.spec_to_placements(spec, mesh))
+            bd = {k: distribute_tensor(v, mesh, shd.spec_to_placements(spec, mesh, v.shape))
                   for (k, v), spec in zip(batch.items(), batch_pspecs(cfg, batch, B).values())}
             n0 = fa.launches
             got = whole(build_prefill_step(cfg.replace(moe_impl="a2a"))(pd, bd))
@@ -4636,11 +4709,11 @@ def dist_serve_part(fa, dev, card, mesh):
     want, cache, moved_u = greedy(params, cache, first)
     with shd.mesh_context(mesh):
         pd = shd.distribute_params(params)
-        cd = tuple(distribute_tensor(c, mesh, shd.spec_to_placements(spec, mesh))
+        cd = tuple(distribute_tensor(c, mesh, shd.spec_to_placements(spec, mesh, c.shape))
                    for c, spec in zip(cache_s, cache_pspecs(cfg, cache_s, B, slots)))
         del cache_s
         ptrs = [c.to_local().data_ptr() for c in cd]
-        td = distribute_tensor(first, mesh, shd.spec_to_placements(batch_pspecs(cfg, first, B), mesh))
+        td = distribute_tensor(first, mesh, shd.spec_to_placements(batch_pspecs(cfg, first, B), mesh, first.shape))
         got, cd, moved_s = greedy(pd, cd, td)
         check([c.to_local().data_ptr() for c in cd] == ptrs and not moved_s,
               "(c) the sharded cache's local storage moved")
@@ -4672,6 +4745,547 @@ def dist_serve_part(fa, dev, card, mesh):
     return dict(ms=med)
 
 
+def local_view(tree):
+    """A tree of DTensors as their local tensors (at world size 1 the whole
+    values, on the same storage); other leaves as they are."""
+    from repro_torch.launch.steps import _map_tensors
+
+    return _map_tensors(lambda x: x.to_local() if hasattr(x, "to_local") else x, tree)
+
+
+def all_placed(tree, pl_tree) -> bool:
+    """Every DTensor leaf of ``tree`` (a tree of ``train_shardings``' shape)
+    in its placements; a plain leaf only as an optimizer's 0-d step."""
+    leaves = tree_leaves_of(tree)
+    return len(leaves) == len(placement_leaves(pl_tree)) and all(
+        list(x.placements) == pl if hasattr(x, "placements") else x.dim() == 0
+        for x, pl in zip(leaves, placement_leaves(pl_tree)))
+
+
+def max_diff(a, b) -> float:
+    """The largest absolute difference between two trees of tensors (DTensors
+    taken whole, host copies moved to ``a``'s device)."""
+    xs, ys = tree_leaves_of(a), tree_leaves_of(b)
+    return max(float((whole(x).float() - y.to(whole(x).device).float()).abs().max()) if x.numel() else 0.0
+               for x, y in zip(xs, ys))
+
+
+def profiled(fn):
+    """``(fn(), device ms, kernel launches)`` of one call under the
+    profiler (:func:`device_time_table`)."""
+    box = {}
+    total, _, _, n = device_time_table(lambda p, b: box.setdefault("out", fn()), None, None)
+    return box["out"], total, n
+
+
+def dist_turns(what, run_u, run_s, card, dev=None):
+    """``run_u`` and ``run_s`` (unsharded and sharded, each one call) in
+    turns (unsharded, sharded, sharded, unsharded) x DIST_ZOO_ROUNDS by CUDA
+    events. ``dev`` is ``{"sharded": (device ms, launches), "unsharded":
+    ...}`` of one call of each under the profiler (the parts' first calls:
+    a call's device time does not depend on its host time); without it one
+    more call of each runs under the profiler. Logs and returns the medians,
+    busy shares and kernel launches."""
+    times = {"sharded": [], "unsharded": []}
+    for _ in range(DIST_ZOO_ROUNDS):
+        for which in ("unsharded", "sharded", "sharded", "unsharded"):
+            times[which].append(event_ms(run_s if which == "sharded" else run_u)[0])
+    med = {k: statistics.median(v) for k, v in times.items()}
+    if dev is None:
+        dev = {"unsharded": profiled(run_u)[1:], "sharded": profiled(run_s)[1:]}
+    (total_s, n_s), (total_u, n_u) = dev["sharded"], dev["unsharded"]
+    rec = dict(ms=med, busy=(total_s / med["sharded"], total_u / med["unsharded"]), launches=(n_s, n_u))
+    log(f"[dist] {what}, {card}: in turns x {DIST_ZOO_ROUNDS} (CUDA events) sharded {med['sharded']:.3f} ms "
+        f"({', '.join(f'{x:.3f}' for x in times['sharded'])}), unsharded {med['unsharded']:.3f} ms "
+        f"({', '.join(f'{x:.3f}' for x in times['unsharded'])}), sharded/unsharded "
+        f"{med['sharded'] / med['unsharded']:.4f}; busy share (profiler) sharded {rec['busy'][0]:.3f}, unsharded "
+        f"{rec['busy'][1]:.3f}; kernel launches a call sharded {n_s}, unsharded {n_u}")
+    return rec
+
+
+def dist_prefill_pair(fa, what, cfg, params, batch, mesh, rules, card, cases):
+    """The prefill step sharded against unsharded from the same parameters:
+    identical at world size 1 (the difference is printed), then in turns.
+    The sharded run's flash launches are held to ``cases``. Returns the
+    record of :func:`dist_turns` with the first sharded call's flash
+    launches and peak memory."""
+    from repro_torch.launch import build_prefill_step
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.steps import batch_pspecs, distribute_tree
+
+    step = build_prefill_step(cfg)
+    B = next(iter(batch.values())).shape[0]
+    with torch.inference_mode():
+        want, *dev_u = profiled(lambda: step(params, batch))
+    with shd.mesh_context(mesh, rules):
+        pd = shd.distribute_params(params)
+        bd = distribute_tree(batch, batch_pspecs(cfg, batch, B), mesh)
+
+    def sharded():
+        with shd.mesh_context(mesh, rules):
+            return step(pd, bd)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n0 = fa.launches
+    got, *dev_s = run_with_launches_held(fa, what, profiled, sharded, cases=cases, tag="dist")
+    got = whole(got)
+    launches, peak = fa.launches - n0, torch.cuda.max_memory_allocated() / 1e9
+    diff = max_diff(got, want)
+    check(bool(torch.isfinite(got).all()) and got.shape == want.shape, f"{what}: sharded logits {tuple(got.shape)}")
+    check(diff == 0.0, f"{what}: sharded logits differ from unsharded at world size 1 (max |d| {diff:.3e})")
+    del got, want
+    torch.cuda.empty_cache()
+    log(f"[dist] {what}: sharded logits identical to the unsharded ones (max |d| {diff}); {launches} flash launches; "
+        f"peak device memory {peak:.2f} GB")
+
+    def unsharded():
+        with torch.inference_mode():
+            return step(params, batch)
+
+    rec = dist_turns(what, unsharded, sharded, card, {"sharded": dev_s, "unsharded": dev_u})
+    del pd, bd
+    torch.cuda.empty_cache()
+    return dict(rec, flash=launches, peak_gb=peak, diff=diff)
+
+
+def dist_train_pair(fa, what, cfg, batch, mesh, rules, dev, card, hold="exact", steps=1):
+    """``steps`` train steps sharded against unsharded from the same
+    parameters (``init_params`` from SEED; ``moe_impl="a2a"`` sharded
+    against the dense dispatch unsharded): every parameter, optimizer-state
+    and batch leaf placed as ``train_shardings`` says; the last loss and the
+    parameters after the steps identical at world size 1
+    (``hold="exact"``), within the reference's limits (``"limits"``:
+    DIST_LOSS_ATOL, DIST_PARAM_TOL) or only printed (``None``: a timing
+    run, bfloat16 a2a against dense, two roundings of one sum). Then one
+    step of each in turns on the same storage. Returns the record of
+    :func:`dist_turns` with the first sharded step's flash launches, peak
+    memory and differences."""
+    from repro_torch.launch import build_train_step
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.steps import batch_pspecs, distribute_tree, train_shardings
+    from repro_torch.models import init_params
+    from repro_torch.optim import tree_map
+
+    step, opt = build_train_step(cfg)
+    ucfg = cfg.replace(moe_impl="dense") if cfg.moe_impl == "a2a" else cfg
+    ustep, _ = build_train_step(ucfg)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED))
+    start = host_copy(params)
+    B = next(iter(batch.values())).shape[0]
+    state = opt.init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    (params, state, loss_u), *dev_u = profiled(lambda: ustep(params, state, batch))
+    for _ in range(steps - 1):
+        params, state, loss_u = ustep(params, state, batch)
+    loss_u, peak_u = float(loss_u), torch.cuda.max_memory_allocated() / 1e9
+    want = host_copy(params)
+    del params, state
+    torch.cuda.empty_cache()
+    with shd.mesh_context(mesh, rules):
+        pd = shd.distribute_params(tree_map(lambda x: x.to(dev), start))
+        del start
+        od = opt.init(pd)
+        bd = distribute_tree(batch, batch_pspecs(cfg, batch, B), mesh)
+        p_pl, o_pl, b_pl = train_shardings(cfg, pd, od, batch, B)
+        placed = all_placed(pd, p_pl) and all_placed(od, o_pl) and all_placed(bd, b_pl)
+        check(placed, f"{what}: a parameter, optimizer-state or batch leaf is not placed as train_shardings says")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        n0 = flash_counts(fa)
+        (pd, od, loss_s), *dev_s = profiled(lambda: step(pd, od, bd))
+        flash = tuple(b - a for a, b in zip(n0, flash_counts(fa)))[:3]
+        for _ in range(steps - 1):
+            pd, od, loss_s = step(pd, od, bd)
+        peak_s = torch.cuda.max_memory_allocated() / 1e9
+    loss_s = float(whole(loss_s))
+    d_loss, d_param = abs(loss_s - loss_u), max_diff(pd, want)
+    if hold == "exact":
+        check(d_loss == 0.0 and d_param == 0.0, f"{what}: the sharded step differs from the unsharded one at world "
+                                                 f"size 1 (loss |d| {d_loss:.3e}, parameters max |d| {d_param:.3e})")
+    elif hold == "limits":
+        check(d_loss < DIST_LOSS_ATOL and all(torch.allclose(whole(a).float(), b.to(dev).float(), **DIST_PARAM_TOL)
+                                              for a, b in zip(tree_leaves_of(pd), tree_leaves_of(want))),
+              f"{what}: the sharded step against the unsharded one: loss |d| {d_loss:.3e}, parameters max |d| "
+              f"{d_param:.3e}")
+    check(math.isfinite(loss_s), f"{what}: sharded loss {loss_s}")
+    del want
+    torch.cuda.empty_cache()
+    log(f"[dist] {what}: {steps} train step(s) ({cfg.optimizer}) sharded against unsharded from the same parameters"
+        f"{'' if hold else ' (a timing run: the losses are printed, not held)'}: last loss "
+        f"{loss_s:.6f} against {loss_u:.6f} (|d| {d_loss}), parameters max |d| {d_param}; every parameter, "
+        f"optimizer-state and batch leaf placed as train_shardings says (optimizer state: "
+        f"{type(od).__name__}, DTensor leaves); the first sharded step's flash launches (forward, dQ, dK/dV) "
+        f"{flash}; peak device memory sharded {peak_s:.2f} GB, unsharded {peak_u:.2f} GB")
+    pu, box = local_view(pd), {"s": od, "u": local_view(od)}
+
+    def sharded():
+        with shd.mesh_context(mesh, rules):
+            _, box["s"], loss = step(pd, box["s"], bd)
+        return loss
+
+    def unsharded():
+        _, box["u"], loss = ustep(pu, box["u"], batch)
+        return loss
+
+    rec = dist_turns(what, unsharded, sharded, card, {"sharded": dev_s, "unsharded": dev_u})
+    del pd, od, pu, bd, box
+    torch.cuda.empty_cache()
+    return dict(rec, flash=flash, peak_gb=(peak_s, peak_u), loss_diff=d_loss, param_diff=d_param)
+
+
+def held_train_pair(fa, what, fwd, bwd, *args, **kw):
+    """:func:`dist_train_pair` ``(fa, what, *args, **kw)`` with every flash
+    forward launch held to ``fwd`` (phase 6's shapes) and every backward
+    launch to ``bwd`` (phase 9's), each against its plain version on its
+    own inputs (``()``: a part that must launch no flash kernel)."""
+    def run():
+        return run_with_launches_held(fa, what, lambda: dist_train_pair(fa, what, *args, **kw), cases=fwd, tag="dist")
+
+    return run_with_bwd_launches_held(fa, what, run, cases=bwd, tag="dist")
+
+
+def tree_leaves_of(tree) -> list:
+    """The tensors of a tree of dicts, lists and tuples, in its order."""
+    from repro_torch.launch.steps import _map_tensors
+
+    out = []
+    _map_tensors(out.append, tree)
+    return out
+
+
+def dist_serve_pair(what, cfg, params, cache, slots, first, pos0, mesh, card):
+    """DIST_SERVE_G greedy serve steps from ``cache`` (a clone for each
+    side) and the token ``first`` at position ``pos0``, sharded (the cache
+    placed by ``cache_pspecs``) against unsharded: tokens and caches
+    identical at world size 1, the KV caches written in place; then one
+    step at the last position in turns."""
+    from repro_torch.launch import build_serve_step
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.steps import _map_tensors, batch_pspecs, cache_pspecs, distribute_tree, spec_leaves
+
+    step = build_serve_step(cfg)
+    B, G, S = first.shape[0], DIST_SERVE_G, slots
+    kv = lambda c: c["attn"] if isinstance(c, dict) and "attn" in c else (c if isinstance(c, tuple) else ())  # noqa: E731
+
+    def greedy(params, cache, tok):
+        ptrs = [whole_local(t).data_ptr() for t in kv(cache)]
+        toks = []
+        for i in range(G):
+            tok, cache = step(params, cache, tok, pos0 + i)
+            toks.append(whole(tok))
+        check([whole_local(t).data_ptr() for t in kv(cache)] == ptrs, f"{what}: the KV cache moved")
+        return torch.cat(toks, dim=1), cache
+
+    cache_s = _map_tensors(lambda t: t.clone(), cache)
+    want, cache_u = greedy(params, cache, first)
+    with shd.mesh_context(mesh):
+        pd = shd.distribute_params(params)
+        specs = cache_pspecs(cfg, cache_s, B, S)
+        cd = distribute_tree(cache_s, specs, mesh)
+        placed = all(list(x.placements) == shd.spec_to_placements(sp, mesh, x.shape)
+                     for x, sp in zip(tree_leaves_of(cd), spec_leaves(specs)))
+        check(placed, f"{what}: a cache leaf is not placed as cache_pspecs says")
+        td = distribute_tree(first, batch_pspecs(cfg, first, B), mesh)
+        got, cd = greedy(pd, cd, td)
+    d_cache = max_diff(cd, cache_u)
+    check(torch.equal(got, want), f"{what}: sharded greedy tokens differ from the unsharded ones at "
+                                  f"{int((got != want).sum())} of {got.numel()}")
+    check(d_cache == 0.0, f"{what}: the sharded cache differs from the unsharded one (max |d| {d_cache:.3e})")
+    log(f"[dist] {what}: {G} sharded greedy tokens identical to the unsharded serve step's, caches and recurrent "
+        f"states identical (max |d| {d_cache}), every cache leaf placed by cache_pspecs ({cache_gb(cd):.3f} GB), "
+        f"the KV caches written in place")
+    pos, tok_u = pos0 + G - 1, want[:, -1:]
+    with shd.mesh_context(mesh):
+        tok_s = distribute_tree(tok_u, batch_pspecs(cfg, tok_u, B), mesh)
+
+    def sharded():
+        with shd.mesh_context(mesh):
+            return step(pd, cd, tok_s, pos)
+
+    rec = dist_turns(f"{what}, one serve step", lambda: step(params, cache_u, tok_u, pos), sharded, card)
+    del pd, cd, cache_u, cache_s
+    torch.cuda.empty_cache()
+    return rec
+
+
+def whole_local(t):
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
+def dist_xlstm_part(fa, dev, card, mesh):
+    """Phase 19 (d): xlstm-1.3b cut to DIST_XLSTM_LAYERS layers, prefill and
+    train step sharded against unsharded; a sharded sLSTM scan crosses the
+    DTensor boundary once (one ``local_shards``, one ``local_map``), whatever
+    its length."""
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import sharding as shd
+    from repro_torch.models import init_params, make_dummy_batch, ssm, xlstm
+
+    rules = {"act_seq": "model"}
+    cfg = get_config("xlstm-1.3b").replace(num_layers=DIST_XLSTM_LAYERS)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED))
+    batch = make_dummy_batch(cfg, *DIST_XLSTM_PREFILL, "prefill", np.random.default_rng(SEED), device=dev)
+    scans, boundaries = [], []
+    with spying(xlstm, "slstm_scan", lambda out, z, *a, **k: scans.append(hasattr(z, "to_local"))):
+        pre = dist_prefill_pair(fa, f"(d) xlstm-1.3b x {DIST_XLSTM_LAYERS} layers, prefill {DIST_XLSTM_PREFILL}", cfg,
+                                params, batch, mesh, rules, card, ())
+    with shd.mesh_context(mesh, rules), torch.no_grad():
+        pd = shd.distribute_params(params)
+        D = cfg.d_model // cfg.num_heads
+        z = distribute_tensor(torch.zeros((1, DIST_XLSTM_PREFILL[1], cfg.num_heads, D), device=dev,
+                                          dtype=cfg.cdtype()), mesh, [Replicate()] * mesh.ndim)
+        with spying(ssm, "local_shards", lambda out, *a, **k: boundaries.append(1)):
+            ssm.slstm_scan(z, z, z, z, {k: pd["slstm"][0][k] for k in ("rz", "ri", "rf", "ro")})
+    check(len(boundaries) == 1, f"(d) one sharded sLSTM scan made {len(boundaries)} local_shards calls")
+    log(f"[dist] (d) the sLSTM scan on DTensors: {len(boundaries)} DTensor boundary (one local_shards, one "
+        f"local_map) per scan of {DIST_XLSTM_PREFILL[1]} steps, its loop on local tensors; the part's sharded "
+        f"prefill calls ran {sum(scans)} sLSTM scans on DTensors ({cfg.num_layers // cfg.slstm_every} sLSTM block "
+        f"a call)")
+    del pd, z, params
+    torch.cuda.empty_cache()
+    train_batch = make_dummy_batch(cfg, *DIST_XLSTM_TRAIN, "train", np.random.default_rng(SEED), device=dev)
+    tr = held_train_pair(fa, f"(d) xlstm-1.3b x {DIST_XLSTM_LAYERS} layers, train {DIST_XLSTM_TRAIN}", (), (), cfg,
+                         train_batch, mesh, rules, dev, card)
+    return dict(prefill=pre, train=tr, slstm_boundaries=len(boundaries))
+
+
+def dist_zamba_part(fa, dev, card, mesh):
+    """Phase 19 (e): zamba2-2.7b cut to DIST_ZAMBA_LAYERS layers: prefill,
+    train step and DIST_SERVE_G serve tokens after a collect-state prefill,
+    sharded against unsharded."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import hybrid, init_cache, init_params, make_dummy_batch
+
+    rules = {"act_seq": "model"}
+    cfg = get_config("zamba2-2.7b").replace(num_layers=DIST_ZAMBA_LAYERS, attn_impl="flash")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED))
+    batch = make_dummy_batch(cfg, 1, ZAMBA_S, "prefill", np.random.default_rng(SEED), device=dev)
+    pre = dist_prefill_pair(fa, f"(e) zamba2-2.7b x {DIST_ZAMBA_LAYERS} layers, prefill (1, {ZAMBA_S})", cfg, params,
+                            batch, mesh, rules, card, SSM_FLASH_CASES)
+    start = ZAMBA_S - SSM_CHUNK
+    tokens = batch["tokens"]
+    with torch.inference_mode():
+        logits, state = run_with_launches_held(
+            fa, "(e) collect-state prefill", lambda: hybrid.zamba_forward(params, cfg, tokens[:, :start],
+                                                                          collect_state=True),
+            cases=SSM_FLASH_CASES, tag="dist")
+        first = logits[:, -1:].argmax(dim=-1)
+    cache = init_cache(cfg, 1, start + DIST_SERVE_G)
+    with torch.inference_mode():
+        for dst, src in zip(cache["attn"], state["attn"]):
+            dst[:, :, :start].copy_(src)
+    cache = {"mamba": tuple(x.clone() for x in state["mamba"]), "attn": cache["attn"]}
+    del logits, state
+    torch.cuda.empty_cache()
+    sv = dist_serve_pair(f"(e) zamba2-2.7b x {DIST_ZAMBA_LAYERS} layers, serve after a collect-state prefill of "
+                         f"{start}", cfg, params, cache, start + DIST_SERVE_G, first, start, mesh, card)
+    del params, cache, batch
+    torch.cuda.empty_cache()
+    train_batch = make_dummy_batch(cfg, 1, ZAMBA_TRAIN_S, "train", np.random.default_rng(SEED), device=dev)
+    tr = held_train_pair(fa, f"(e) zamba2-2.7b x {DIST_ZAMBA_LAYERS} layers, train (1, {ZAMBA_TRAIN_S})",
+                         SSM_FLASH_CASES, SSM_FLASH_BWD_CASES, cfg, train_batch, mesh, rules, dev, card)
+    return dict(prefill=pre, serve=sv, train=tr)
+
+
+def dist_encoder_part(fa, dev, card, mesh):
+    """Phase 19 (f): hubert-xlarge encode and train, paligemma-3b prefill,
+    train and serve, granite-20b (cut) prefill, each sharded against
+    unsharded."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_cache, init_params, make_dummy_batch, vlm
+    from repro_torch.models.dense import _logits, stack_forward
+
+    rules, out = {"act_seq": "model"}, {}
+    cfg = get_config(HUBERT_ARCH).replace(attn_impl="flash")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED))
+    batch = make_dummy_batch(cfg, *HUBERT_ENCODE, "prefill", np.random.default_rng(SEED), device=dev)
+    out["hubert_encode"] = dist_prefill_pair(fa, f"(f) {HUBERT_ARCH} encode {HUBERT_ENCODE}", cfg, params, batch,
+                                             mesh, rules, card, ENC_FLASH_CASES)
+    del params, batch
+    torch.cuda.empty_cache()
+    batch = make_dummy_batch(cfg, *HUBERT_TRAIN, "train", np.random.default_rng(SEED), device=dev)
+    out["hubert_train"] = held_train_pair(fa, f"(f) {HUBERT_ARCH} train {HUBERT_TRAIN}", ENC_FLASH_CASES,
+                                          ENC_FLASH_BWD_CASES, cfg, batch, mesh, rules, dev, card)
+    del batch
+    torch.cuda.empty_cache()
+
+    cfg = get_config(PALI_ARCH)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED))
+    batch = make_dummy_batch(cfg, *PALI_PREFILL, "prefill", np.random.default_rng(SEED), device=dev)
+    out["pali_prefill"] = dist_prefill_pair(fa, f"(f) {PALI_ARCH} prefill {PALI_PREFILL}", cfg, params, batch, mesh,
+                                            rules, card, ())
+    B, P = DIST_PALI_SERVE_B, cfg.num_patches
+    patches, tokens = batch["patches"][:B], batch["tokens"][:B]
+    del batch
+    torch.cuda.empty_cache()
+    with torch.inference_mode():
+        h, (k, v) = stack_forward(cfg, params["layers"], vlm._fuse(params, cfg, patches, tokens), prefix_len=P,
+                                  collect_cache=True)
+        first = _logits(cfg, params, h[:, -1:]).argmax(dim=-1)
+    S = h.shape[1]
+    del h
+    cache = init_cache(cfg, B, S + DIST_SERVE_G)
+    with torch.inference_mode():
+        cache[0][:, :, :S].copy_(k)
+        cache[1][:, :, :S].copy_(v)
+    del k, v
+    out["pali_serve"] = dist_serve_pair(f"(f) {PALI_ARCH} serve at B={B} after a prefill of {S} positions", cfg,
+                                        params, cache, S + DIST_SERVE_G, first, S, mesh, card)
+    del params, cache
+    torch.cuda.empty_cache()
+    batch = make_dummy_batch(cfg, *PALI_TRAIN, "train", np.random.default_rng(SEED), device=dev)
+    out["pali_train"] = held_train_pair(fa, f"(f) {PALI_ARCH} train {PALI_TRAIN}", (), (), cfg, batch, mesh, rules,
+                                        dev, card)
+    del batch
+    torch.cuda.empty_cache()
+
+    cfg = get_config("granite-20b").replace(num_layers=DIST_GRANITE_LAYERS, attn_impl="flash")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED))
+    batch = make_dummy_batch(cfg, 1, DENSE_S, "prefill", np.random.default_rng(SEED), device=dev)
+    out["granite_prefill"] = dist_prefill_pair(
+        fa, f"(f) granite-20b x {DIST_GRANITE_LAYERS} layers (one KV head, replicated on the model axis of size 1), "
+        f"prefill (1, {DENSE_S})", cfg, params, batch, mesh, rules, card, SERVE_FLASH_CASES)
+    del params, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def dist_olmoe_part(fa, dev, card, mesh):
+    """Phase 19 (g): a float32 cut of olmoe-1b-7b to DIST_OLMOE_F32_LAYERS
+    layers, one sharded a2a train step held to the reference's limits
+    against the unsharded (dense) step; then the bfloat16 cut to
+    DIST_OLMOE_LAYERS layers, DIST_TRAIN_STEPS sharded a2a steps against
+    the dense ones, a timing run (two roundings of one sum: its losses are
+    printed, not held). Every flash launch of both, forward and backward,
+    is held against its plain version on its own inputs."""
+    from repro_torch.configs import get_config
+
+    from repro_torch.models import make_dummy_batch
+
+    rules = {"act_seq": "model"}
+    base = get_config(MOE_ARCH).replace(attn_impl="flash", moe_impl="a2a", capacity_factor=DIST_MOE_CAPACITY)
+    c32 = base.replace(num_layers=DIST_OLMOE_F32_LAYERS, param_dtype="float32", compute_dtype="float32")
+    batch = make_dummy_batch(c32, *DIST_MOE, "train", np.random.default_rng(SEED), device=dev)
+    f32 = held_train_pair(fa, f"(g) {MOE_ARCH} x {DIST_OLMOE_F32_LAYERS} layers in float32, train {DIST_MOE}, a2a "
+                          f"(sharded) against dense (unsharded)", DIST_FLASH_CASES, DIST_FLASH_BWD_CASES, c32, batch,
+                          mesh, rules, dev, card, hold="limits")
+    cfg = base.replace(num_layers=DIST_OLMOE_LAYERS)
+    tr = held_train_pair(fa, f"(g) {MOE_ARCH} x {DIST_OLMOE_LAYERS} layers, train {DIST_MOE}, a2a (sharded) against "
+                         f"dense (unsharded)", DIST_FLASH_CASES, DIST_FLASH_BWD_CASES, cfg, batch, mesh, rules, dev,
+                         card, hold=None, steps=DIST_TRAIN_STEPS)
+    del batch
+    torch.cuda.empty_cache()
+    return dict(f32=f32, train=tr)
+
+
+def widened(tree, dev):
+    """A float32 copy on ``dev`` of a tree of dicts and lists of host
+    tensors, each leaf widened on the card a slab of its leading dim at a
+    time (no narrow copy of a whole leaf is ever on the card)."""
+    if isinstance(tree, dict):
+        return {k: widened(x, dev) for k, x in tree.items()}
+    if isinstance(tree, list):
+        return [widened(x, dev) for x in tree]
+    out = torch.empty(tree.shape, dtype=torch.float32, device=dev)
+    step = max(1, (1 << 28) // max(1, tree[0].numel() if tree.dim() else 1))
+    for i in range(0, tree.shape[0] if tree.dim() else 1, step):
+        if tree.dim():
+            out[i:i + step].copy_(tree[i:i + step].to(dev))
+        else:
+            out.copy_(tree.to(dev))
+    return out
+
+
+def dist_adafactor_part(fa, dev, card, mesh):
+    """Phase 19 (h): gemma2-2b FULL's train step under Adafactor sharded
+    against unsharded; deepseek-v3 at MLA_CUT, a prefill with a2a over
+    ("data", "model") against the dense dispatch, held by their float32
+    distances."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import build_prefill_step
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.steps import batch_pspecs, distribute_tree
+    from repro_torch.models import init_params, make_dummy_batch, moe_dispatch
+
+    cfg = get_config(ARCH).replace(attn_impl="flash", optimizer="adafactor")
+    batch = make_dummy_batch(cfg, B_TRAIN, S_TRAIN, "train", np.random.default_rng(SEED), device=dev)
+    # the backward launches' shapes are held, their values printed: on
+    # this step's random-init gradients (|dk| under 1e-6, sums of 8,192
+    # terms with cancellation) the kernels' bf16 outputs lie a bf16 ulp
+    # from the float32 plain backward, whose own distance from a float64
+    # one is as large, and phase 9's bf16 limit (half an ulp at the bottom
+    # of a binade) then fails on a few of 8.4 M entries
+    what = f"(h) {ARCH} FULL, train ({B_TRAIN}, {S_TRAIN}) under Adafactor"
+    ada = run_with_bwd_launches_held(fa, what, dist_train_pair, fa, what, cfg, batch, mesh, {"act_seq": "model"}, dev,
+                                     card, cases=DIST_TRAIN_FLASH_BWD_CASES, tag="dist", values=False)
+    del batch
+    torch.cuda.empty_cache()
+
+    rules = {"expert": ("data", "model")}
+    cfg = get_config(MLA_ARCH).replace(attn_impl="flash", capacity_factor=DIST_MLA_CAPACITY, **MLA_CUT)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED))
+    batch = make_dummy_batch(cfg, 1, MLA_S, "prefill", np.random.default_rng(SEED), device=dev)
+    with torch.inference_mode():
+        want = build_prefill_step(cfg.replace(moe_impl="dense"))(params, batch)
+    # the float32 reference below is widened from a host copy (57.7 GB does
+    # not fit beside a bfloat16 copy); the sharded run holds only the
+    # DTensors (a shard on an axis of size 1 is scattered into a copy)
+    host = host_copy(params)
+    with shd.mesh_context(mesh, rules):
+        pd = shd.distribute_params(params)
+        bd = distribute_tree(batch, batch_pspecs(cfg, batch, 1), mesh)
+    del params
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    def sharded():
+        with shd.mesh_context(mesh, rules):
+            n0 = fa.launches
+            got = whole(build_prefill_step(cfg.replace(moe_impl="a2a"))(pd, bd))
+            return got, fa.launches - n0
+
+    loads = []
+    with spying(moe_dispatch, "route", lambda out, *a: loads.append(
+            int(torch.bincount(whole(out[1]).reshape(-1), minlength=cfg.num_experts).max()))):
+        got, launches = run_with_launches_held(fa, "(h) deepseek-v3 a2a prefill", sharded, cases=SERVE_FLASH_CASES,
+                                               tag="dist")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(bool(torch.isfinite(got).all()), "(h) non-finite deepseek-v3 a2a prefill logits")
+    del pd, bd
+    torch.cuda.empty_cache()
+    params = widened(host, dev)
+    del host
+    with torch.inference_mode():
+        want32 = build_prefill_step(cfg.replace(param_dtype="float32", compute_dtype="float32",
+                                                moe_impl="dense"))(params, batch)
+    # a2a's per-expert buffers with one peer (moe_dispatch._moe_a2a): every
+    # routed row fits when the largest load does
+    cap_send = max(8, int(-(-MLA_S * cfg.top_k * cfg.capacity_factor // 1) // 8 * 8 + 8))
+    cap = max(8, int(-(-cap_send * cfg.capacity_factor // cfg.num_experts) // 8 * 8 + 8))
+    check(max(loads) <= cap, f"(h) a2a at capacity {cfg.capacity_factor} drops tokens: an expert's load "
+                             f"{max(loads)} > {cap}")
+    del params
+    torch.cuda.empty_cache()
+    rel_l2 = lambda a, b: float((a.float() - b).norm() / b.norm())  # noqa: E731
+    rel = {"a2a-f32": rel_l2(got, want32), "dense-f32": rel_l2(want, want32), "a2a-dense": rel_l2(got, want.float())}
+    limit = DIST_PREFILL_F32_RATIO * rel["dense-f32"]
+    check(rel["a2a-f32"] <= limit, f"(h) deepseek-v3 bf16 prefill, a2a farther from float32 than dense: {rel}")
+    log(f"[dist] (h) {MLA_ARCH} at full width cut to {MLA_CUT}, prefill (1, {MLA_S}), moe_impl a2a at capacity "
+        f"{cfg.capacity_factor} over the flattened expert group ('data', 'model') of one rank ({cfg.num_experts} "
+        f"experts on it; largest expert load {max(loads)} of a2a's {cap} slots an expert: nothing dropped): "
+        f"relative L2 from the same weights in float32 (dense dispatch) a2a {rel['a2a-f32']:.3e}, dense "
+        f"{rel['dense-f32']:.3e} "
+        f"(limit {DIST_PREFILL_F32_RATIO} x dense's = {limit:.3e}); a2a against dense {rel['a2a-dense']:.3e}; "
+        f"{launches} flash launches; peak device memory of the sharded prefill {peak:.2f} GB")
+    del got, want, want32, batch
+    torch.cuda.empty_cache()
+    return dict(adafactor=ada, mla=dict(rel_l2=rel, flash=launches, peak_gb=peak))
+
+
 def distributed_phase(fa, dev, card):
     """Phase 19: the LM zoo over torch.distributed (the constants' comment).
     Returns the flash launches of the sharded runs by part."""
@@ -4694,12 +5308,28 @@ def distributed_phase(fa, dev, card):
         train_launches, train = dist_train_part(fa, dev, card, mesh)
         moe_launches, moe = dist_moe_part(fa, dev, card, mesh)
         serve = dist_serve_part(fa, dev, card, mesh)
+        parts, times = {}, {}
+        for name, part in (("d", dist_xlstm_part), ("e", dist_zamba_part), ("f", dist_encoder_part),
+                           ("g", dist_olmoe_part), ("h", dist_adafactor_part)):
+            t1 = time.perf_counter()
+            parts[name] = part(fa, dev, card, mesh)
+            times[name] = round(time.perf_counter() - t1, 1)
     finally:
         dist.destroy_process_group()
         store.unlink(missing_ok=True)
-    launches = {"train": train_launches, "moe_prefill": moe_launches}
-    log(f"[dist] phase 19 wall time {time.perf_counter() - t0:.1f} s; flash launches of the sharded runs {launches}")
-    return launches, dict(train=train, moe=moe, serve=serve)
+    # the first sharded run's flash launches (forward, dQ, dK/dV) of each
+    # part that launches the kernels
+    runs = {"zamba2-2.7b prefill": parts["e"]["prefill"]["flash"], "zamba2-2.7b train": parts["e"]["train"]["flash"],
+            f"{HUBERT_ARCH} encode": parts["f"]["hubert_encode"]["flash"],
+            f"{HUBERT_ARCH} train": parts["f"]["hubert_train"]["flash"],
+            "granite-20b prefill": parts["f"]["granite_prefill"]["flash"],
+            f"{MOE_ARCH} float32 train": parts["g"]["f32"]["flash"], f"{MOE_ARCH} train": parts["g"]["train"]["flash"],
+            f"{ARCH} Adafactor train": parts["h"]["adafactor"]["flash"], f"{MLA_ARCH} prefill": parts["h"]["mla"]["flash"]}
+    runs = {k: (v, 0, 0) if isinstance(v, int) else v for k, v in runs.items()}
+    launches = {"train": train_launches, "moe_prefill": moe_launches, "zoo": runs}
+    log(f"[dist] phase 19 wall time {time.perf_counter() - t0:.1f} s (parts (d)-(h) {times} s); flash launches of "
+        f"the sharded runs {launches}")
+    return launches, dict(train=train, moe=moe, serve=serve, **parts)
 
 
 def main() -> int:
@@ -4877,9 +5507,11 @@ def main() -> int:
         "encoder_launches_by_part": {**{k: v for k, v in enc_by_use.items() if "dq" not in k and "dkv" not in k},
                                      f"{PALI_ARCH}: all": 0},
         "hubert_d80": {k: v for k, v in hubert_d80.items() if k.startswith("fwd")},
-        "distributed_launches": dist_train[0] + dist_launches["moe_prefill"],
+        "distributed_launches": dist_train[0] + dist_launches["moe_prefill"] + sum(
+            v[0] for v in dist_launches["zoo"].values()),
         "distributed_launches_by_part": {"gemma2-2b train": dist_train[0], f"{MOE_ARCH} prefill":
-                                         dist_launches["moe_prefill"]},
+                                         dist_launches["moe_prefill"],
+                                         **{k: v[0] for k, v in dist_launches["zoo"].items()}},
         "max_abs_err": flash_err_max,
         **ft,
     }, {
@@ -4893,7 +5525,7 @@ def main() -> int:
         "zamba2_d80": d80[f"dq_S{ZAMBA_TRAIN_S}"],
         "encoder_launches_by_part": {k: v for k, v in enc_by_use.items() if k.endswith("train dq")},
         "hubert_d80": hubert_d80[f"dq_S{HUBERT_TRAIN[1]}"],
-        "distributed_launches": dist_train[1],
+        "distributed_launches": dist_train[1] + sum(v[1] for v in dist_launches["zoo"].values()),
         "max_abs_err": dq_err,
         **dq_t,
     }, {
@@ -4907,7 +5539,7 @@ def main() -> int:
         "zamba2_d80": d80[f"dkv_S{ZAMBA_TRAIN_S}"],
         "encoder_launches_by_part": {k: v for k, v in enc_by_use.items() if k.endswith("train dkv")},
         "hubert_d80": hubert_d80[f"dkv_S{HUBERT_TRAIN[1]}"],
-        "distributed_launches": dist_train[2],
+        "distributed_launches": dist_train[2] + sum(v[2] for v in dist_launches["zoo"].values()),
         "max_abs_err": dkv_err,
         **dkv_t,
     }]

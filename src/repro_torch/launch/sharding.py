@@ -35,7 +35,8 @@ from contextlib import contextmanager
 from typing import Optional
 
 import torch
-from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard, distribute_tensor
+from torch.distributed.tensor.experimental import local_map
 
 __all__ = [
     "DEFAULT_RULES",
@@ -43,6 +44,7 @@ __all__ = [
     "current_mesh",
     "distribute_params",
     "infer_pspec",
+    "local_shards",
     "logical_to_mesh",
     "mesh_context",
     "param_pspecs",
@@ -140,23 +142,30 @@ def logical_to_mesh(*logical) -> tuple:
     return tuple(parts)
 
 
-def spec_to_placements(spec, mesh) -> list:
+def spec_to_placements(spec, mesh, shape=None) -> list:
     """DTensor placements of ``spec`` on ``mesh``: ``Shard(dim)`` on each
     mesh dim that a spec entry names, ``Replicate()`` on the others. An
     entry naming several axes shards its dim over them major first, as JAX
     orders a tuple entry; DTensor nests shards in mesh-dim order, so their
-    order must be the mesh's. Raises ``ValueError`` on an axis used twice,
-    on an axis the mesh lacks, or on a tuple out of the mesh's order."""
+    order must be the mesh's. Given the tensor's ``shape``, a dim of size 1
+    is placed as ``Replicate()`` on every axis (it holds the same values on
+    every rank): DTensor's views refuse a sharded singleton (MQA's one KV
+    head on a model axis of size 1). Raises ``ValueError`` on an axis used
+    twice, on an axis the mesh lacks, or on a tuple out of the mesh's
+    order."""
     names = _axis_names(mesh)
-    placements = [Replicate()] * len(names)
+    placements, used = [Replicate()] * len(names), set()
     for dim, entry in enumerate(spec):
+        if shape is not None and shape[dim] == 1:
+            entry = None
         mesh_dims = []
         for a in _axes(entry):
             if a not in names:
                 raise ValueError(f"spec {spec}: mesh {names} has no axis {a!r}")
             i = names.index(a)
-            if not isinstance(placements[i], Replicate):
+            if i in used:
                 raise ValueError(f"spec {spec} uses mesh axis {a!r} twice")
+            used.add(i)
             placements[i] = Shard(dim)
             mesh_dims.append(i)
         if mesh_dims != sorted(mesh_dims):
@@ -174,19 +183,95 @@ def like(x, t: torch.Tensor):
     return t
 
 
-def whole_groups(x, dim: int, groups: int):
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose backward makes the gradient's local tensor
+    contiguous. A redistribution's backward can hand back a local tensor
+    in another memory layout (gloo's all-to-all is an all-gather and a
+    chunk), while DTensor's views (a matrix product's ``_unsafe_view``
+    backward) take the local tensor to be laid out as the global one is."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if isinstance(g, DTensor) and not g._local_tensor.is_contiguous():
+            g = DTensor.from_local(g.to_local().contiguous(), g.device_mesh, g.placements, run_check=False,
+                                   shape=g.shape, stride=g.stride())
+        return g
+
+
+def _redistribute(x, placements):
+    """``x.redistribute`` to ``placements``, its gradient's local tensor
+    made contiguous (:class:`_ContiguousGrad`)."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        x = _ContiguousGrad.apply(x)
+    return x.redistribute(x.device_mesh, placements)
+
+
+def whole_groups(x, dim: int, groups: Optional[int] = None):
     """The DTensor ``x`` with every mesh dim that shards axis ``dim`` but
-    does not divide ``groups`` replicated, so that the axis can be split
-    into ``groups`` (DTensor cannot split an uneven shard: the heads of a
-    flattened ``heads * head_dim`` axis, GQA's ``(Hkv, G)`` split of the q
-    heads). It always redistributes, so ``x``'s gradient comes back in the
-    same placements. A plain tensor is returned as it is."""
+    does not divide ``groups`` replicated (every one, without ``groups``),
+    so that the axis can be split into ``groups`` (DTensor cannot split an
+    uneven shard: the heads of a flattened ``heads * head_dim`` axis, GQA's
+    ``(Hkv, G)`` split of the q heads). It always redistributes, so ``x``'s
+    gradient comes back in the same placements. A plain tensor is returned
+    as it is."""
     if not isinstance(x, DTensor):
         return x
     dim %= x.ndim
-    placements = [Replicate() if p == Shard(dim) and groups % x.device_mesh.size(i) else p
+    placements = [Replicate() if p == Shard(dim) and (groups is None or groups % x.device_mesh.size(i)) else p
                   for i, p in enumerate(x.placements)]
-    return x.redistribute(x.device_mesh, placements)
+    return _redistribute(x, placements)
+
+
+def whole_rows(x):
+    """The DTensor ``x`` with every mesh dim that shards one of its leading
+    dims behind the first one longer than 1 replicated (the sequence of a
+    ``(B, S, d)`` activation whose batch is more than one), so that a
+    matrix product or a reshape can flatten the leading dims into rows.
+    torch 2.11's views refuse to flatten a sharded dim into any but the
+    first place of a group; later torch passes it as a ``_StridedShard``.
+    Other tensors are returned as they are."""
+    if not isinstance(x, DTensor) or x.ndim < 3:
+        return x
+    first = next((i for i in range(x.ndim - 1) if x.shape[i] > 1), x.ndim - 1)
+    placements = [Replicate() if isinstance(p, Shard) and first < p.dim % x.ndim < x.ndim - 1 else p
+                  for p in x.placements]
+    return x if placements == list(x.placements) else _redistribute(x, placements)
+
+
+class _WholeRowsGrad(torch.autograd.Function):
+    """The identity, whose backward makes the gradient's rows whole
+    (:func:`whole_rows`): a product's output added to a sequence-split
+    residual gets its gradient split so."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return whole_rows(g)
+
+
+def whole_rows_grad(y):
+    """``y`` (a DTensor), its gradient's rows made whole
+    (:func:`whole_rows`): for a tensor that a reshape unflattened from rows
+    and that is added to a sequence-split residual."""
+    return _WholeRowsGrad.apply(y) if torch.is_grad_enabled() and y.requires_grad else y
+
+
+def linear(x, w):
+    """``x @ w`` for an activation ``x (..., d)`` and a weight ``(d, f)``.
+    On DTensors the rows (``x``'s leading dims) are made whole first, and
+    so are the gradient's (:func:`whole_rows`): the product flattens them
+    both ways, which torch 2.11's views refuse where a dim behind the
+    first is sharded (a sequence split by ``act_seq``)."""
+    if not isinstance(x, DTensor):
+        return x @ w
+    return whole_rows_grad(whole_rows(x) @ w)
 
 
 def shard(x, *logical):
@@ -201,9 +286,49 @@ def shard(x, *logical):
         return x
     if not isinstance(x, DTensor):
         raise TypeError(f"shard{logical}: a plain {type(x).__name__} under an active mesh (expected a DTensor)")
-    placements = [Replicate() if isinstance(p, Shard) and x.shape[p.dim] == 1 else p
-                  for p in spec_to_placements(logical_to_mesh(*logical), x.device_mesh)]
-    return x.redistribute(x.device_mesh, placements)
+    return _redistribute(x, spec_to_placements(logical_to_mesh(*logical), x.device_mesh, x.shape))
+
+
+def local_shards(fn, args, in_specs, out_specs):
+    """``fn(*args)`` on each rank's local shards (``local_map``), the
+    reference's ``shard_map`` for functions that are independent along the
+    dims they are split on: the recurrent cells along batch and heads, the
+    depthwise conv along batch and channels. ``in_specs`` and ``out_specs``
+    give one logical spec (``("batch", None, "tensor", None)``) per argument
+    and per output; ``fn`` returns a flat tuple of tensors (or one tensor).
+    A logical axis splits its dims over its mesh axes, and only where its
+    mesh size divides every dim it labels and that dim is longer than 1
+    (heads that do not divide the model axis stay whole on every rank, as
+    ``whole_groups`` keeps them); the other dims are
+    replicated, the inputs redistributed to that. The gradient of an input
+    replicated on a mesh dim that splits the work is a partial sum there.
+    Without a DTensor argument ``fn`` runs as it is."""
+    dts = [a for a in args if isinstance(a, DTensor)]
+    if not dts:
+        return fn(*args)
+    mesh = dts[0].device_mesh
+    names = _axis_names(mesh)
+    split = {}
+    for a, spec in zip(args, in_specs):
+        for size, name in zip(() if a is None else a.shape, spec):
+            if name is not None:
+                n = math.prod(mesh.size(names.index(ax)) for ax in _axes(_RULES.get(name)))
+                split[name] = split.get(name, True) and size % n == 0 and size > 1
+
+    def placements(spec):
+        pl = [Replicate()] * mesh.ndim
+        for dim, name in enumerate(spec):
+            for ax in _axes(_RULES.get(name)) if name is not None and split[name] else ():
+                pl[names.index(ax)] = Shard(dim)
+        return pl
+
+    in_pl = [None if a is None else placements(s) for a, s in zip(args, in_specs)]
+    used = {i for pl in in_pl if pl for i, p in enumerate(pl) if isinstance(p, Shard)}
+    grad_pl = [None if pl is None else [Partial() if i in used and p == Replicate() else p for i, p in enumerate(pl)]
+               for pl in in_pl]
+    out_pl = tuple(placements(s) for s in out_specs)
+    return local_map(fn, out_placements=out_pl if len(out_pl) > 1 else out_pl[0], in_placements=tuple(in_pl),
+                     in_grad_placements=tuple(grad_pl), device_mesh=mesh, redistribute_inputs=True)(*args)
 
 
 # ---------------------------------------------------------------------------
@@ -297,12 +422,14 @@ def param_pspecs(params):
 
 def distribute_params(params, mesh=None):
     """``params`` as DTensors on ``mesh`` (default: the active mesh), each
-    leaf placed by :func:`param_pspecs` under the active rules, its data
-    taken from rank 0. A local shard may share storage with the leaf it
+    leaf placed by :func:`param_pspecs` under the active rules (a dim of
+    size 1 replicated: :func:`spec_to_placements`), its data taken from
+    rank 0. A local shard may share storage with the leaf it
     came from, so a step that updates the DTensors in place may change
     ``params`` too: pass a copy to keep them."""
     mesh = _MESH if mesh is None else mesh
     return _map_with_path(
         lambda path, leaf: distribute_tensor(
-            leaf, mesh, spec_to_placements(infer_pspec(path, tuple(leaf.shape)), mesh), src_data_rank=0),
+            leaf, mesh, spec_to_placements(infer_pspec(path, tuple(leaf.shape)), mesh, leaf.shape),
+            src_data_rank=0),
         params)

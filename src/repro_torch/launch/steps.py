@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import math
 
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
 from torch.distributed.tensor.experimental import local_map
 
 from ..configs.base import ModelConfig
@@ -35,7 +35,9 @@ __all__ = [
     "build_serve_step",
     "build_train_step",
     "cache_pspecs",
+    "distribute_tree",
     "opt_state_pspecs",
+    "spec_leaves",
     "train_shardings",
     "value_and_grad",
 ]
@@ -108,7 +110,10 @@ def build_serve_step(cfg: ModelConfig):
 
 
 def _is_spec(x) -> bool:
-    return isinstance(x, tuple) and not hasattr(x, "_fields")
+    """A spec: a plain tuple of ``None``, axis names and tuples of axis
+    names (a tuple of specs, a cache's ``(k, v)``, is not one)."""
+    return isinstance(x, tuple) and not hasattr(x, "_fields") and all(
+        e is None or isinstance(e, str) or (isinstance(e, tuple) and all(isinstance(a, str) for a in e)) for e in x)
 
 
 def _map_tree(fn, tree, is_leaf):
@@ -133,6 +138,23 @@ def _map_specs(fn, tree):
 def _map_tensors(fn, tree):
     """``fn`` over the tensors of a tree (``None`` leaves stay ``None``)."""
     return _map_tree(lambda x: None if x is None else fn(x), tree, lambda x: x is None or hasattr(x, "shape"))
+
+
+def spec_leaves(specs) -> list:
+    """The specs of a tree of specs, in the tree's order."""
+    out = []
+    _map_specs(out.append, specs)
+    return out
+
+
+def distribute_tree(tree, specs, mesh=None):
+    """``tree``'s tensors as DTensors on ``mesh`` (default: the active
+    mesh), each placed by the spec at the same place of ``specs`` (as
+    ``batch_pspecs`` and ``cache_pspecs`` give them), a dim of size 1
+    replicated."""
+    mesh = shd.current_mesh() if mesh is None else mesh
+    it = iter(spec_leaves(specs))
+    return _map_tensors(lambda x: distribute_tensor(x, mesh, shd.spec_to_placements(next(it), mesh, x.shape)), tree)
 
 
 def _stacked_specs(pspecs, stacks):
@@ -228,10 +250,24 @@ def cache_pspecs(cfg: ModelConfig, cache_struct, B: int, S: int):
 def train_shardings(cfg: ModelConfig, params_struct, opt_struct, batch_struct, B: int):
     """DTensor placements (on the active mesh) of the parameters, the
     optimizer state and the batch: ``(params, opt_state, batch)`` trees of
-    placement lists. ``opt_struct`` is not read (the reference's signature)."""
+    placement lists, a dim of size 1 replicated as ``distribute_params``
+    places it (the shapes read from the structs' tensors; with
+    ``opt_struct=None`` the optimizer state's placements follow its specs
+    alone)."""
     mesh = shd.current_mesh()
     pspecs = shd.param_pspecs(params_struct)
     ospecs = opt_state_pspecs(cfg, pspecs)
     bspecs = batch_pspecs(cfg, batch_struct, B)
-    to_pl = lambda tree: _map_specs(lambda s: shd.spec_to_placements(s, mesh), tree)
-    return to_pl(pspecs), (() if cfg.optimizer == "sgd" else to_pl(ospecs)), to_pl(bspecs)
+
+    def to_pl(specs, struct):
+        shapes, n = [], []
+        if struct is not None:
+            _map_tensors(lambda x: shapes.append(tuple(x.shape)), struct)
+            _map_specs(n.append, specs)
+            if len(n) != len(shapes):
+                raise ValueError(f"{len(n)} specs for a struct of {len(shapes)} tensors")
+        it = iter(shapes)
+        return _map_specs(lambda s: shd.spec_to_placements(s, mesh, next(it, None)), specs)
+
+    return (to_pl(pspecs, params_struct), (() if cfg.optimizer == "sgd" else to_pl(ospecs, opt_struct)),
+            to_pl(bspecs, batch_struct))

@@ -35,7 +35,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..core.torch_dp import resolve_device
-from ..launch.sharding import axis_size, like, shard, whole_groups
+from ..launch.sharding import axis_size, like, linear, shard, whole_groups
 from .layers import apply_rope, attention, gelu, make_rope, mlp_act, mlp_gated, rms_norm, softcap, squared_relu
 
 __all__ = [
@@ -153,13 +153,13 @@ def _proj(x, w):
     w2 = w.reshape(w.shape[0], -1)
     if isinstance(w2, DTensor):  # heads split evenly, or replicated
         w2 = whole_groups(w2, 1, w.shape[1])
-        return whole_groups(x @ w2, -1, w.shape[1]).reshape(*x.shape[:-1], *w.shape[1:])
+        return whole_groups(linear(x, w2), -1, w.shape[1]).reshape(*x.shape[:-1], *w.shape[1:])
     return (x @ w2).reshape(*x.shape[:-1], *w.shape[1:])
 
 
 def _out_proj(out, wo):
     """``einsum("bshk,hkd->bsd", out, wo)`` as one matrix product."""
-    return out.reshape(*out.shape[:2], -1) @ wo.reshape(-1, wo.shape[-1])
+    return linear(out.reshape(*out.shape[:2], -1), wo.reshape(-1, wo.shape[-1]))
 
 
 def decode_position(pos, device) -> torch.Tensor:
@@ -175,28 +175,83 @@ def write_cache(cache: torch.Tensor, x: torch.Tensor, write_pos: torch.Tensor) -
     """Writes ``x (B, Sq, ...)`` into ``cache (B, S_max, ...)`` at rows
     ``write_pos .. write_pos + Sq - 1``, in place, and returns ``cache``. The
     start is clamped to ``[0, S_max - Sq]``, as ``dynamic_update_slice``
-    clamps it."""
+    clamps it. A DTensor cache is written on each rank's local shard; one
+    split on its sequence dim (``cache_pspecs``' long-context case) takes on
+    each rank the rows that fall in its block of slots (:func:`_write_block`)."""
     Sq, S_max = x.shape[1], cache.shape[1]
     idx = write_pos.clamp(0, S_max - Sq) + like(write_pos, torch.arange(Sq, device=cache.device))
     if isinstance(cache, DTensor):
-        x = x.to(cache.dtype).redistribute(cache.device_mesh, cache.placements)
+        x = x.to(cache.dtype).redistribute(cache.device_mesh, _off_seq(cache.placements))
+        if Shard(1) in cache.placements:
+            return _on_cache_shards(functools.partial(_write_block, start=_block_start(cache)), cache, idx, x)
         return _on_cache_shards(lambda c, i, xl: c.index_copy_(1, i, xl), cache, idx, x)
     return cache.index_copy_(1, idx, x.to(cache.dtype))
+
+
+def _off_seq(placements) -> list:
+    """``placements`` with the sequence dim's shards (``Shard(1)``) replicated."""
+    return [Replicate() if p == Shard(1) else p for p in placements]
+
+
+def _block_start(cache) -> int:
+    """The first global slot of this rank's block of ``cache``'s sequence dim."""
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    return compute_local_shape_and_global_offset(cache.shape, cache.device_mesh, cache.placements)[1][1]
+
+
+def _write_block(c, i, xl, start):
+    """The local body of a write into a cache split on its sequence dim:
+    ``c`` holds global slots ``[start, start + len)``; row ``r`` of ``xl``
+    goes to global slot ``i[r]``. One row (a decode step) is written where
+    it falls in the block, else its clamped slot gets its own value back, so
+    no rank moves its block. Several rows (a prefill into the cache) are
+    written by one pass over the block, each slot taking the row that lands
+    on it."""
+    n = c.shape[1]
+    if xl.shape[1] == 1:
+        j = i - start
+        inside = ((j >= 0) & (j < n)).view((1, -1) + (1,) * (c.dim() - 2))
+        j = j.clamp(0, n - 1)
+        return c.index_copy_(1, j, torch.where(inside, xl, c.index_select(1, j)))
+    r = torch.arange(start, start + n, device=c.device) - i[0]
+    inside = ((r >= 0) & (r < xl.shape[1])).view((1, -1) + (1,) * (c.dim() - 2))
+    return c.copy_(torch.where(inside, xl.index_select(1, r.clamp(0, xl.shape[1] - 1)), c))
+
+
+def _window_select(cache, idx):
+    """``cache.index_select(1, idx)`` of a DTensor cache, the selected slots
+    replicated on the sequence dim: each rank selects the slots it owns and
+    zeros the rest, and a sum over the mesh dims that split the sequence
+    gives every rank the window (``idx`` is small: the sliding window's
+    slots; the cache itself stays where it is)."""
+    pl = list(cache.placements)
+    if Shard(1) not in pl:
+        return _on_cache_shards(lambda c, i: c.index_select(1, i), cache, idx)
+    start = _block_start(cache)
+
+    def select(c, i):
+        j = i - start
+        inside = ((j >= 0) & (j < c.shape[1])).view((1, -1) + (1,) * (c.dim() - 2))
+        return c.index_select(1, j.clamp(0, c.shape[1] - 1)) * inside.to(c.dtype)
+
+    mesh = cache.device_mesh
+    out = local_map(select, out_placements=[Partial() if p == Shard(1) else p for p in pl],
+                    in_placements=(pl, [Replicate()] * mesh.ndim), device_mesh=mesh)(cache, idx)
+    return out.redistribute(mesh, _off_seq(pl))
 
 
 def _on_cache_shards(op, cache, idx, *xs):
     """``op(cache, idx, *xs)`` on each rank's local shards (``local_map``),
     for the cache ops along the sequence dim (1) that have no sharding rule
     in every torch version (``index_copy_``, ``index_select``): ``xs`` in
-    the cache's placements, ``idx`` replicated; the cache is not
-    redistributed, so an in-place op writes its local storage. A cache
-    split on its sequence dim raises ``NotImplementedError``."""
+    the cache's placements with the sequence dim replicated, ``idx``
+    replicated; the cache is not redistributed, so an in-place op writes
+    its local storage."""
     mesh, pl = cache.device_mesh, list(cache.placements)
-    if Shard(1) in pl:
-        raise NotImplementedError("a decode cache split on its sequence dim (cache_pspecs' long-context case)")
     rep = [Replicate()] * mesh.ndim
-    return local_map(op, out_placements=pl, in_placements=(pl, rep) + (pl,) * len(xs), device_mesh=mesh)(
-        cache, idx, *xs)
+    return local_map(op, out_placements=pl, in_placements=(pl, rep) + (_off_seq(pl),) * len(xs),
+                     device_mesh=mesh)(cache, idx, *xs)
 
 
 def layer_apply(cfg: ModelConfig, p, h, kind: str, rope_sincos, *, q_pos, kv_pos, cache_kv=None, write_pos=None,
@@ -230,8 +285,7 @@ def layer_apply(cfg: ModelConfig, p, h, kind: str, rope_sincos, *, q_pos, kv_pos
             start = (write_pos - cfg.window + 1).clamp(0, S_max - cfg.window)
             kv_pos_use = start + like(start, torch.arange(cfg.window, device=h.device))
             if isinstance(k_cache, DTensor):
-                k_use, v_use = (_on_cache_shards(lambda c, i: c.index_select(1, i), c, kv_pos_use)
-                                for c in (k_cache, v_cache))
+                k_use, v_use = (_window_select(c, kv_pos_use) for c in (k_cache, v_cache))
             else:
                 k_use, v_use = k_cache.index_select(1, kv_pos_use), v_cache.index_select(1, kv_pos_use)
     else:
@@ -354,7 +408,7 @@ def _logits(cfg: ModelConfig, params, h):
     for the backward pass and an in-place multiply would overwrite it."""
     h = rms_norm(h, params["ln_f"])
     head = params["emb"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = shard(h @ head.to(h.dtype), "batch", None, "tensor")  # before the in-place softcap
+    logits = shard(linear(h, head.to(h.dtype)), "batch", None, "tensor")  # before the in-place softcap
     if not cfg.logit_softcap:
         return logits.float()
     if torch.is_grad_enabled():

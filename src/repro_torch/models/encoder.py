@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from ..configs.base import ModelConfig
+from ..launch.sharding import linear, shard
 from .dense import _init_layer, cross_entropy, dense_init, stack_forward
 from .layers import rms_norm
 
@@ -45,11 +46,12 @@ def hubert_forward(params, cfg: ModelConfig, frames, mask=None):
     """``frames (B, S, frame_dim)``; ``mask (B, S)`` bool (True = masked:
     the frame's projection is replaced by ``mask_emb``). Returns float32
     logits ``(B, S, V)``."""
-    h = frames.to(cfg.cdtype()) @ params["frame_proj"]
+    h = linear(frames.to(cfg.cdtype()), params["frame_proj"])
     if mask is not None:
         h = torch.where(mask[..., None], params["mask_emb"].to(h.dtype), h)
+    h = shard(h, "batch", "act_seq", None)
     h, _ = stack_forward(cfg, params["layers"], h)
-    return (rms_norm(h, params["ln_f"]) @ params["head"]).float()
+    return shard(linear(rms_norm(h, params["ln_f"]), params["head"]).float(), "batch", None, "tensor")
 
 
 def hubert_loss(params, cfg: ModelConfig, batch):

@@ -38,6 +38,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..core.torch_dp import resolve_device
+from ..launch.sharding import like, linear, shard
 from .dense import _embed, _init_layer, _logits, _maybe_remat, cross_entropy, decode_position, dense_init, layer_apply
 from .layers import make_rope, rms_norm
 from .ssm import causal_conv1d, causal_conv1d_step, ssd_chunked, ssd_step
@@ -112,10 +113,11 @@ def _mamba_block(cfg, p, h, state=None, step=False):
     inner, H, P, N, conv_dim, _ = _dims(cfg)
     x = rms_norm(h, p["ln"])
     B, S = x.shape[0], x.shape[1]
-    proj = x @ p["in_proj"]
+    proj = linear(x, p["in_proj"])
     z = proj[..., :inner]
     xbc = proj[..., inner:inner + conv_dim]
     dt_pre = proj[..., inner + conv_dim:]  # (B,S,H)
+    xbc = shard(xbc, "batch", None, "tensor")
     conv_state = state[0] if state is not None else None
     if step:
         xbc, conv_state = causal_conv1d_step(xbc, p["conv_w"], conv_state)
@@ -137,11 +139,11 @@ def _mamba_block(cfg, p, h, state=None, step=False):
     y = y + xs * p["D"].to(y.dtype)[None, None, :, None]
     y = y.reshape(B, S, inner)
     y = rms_norm(y * F.silu(z), p["gn"])
-    return h + y @ p["out_proj"], (conv_state, ssd_state)
+    return h + linear(y, p["out_proj"]), (conv_state, ssd_state)
 
 
 def _shared_block(cfg, params, h, emb0, rope, q_pos, kv_pos, cache_kv=None, write_pos=None):
-    u = torch.cat([h, emb0], dim=-1) @ params["shared_in_proj"]
+    u = linear(torch.cat([h, emb0], dim=-1), params["shared_in_proj"])
     u, new_kv = layer_apply(
         cfg, params["shared"], u, "causal", rope, q_pos=q_pos, kv_pos=kv_pos,
         cache_kv=cache_kv, write_pos=write_pos,
@@ -177,7 +179,7 @@ def _group(cfg, layers, params, h, emb0, rope, q_pos, kv_pos, m_states, cache_kv
         h, st = _mamba_block(cfg, p, h, st, step=step)
         new_m.append(st)
     h, kv = _shared_block(cfg, params, h, emb0, rope, q_pos, kv_pos, cache_kv=cache_kv, write_pos=write_pos)
-    return h, new_m, kv
+    return shard(h, "batch", "act_seq", None), new_m, kv
 
 
 def _mamba_states(cfg, state, g):
@@ -202,7 +204,7 @@ def zamba_forward(params, cfg: ModelConfig, tokens, *, state=None, collect_state
     h = _embed(cfg, params, tokens)
     emb0 = h
     B, S = tokens.shape
-    pos = torch.arange(S, device=h.device)
+    pos = like(h, torch.arange(S, device=h.device))
     rope = make_rope(pos, cfg.hd, cfg.rope_base)
     period = cfg.shared_attn_every
     n_groups = cfg.num_layers // period
@@ -213,7 +215,7 @@ def zamba_forward(params, cfg: ModelConfig, tokens, *, state=None, collect_state
         if state["attn"][0].shape[2] != S:
             raise ValueError(f"a collect-state prefill needs an attention cache of exactly S = {S} slots (the "
                              f"reference masks its keys at arange(S)); got {state['attn'][0].shape[2]}")
-        write_pos = decode_position(0, h.device)
+        write_pos = like(h, decode_position(0, h.device))
     body = _maybe_remat(cfg, functools.partial(_group, cfg, step=False))
     m_all = []
     for g in range(n_groups):
@@ -237,10 +239,10 @@ def zamba_decode_step(params, cfg: ModelConfig, cache, tokens, pos):
     cache written in place, new conv and SSD states."""
     h = _embed(cfg, params, tokens)
     emb0 = h
-    pos = decode_position(pos, h.device)
+    pos = like(h, decode_position(pos, h.device))
     k_all, v_all = cache["attn"]
     q_pos = pos[None]
-    kv_pos = torch.arange(k_all.shape[2], device=h.device)
+    kv_pos = like(h, torch.arange(k_all.shape[2], device=h.device))
     rope = make_rope(q_pos, cfg.hd, cfg.rope_base)
     period = cfg.shared_attn_every
     m_all = []

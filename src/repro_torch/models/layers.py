@@ -16,7 +16,7 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor
 
 from ..kernels.flash_attention import flash_attention
-from ..launch.sharding import like
+from ..launch.sharding import like, linear
 
 __all__ = [
     "apply_rope",
@@ -159,6 +159,58 @@ def _attention_local_map(q, k, v, kv_valid, masks, local_attention):
                      device_mesh=mesh, redistribute_inputs=True)(q, k, v, kv_valid, *masks)
 
 
+def _attention_seq_sharded(q, k, v, q_pos, kv_pos, kind, window, prefix_len, attn_softcap, scale):
+    """Attention over a key/value cache split on its sequence dim (the
+    long-context decode cache), without gathering it: each rank forms the
+    float32 scores of its block of slots, the row maxima are combined by a
+    max and the exponentials' sums and the unnormalised outputs by a sum
+    over the mesh dims that split the sequence, as the plain route's
+    softmax would form them over the whole row. A head-dim split of the
+    cache (``cache_pspecs`` puts "model" there when the KV heads do not
+    divide it) is taken up by q too, and its partial scores are summed over
+    that mesh dim; a KV-head split splits q's heads alike; batch shards
+    stay. No gradient: a decode step."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh, kp = k.device_mesh, list(k.placements)
+    qp = [Replicate() if p == Shard(1) else p for p in kp]
+    seq = [mesh.get_group(i) for i, p in enumerate(kp) if p == Shard(1)]
+    hd = [mesh.get_group(i) for i, p in enumerate(kp) if p == Shard(3)]
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+
+    def body(ql, kl, vl, qpos, kvpos, pl):
+        B, Sq, H, D = ql.shape
+        Hkv = kl.shape[2]
+        qf = (ql * scale).float().reshape(B, Sq, Hkv, H // Hkv, D)
+        logits = torch.einsum("bqhgd,bkhd->bhgqk", qf, kl.float())
+        for g in hd:
+            dist.all_reduce(logits, group=g)
+        if attn_softcap:
+            logits = softcap(logits, attn_softcap)
+        mask = _build_mask(qpos, kvpos, kind, window, pl)[None, None, None]
+        logits = logits.masked_fill(~mask, -1e30)
+        m = logits.amax(dim=-1, keepdim=True)
+        for g in seq:
+            dist.all_reduce(m, op=dist.ReduceOp.MAX, group=g)
+        e = torch.exp(logits - m)
+        total = e.sum(dim=-1)  # (B, Hkv, G, Sq)
+        out = torch.einsum("bhgqk,bkhd->bqhgd", e, vl.float())
+        for g in seq:
+            dist.all_reduce(total, group=g)
+            dist.all_reduce(out, group=g)
+        out = out / total.permute(0, 3, 1, 2)[..., None]
+        return out.reshape(B, Sq, H, vl.shape[-1]).to(vl.dtype)
+
+    rep = [Replicate()] * mesh.ndim
+    kv_pos_pl = [Shard(0) if p == Shard(1) else Replicate() for p in kp]
+    pl_pl = rep if isinstance(prefix_len, DTensor) else None
+    with torch.no_grad():
+        return local_map(body, out_placements=qp, in_placements=(qp, kp, kp, rep, kv_pos_pl, pl_pl), device_mesh=mesh,
+                         redistribute_inputs=True)(q, k, v, q_pos, kv_pos, prefix_len)
+
+
 def attention(
     q: torch.Tensor,  # (B, Sq, H, D)
     k: torch.Tensor,  # (B, Sk, Hkv, D)
@@ -193,6 +245,8 @@ def attention(
     On DTensors either route runs on each rank's local shards
     (:func:`_attention_local_map`).
     """
+    if isinstance(k, DTensor) and any(p.is_shard(1) for p in k.placements) and kv_valid is None:
+        return _attention_seq_sharded(q, k, v, q_pos, kv_pos, kind, window, prefix_len, attn_softcap, scale)
     if isinstance(q, DTensor):
         def local_attention(ql, kl, vl, valid, qp, kvp, pl):
             return attention(ql, kl, vl, q_pos=qp, kv_pos=kvp, kind=kind, window=window, prefix_len=pl,
@@ -247,10 +301,10 @@ def squared_relu(x):
 
 def mlp_gated(params, x, act=F.silu):
     """SwiGLU-style: ``(act(x W_gate) * x W_in) W_out``."""
-    h = act(x @ params["w_gate"]) * (x @ params["w_in"])
-    return h @ params["w_out"]
+    h = act(linear(x, params["w_gate"])) * linear(x, params["w_in"])
+    return linear(h, params["w_out"])
 
 
 def mlp_act(params, x, act):
     """Plain two-matrix MLP with activation (gelu / squared-relu / ...)."""
-    return act(x @ params["w_in"]) @ params["w_out"]
+    return linear(act(linear(x, params["w_in"])), params["w_out"])

@@ -17,7 +17,7 @@ from __future__ import annotations
 import torch
 
 from ..configs.base import ModelConfig
-from ..launch.sharding import like, shard
+from ..launch.sharding import like, linear, shard
 from .dense import _out_proj, _proj, dense_init, write_cache
 from .layers import apply_rope, attention, make_rope, rms_norm
 
@@ -46,9 +46,9 @@ def init_mla(cfg: ModelConfig, gen: torch.Generator):
 
 def _latents(cfg: ModelConfig, p, x):
     """The compressed latents and the rope key: ``(c_q, c_kv, k_r)``."""
-    cq = rms_norm(x @ p["w_dq"], p["q_ln"])
-    ckv = rms_norm(x @ p["w_dkv"], p["kv_ln"])
-    kr = x @ p["w_kr"]  # (B, S, rd), shared across heads
+    cq = rms_norm(linear(x, p["w_dq"]), p["q_ln"])
+    ckv = rms_norm(linear(x, p["w_dkv"]), p["kv_ln"])
+    kr = linear(x, p["w_kr"])  # (B, S, rd), shared across heads
     return cq, ckv, kr
 
 

@@ -24,7 +24,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..core.torch_dp import resolve_device
-from ..launch.sharding import axis_size, like, shard
+from ..launch.sharding import axis_size, like, linear, shard
 from .dense import (
     _embed,
     _init_layer,
@@ -210,7 +210,7 @@ def moe_loss(params, cfg: ModelConfig, batch):
         # embedding of the NEXT token, one extra layer, predict t + 2
         nxt_emb = _embed(cfg, params, tokens[:, 1:-1])
         h_in = rms_norm(torch.cat([rms_norm(h, params["ln_f"]), nxt_emb], dim=-1), params["mtp"]["ln_in"])
-        h2 = h_in @ params["mtp"]["proj"]
+        h2 = linear(h_in, params["mtp"]["proj"])
         pos = like(h2, torch.arange(h2.shape[1], device=h2.device))
         rope = make_rope(pos, cfg.hd, cfg.rope_base)
         h2, _ = layer_apply(cfg, params["mtp"]["layer"], h2, "causal", rope, q_pos=pos, kv_pos=pos)

@@ -24,29 +24,46 @@ which tokens the capacity drops.
 from __future__ import annotations
 
 import functools
+import math
 from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from ..configs.base import ModelConfig
-from ..launch.sharding import current_mesh, rules
+from ..launch.sharding import current_mesh, mesh_shape, rules, whole_rows, whole_rows_grad
 
 __all__ = ["einsum_capacity", "moe_ffn", "route"]
 
 
 def route(cfg: ModelConfig, x2d: torch.Tensor, router_w: torch.Tensor):
     """x2d ``(T, d)`` -> ``(gate_w (T, k) float32, gate_idx (T, k) int64,
-    aux)``, the router in float32."""
+    aux)``, the router in float32. On DTensors the top k are taken on each
+    rank's rows under ``local_map``, the experts whole (the sort is an
+    index-style op: torch 2.11's DTensor cannot run its backward, whose
+    scatter meets a plain tensor)."""
     probs = torch.softmax(x2d.float() @ router_w.float(), dim=-1)
-    gate_w, gate_idx = torch.sort(probs, dim=-1, descending=True, stable=True)
-    gate_w, gate_idx = gate_w[:, :cfg.top_k], gate_idx[:, :cfg.top_k]
+    top_k = functools.partial(_top_k, k=cfg.top_k)
+    if isinstance(probs, DTensor):
+        pl = [Replicate() if p.is_partial() or p == Shard(1) else p for p in probs.placements]
+        top_k = local_map(top_k, out_placements=(pl, pl), in_placements=(pl,), device_mesh=probs.device_mesh,
+                          redistribute_inputs=True)
+    gate_w, gate_idx = top_k(probs)
     gate_w = gate_w / gate_w.sum(-1, keepdim=True).clamp_min(1e-9)
     # load-balance aux: E * sum_e f_e * P_e
     E = cfg.num_experts
     f_e = F.one_hot(gate_idx, E).float().mean(dim=(0, 1))  # fraction routed, slot-averaged
     aux = E * torch.sum(f_e * probs.mean(dim=0))
     return gate_w, gate_idx, aux
+
+
+def _top_k(probs, k):
+    """The ``k`` largest probabilities of each row and their experts, from
+    a stable descending sort (``jax.lax.top_k``'s order among ties)."""
+    gate_w, gate_idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return gate_w[:, :k], gate_idx[:, :k]
 
 
 def _expert_mlp(experts, xs):
@@ -161,12 +178,45 @@ def _a2a_local(x, gate_w, gate_idx, w_gate, w_in, w_out, *, cfg, group, n_peers,
     return y.to(x.dtype)
 
 
+def _ep_ranks(mesh, ep_axes) -> list:
+    """The ranks of each expert group of ``mesh`` (a ``DeviceMesh``, or a
+    stand-in with ``axis_names`` and a ``shape`` mapping, whose ranks are
+    laid out row-major as ``init_device_mesh`` lays them): one list per
+    position on the other axes, holding the ranks in the order of the
+    expert blocks that ``Shard(0)`` on each of ``ep_axes`` gives them. DTensor
+    nests the shards in mesh-dim order, so the block index is the ranks'
+    coordinates on ``ep_axes`` read major first, as the reference's
+    ``all_to_all`` over an axis tuple numbers its peers."""
+    shape = mesh_shape(mesh)
+    names = list(shape)
+    grid = getattr(mesh, "mesh", None)
+    grid = torch.arange(math.prod(shape.values())).reshape(tuple(shape.values())) if grid is None else grid.cpu()
+    rest = [names.index(a) for a in names if a not in ep_axes]
+    grid = grid.permute(rest + [names.index(a) for a in ep_axes])
+    return grid.reshape(-1, math.prod(shape[a] for a in ep_axes)).tolist()
+
+
+_EP_GROUPS = {}
+
+
 def _ep_group(mesh, ep_axes):
-    """The process group over the expert axis. The ``expert`` rule names
-    one mesh axis in every configuration; two or more raise."""
-    if len(ep_axes) != 1:
-        raise NotImplementedError(f"moe_impl='a2a' over the expert axes {ep_axes}: one axis only")
-    return mesh.get_group(ep_axes[0])
+    """The process group of this rank's expert group: the expert axis's
+    own group, or for several axes one flattened group over them
+    (``DeviceMesh._flatten``, made once per mesh and axes by every rank)
+    whose rank ``i`` holds expert block ``i`` (:func:`_ep_ranks`)."""
+    if len(ep_axes) == 1:
+        return mesh.get_group(ep_axes[0])
+    key = (id(mesh), tuple(ep_axes))
+    if key not in _EP_GROUPS:
+        import torch.distributed as dist
+
+        group = mesh[tuple(ep_axes)]._flatten("_".join(ep_axes)).get_group()
+        want = next(r for r in _ep_ranks(mesh, ep_axes) if dist.get_rank() in r)
+        if dist.get_process_group_ranks(group) != want:
+            raise RuntimeError(f"the flattened expert group's ranks {dist.get_process_group_ranks(group)} are not "
+                               f"in the expert blocks' order {want}")
+        _EP_GROUPS[key] = (mesh, group)
+    return _EP_GROUPS[key][1]
 
 
 def _moe_a2a(cfg: ModelConfig, x2d, experts, gate_w, gate_idx):
@@ -174,9 +224,6 @@ def _moe_a2a(cfg: ModelConfig, x2d, experts, gate_w, gate_idx):
     every mesh axis (data major), experts ``Shard(0)`` over the ``expert``
     rule's axes; ``y`` comes back in ``x2d``'s placements (a partial sum
     there replicated)."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
-    from torch.distributed.tensor.experimental import local_map
-
     if not isinstance(x2d, DTensor):
         raise TypeError("moe_impl='a2a' under an active mesh needs DTensor activations")
     mesh = current_mesh()
@@ -210,7 +257,7 @@ def moe_ffn(cfg: ModelConfig, p, x: torch.Tensor) -> Tuple[torch.Tensor, torch.T
     """p: ``{router (d, E), experts {w_gate, w_in, w_out} (E, ...)[, shared
     {...}]}``. x ``(B, S, d)`` -> ``(y (B, S, d), aux)``."""
     B, S, d = x.shape
-    x2d = x.reshape(B * S, d)
+    x2d = whole_rows(x).reshape(B * S, d)
     gate_w, gate_idx, aux = route(cfg, x2d, p["router"])
 
     impl = cfg.moe_impl
@@ -228,4 +275,5 @@ def moe_ffn(cfg: ModelConfig, p, x: torch.Tensor) -> Tuple[torch.Tensor, torch.T
     if "shared" in p:  # deepseek-style always-on shared expert(s)
         sh = p["shared"]
         y = y + (F.silu(x2d @ sh["w_gate"]) * (x2d @ sh["w_in"])) @ sh["w_out"]
-    return y.reshape(B, S, d), aux
+    y = y.reshape(B, S, d)
+    return (whole_rows_grad(y) if isinstance(y, DTensor) else y), aux

@@ -28,6 +28,13 @@ float32 rounding:
   the sLSTM's bfloat16 recurrent weights are widened to float32 before they
   meet the float32 ``h``: ``z_t`` and ``h`` come out float32, as in the
   reference.
+
+Under a mesh (DTensor arguments) each cell runs once on every rank's local
+shards (:func:`repro_torch.launch.sharding.local_shards`): the cells are
+independent per batch row and per head, the convs per channel, so batch
+goes to the batch axes and heads (channels) to the tensor axes, where they
+divide them. DTensor's host dispatch is then paid once per cell call, not
+once per chunk or per sLSTM time step.
 """
 
 from __future__ import annotations
@@ -36,7 +43,10 @@ import functools
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
+
+from ..launch.sharding import local_shards
 
 __all__ = [
     "causal_conv1d",
@@ -50,6 +60,18 @@ __all__ = [
 ]
 
 
+# logical specs of the cells' arguments (batch, length, heads or channels, ...)
+_BLC = ("batch", None, "tensor")  # also (B, L, H) gates, (B, K-1, C) conv states
+_BLHD = ("batch", None, "tensor", None)
+_BH = ("batch", "tensor")
+_BHD = ("batch", "tensor", None)
+_BHDD = ("batch", "tensor", None, None)
+_BN = ("batch", None)
+_BLN = ("batch", None, None)
+_H = ("tensor",)
+_HDD = ("tensor", None, None)
+
+
 def _chunk_remat(fn):
     """``fn`` under ``torch.utils.checkpoint`` when grad mode is on (the
     reference's ``jax.checkpoint`` with ``nothing_saveable`` on each chunk):
@@ -58,6 +80,13 @@ def _chunk_remat(fn):
     if torch.is_grad_enabled():
         return functools.partial(checkpoint, fn, use_reentrant=False, preserve_rng_state=False)
     return fn
+
+
+def _flat(out):
+    """A cell's ``(y, state_tuple)`` as one flat tuple (``local_shards``
+    takes flat outputs)."""
+    y, state = out
+    return (y, *state)
 
 
 def _n_chunks(L: int, chunk: int) -> int:
@@ -75,6 +104,8 @@ def _n_chunks(L: int, chunk: int) -> int:
 def causal_conv1d(x: torch.Tensor, w: torch.Tensor, state=None):
     """x: (B, L, C); w: (K, C) depthwise. Returns (y, new_state) where
     state is the trailing K-1 inputs for streaming decode."""
+    if isinstance(x, DTensor):
+        return local_shards(causal_conv1d, (x, w, state), (_BLC, (None, "tensor"), _BLC), (_BLC, _BLC))
     K = w.shape[0]
     if state is None:
         pad = x.new_zeros((x.shape[0], K - 1, x.shape[2]))
@@ -89,6 +120,8 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor, state=None):
 
 def causal_conv1d_step(x_t: torch.Tensor, w: torch.Tensor, state: torch.Tensor):
     """x_t: (B, 1, C); state: (B, K-1, C)."""
+    if isinstance(x_t, DTensor):
+        return local_shards(causal_conv1d_step, (x_t, w, state), (_BLC, (None, "tensor"), _BLC), (_BLC, _BLC))
     window = torch.cat([state.to(x_t.dtype), x_t], dim=1)  # (B, K, C)
     y = (window * w).sum(dim=1)[:, None, :]
     return y, window[:, 1:, :]
@@ -151,6 +184,9 @@ def ssd_chunked(x, dt, A, B, C, chunk: int, state=None):
     ``chunk`` float32 products, formed in another order than XLA's, so the
     two differ by float32 rounding that grows with the chunk length.
     """
+    if isinstance(x, DTensor):
+        return local_shards(lambda *a: ssd_chunked(*a[:5], chunk, a[5]), (x, dt, A, B, C, state),
+                            (_BLHD, _BLC, _H, _BLN, _BLN, _BHDD), (_BLHD, _BHDD))
     Bsz, L, H, P = x.shape
     N = B.shape[-1]
     nc = _n_chunks(L, chunk)
@@ -171,6 +207,9 @@ def ssd_chunked(x, dt, A, B, C, chunk: int, state=None):
 def ssd_step(x_t, dt_t, A, B_t, C_t, state):
     """One decode step. x_t (B, H, P); dt_t (B, H); B_t, C_t (B, N);
     state (B, H, P, N). Returns (y (B, H, P), new_state)."""
+    if isinstance(x_t, DTensor):
+        return local_shards(ssd_step, (x_t, dt_t, A, B_t, C_t, state), (_BHD, _BH, _H, _BN, _BN, _BHDD),
+                            (_BHD, _BHDD))
     dt32 = dt_t.float()
     dec = torch.exp(dt32 * A.float()[None, :])  # (B, H)
     upd = (dt32[..., None] * x_t.float())[..., None] * B_t.float()[:, None, None, :]  # (B,H,P,N)
@@ -227,6 +266,11 @@ def mlstm_chunked(q, k, v, i_pre, f_pre, chunk: int, state=None):
     state: optional (S (B,H,DK,DV), n (B,H,DK), m (B,H)).
     Returns: h (B, L, H, DV) in v's dtype, (S, n, m) final, float32.
     """
+    if isinstance(q, DTensor):
+        h, *new = local_shards(lambda *a: _flat(mlstm_chunked(*a[:5], chunk, None if a[5] is None else a[5:])),
+                               (q, k, v, i_pre, f_pre, *(state or (None,))),
+                               (_BLHD, _BLHD, _BLHD, _BLC, _BLC, _BHDD, _BHD, _BH), (_BLHD, _BHDD, _BHD, _BH))
+        return h, tuple(new)
     Bsz, L, H, DK = q.shape
     DV = v.shape[-1]
     nc = _n_chunks(L, chunk)
@@ -261,6 +305,10 @@ def mlstm_chunked(q, k, v, i_pre, f_pre, chunk: int, state=None):
 def mlstm_step(q_t, k_t, v_t, i_t, f_t, state):
     """One decode step. q_t,k_t (B,H,DK); v_t (B,H,DV); i_t,f_t (B,H);
     state (S, n, m). Returns (h (B,H,DV), new_state)."""
+    if isinstance(q_t, DTensor):
+        h, *new = local_shards(lambda *a: _flat(mlstm_step(*a[:5], a[5:])), (q_t, k_t, v_t, i_t, f_t, *state),
+                               (_BHD, _BHD, _BHD, _BH, _BH, _BHDD, _BHD, _BH), (_BHD, _BHDD, _BHD, _BH))
+        return h, tuple(new)
     S, n, m = (s.float() for s in state)
     DK = q_t.shape[-1]
     logf = F.logsigmoid(f_t.float())
@@ -286,6 +334,10 @@ def mlstm_step(q_t, k_t, v_t, i_t, f_t, state):
 
 def slstm_step(z_t, i_t, f_t, o_t, state):
     """z,i,f,o: (B, H, D) pre-activations; state (c, n, m) each (B, H, D)."""
+    if isinstance(z_t, DTensor):
+        h, *new = local_shards(lambda *a: _flat(slstm_step(*a[:4], a[4:])), (z_t, i_t, f_t, o_t, *state),
+                               (_BHD,) * 7, (_BHD,) * 4)
+        return h, tuple(new)
     c, n, m = state
     logf = F.logsigmoid(f_t.float())
     logi = i_t.float()
@@ -313,12 +365,19 @@ def slstm_scan(z, i_pre, f_pre, o_pre, r_weights, state=None, unroll: int = 16):
     is a GSPMD device for sharded gradients; both are the identity on one
     device.
     """
+    gates = ("rz", "ri", "rf", "ro")
+    if isinstance(z, DTensor):
+        h, *new = local_shards(
+            lambda *a: _flat(slstm_scan(*a[:4], dict(zip(gates, a[4:8])), None if a[8] is None else a[8:])),
+            (z, i_pre, f_pre, o_pre, *(r_weights[g] for g in gates), *(state or (None,))),
+            (_BLHD,) * 4 + (_HDD,) * 4 + (_BHD,) * 4, (_BLHD,) + (_BHD,) * 4)
+        return h, tuple(new)
     Bsz, L, H, D = z.shape
     if state is None:
         zeros = z.new_zeros((Bsz, H, D), dtype=torch.float32)
         state = (zeros, zeros, z.new_full((Bsz, H, D), -1e30, dtype=torch.float32), zeros)
     c, n, m, h_prev = state
-    w = torch.cat([r_weights[k].float() for k in ("rz", "ri", "rf", "ro")], dim=-1)  # (H, D, 4D)
+    w = torch.cat([r_weights[k].float() for k in gates], dim=-1)  # (H, D, 4D)
     pre = torch.stack([z, i_pre, f_pre, o_pre], dim=2)  # (B, L, 4, H, D)
     hs = []
     for t in range(L):

@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from ..configs.base import ModelConfig
+from ..launch.sharding import linear, shard
 from .dense import (
     _embed,
     _logits,
@@ -50,10 +51,10 @@ def init_paligemma(cfg: ModelConfig, gen: torch.Generator):
 def _fuse(params, cfg: ModelConfig, patches, tokens):
     """The projected patches (scaled by sqrt(d_model) in their own dtype
     where the embedding is) before the text embeddings: ``(B, P + S, d)``."""
-    img = patches.to(cfg.cdtype()) @ params["patch_proj"]
+    img = linear(patches.to(cfg.cdtype()), params["patch_proj"])
     if cfg.scale_embedding:
         img = img * torch.tensor(cfg.d_model ** 0.5, dtype=img.dtype, device=img.device)
-    return torch.cat([img, _embed(cfg, params, tokens)], dim=1)
+    return shard(torch.cat([img, _embed(cfg, params, tokens)], dim=1), "batch", None, None)
 
 
 def paligemma_forward(params, cfg: ModelConfig, patches, tokens, *, collect_cache=False):

@@ -30,6 +30,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..core.torch_dp import resolve_device
+from ..launch.sharding import linear, shard, whole_groups
 from .dense import _embed, _logits, _maybe_remat, cross_entropy, dense_init
 from .layers import rms_norm
 from .ssm import causal_conv1d, causal_conv1d_step, mlstm_chunked, mlstm_step, slstm_scan, slstm_step
@@ -128,8 +129,9 @@ def _mlstm_block(cfg, p, h, state=None, step=False):
     (h, new_state)."""
     inner, H, DK, DV = _dims(cfg)
     x = rms_norm(h, p["ln"])
-    up = x @ p["w_up"]
+    up = linear(x, p["w_up"])
     xm, z = up[..., :inner], up[..., inner:]
+    xm = shard(xm, "batch", None, "tensor")
     conv_state = state[0] if state is not None else None
     if step:
         xc, conv_state = causal_conv1d_step(xm, p["conv_w"], conv_state)
@@ -137,13 +139,14 @@ def _mlstm_block(cfg, p, h, state=None, step=False):
         xc, conv_state = causal_conv1d(xm, p["conv_w"], conv_state)
     xc = F.silu(xc)
     B, S = x.shape[0], x.shape[1]
-    xc_h = xc.reshape(B, S, H, DV)  # per-head input stream (DV == inner/H)
-    xm_h = xm.reshape(B, S, H, DV)
+    # per-head input stream (DV == inner/H); on a mesh the heads stay whole
+    xc_h = whole_groups(xc, -1, H).reshape(B, S, H, DV)
+    xm_h = whole_groups(xm, -1, H).reshape(B, S, H, DV)
     q = torch.einsum("bshp,hpk->bshk", xc_h, p["wq_m"])
     k = torch.einsum("bshp,hpk->bshk", xc_h, p["wk_m"])
     v = torch.einsum("bshp,hpk->bshk", xm_h, p["wv_m"])
-    i_pre = xm @ p["wi_gate"]
-    f_pre = xm @ p["wf_gate"] + p["f_bias"].float()
+    i_pre = linear(xm, p["wi_gate"])
+    f_pre = linear(xm, p["wf_gate"]) + p["f_bias"].float()
 
     cell_state = state[1] if state is not None else None
     if step:
@@ -153,8 +156,9 @@ def _mlstm_block(cfg, p, h, state=None, step=False):
         y, cell_state = mlstm_chunked(q, k, v, i_pre, f_pre, chunk=min(cfg.chunk_size, S), state=cell_state)
     # per-head groupnorm + gate
     y = rms_norm(y, p["gn"])  # (B,S,H,DV) normalized over DV
-    y = y.reshape(B, S, inner) * F.silu(z)
-    return h + y @ p["out_proj"], (conv_state, cell_state)
+    # whole_groups pins the gradient to whole heads (it cannot split them)
+    y = whole_groups(y.reshape(B, S, inner), -1, H) * F.silu(z)
+    return h + linear(y, p["out_proj"]), (conv_state, cell_state)
 
 
 def _slstm_block(cfg, p, h, state=None, step=False):
@@ -163,7 +167,8 @@ def _slstm_block(cfg, p, h, state=None, step=False):
     D = d // H
     x = rms_norm(h, p["ln"])
     B, S = x.shape[0], x.shape[1]
-    zifo = (x @ p["w_zifo"].reshape(d, -1)).reshape(B, S, 4, H, D)
+    # the gates lead the product's columns: whole before they are unbound
+    zifo = whole_groups(linear(x, p["w_zifo"].reshape(d, -1)), -1).reshape(B, S, 4, H, D)
     z, i_pre, f_pre, o_pre = zifo.unbind(2)
     f_pre = f_pre + p["f_bias"].to(zifo.dtype).reshape(H, D)
     r = {k: p[k] for k in ("rz", "ri", "rf", "ro")}
@@ -182,7 +187,7 @@ def _slstm_block(cfg, p, h, state=None, step=False):
     else:
         y, new_state = slstm_scan(z, i_pre, f_pre, o_pre, r, state)
     y = rms_norm(y.to(h.dtype), p["gn"])  # the recurrent path is float32
-    return h + y.reshape(B, S, d) @ p["out_proj"], new_state
+    return h + linear(whole_groups(y.reshape(B, S, d), -1, H), p["out_proj"]), new_state
 
 
 def _group_apply(cfg, mlstm, slstm, h, m_states, s_state, step=False):
@@ -194,7 +199,7 @@ def _group_apply(cfg, mlstm, slstm, h, m_states, s_state, step=False):
         h, st = _mlstm_block(cfg, p, h, st, step=step)
         new_m.append(st)
     h, new_s = _slstm_block(cfg, slstm, h, s_state, step=step)
-    return h, new_m, new_s
+    return shard(h, "batch", "act_seq", None), new_m, new_s
 
 
 def _group_states(cfg, state, g):

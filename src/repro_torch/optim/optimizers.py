@@ -36,6 +36,9 @@ import math
 from typing import Any, Callable, NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import zeros as dtensor_zeros
 
 __all__ = [
     "AdafactorState", "AdamState", "Optimizer", "adafactor", "adamw", "apply_updates", "get_optimizer", "momentum",
@@ -71,8 +74,29 @@ def apply_updates(params, updates):
     (the reference returns a new tree with the same values). Returns
     ``params``."""
     with torch.no_grad():
-        tree_map(lambda p, u: p.add_(u), params, updates)
+        tree_map(lambda p, u: _local(p).add_(_local(u, p)), params, updates)
     return params
+
+
+def _local(x, like=None):
+    """The local tensor of ``x`` in ``like``'s placements (default: its
+    own) when ``x`` is a DTensor, else ``x``: the optimizers' arithmetic is
+    elementwise, or reduces over the dims a leaf is split on explicitly, so
+    it runs on each rank's local shards, with no DTensor dispatch per
+    operation."""
+    if not isinstance(x, DTensor):
+        return x
+    if like is not None and x.placements != like.placements:
+        x = x.redistribute(like.device_mesh, like.placements)
+    return x.to_local()
+
+
+def _like(local, p):
+    """``local`` as the DTensor placed as ``p`` (``local`` itself if ``p``
+    is a plain tensor)."""
+    if not isinstance(p, DTensor):
+        return local
+    return DTensor.from_local(local, p.device_mesh, p.placements, run_check=False, shape=p.shape, stride=p.stride())
 
 
 def _as(x: float, dtype: torch.dtype) -> float:
@@ -140,10 +164,11 @@ def adamw(
             bc2 = 1 - torch.tensor(b2, dtype=torch.float32, device=t.device) ** t
 
             def upd(g, m, v, p):
-                m.mul_(_as(b1, m.dtype)).add_(_as(1 - b1, g.dtype) * g)
-                v.mul_(_as(b2, v.dtype)).add_(_as(1 - b2, v.dtype) * g.float().square())
-                u = (m.float() / bc1) / ((v / bc2).sqrt() + eps) + _as(weight_decay, p.dtype) * p
-                return (-lr * u).to(p.dtype)
+                gl, ml, vl, pl = _local(g, p), _local(m), _local(v), _local(p)
+                ml.mul_(_as(b1, ml.dtype)).add_(_as(1 - b1, gl.dtype) * gl)
+                vl.mul_(_as(b2, vl.dtype)).add_(_as(1 - b2, vl.dtype) * gl.float().square())
+                u = (ml.float() / bc1) / ((vl / bc2).sqrt() + eps) + _as(weight_decay, pl.dtype) * pl
+                return _like((-lr * u).to(pl.dtype), p)
 
             updates = tree_map(upd, grads, state.mu, state.nu, params)
         return updates, AdamState(step=step, mu=state.mu, nu=state.nu)
@@ -165,6 +190,23 @@ def _stack_lead(stacks, name, layers) -> tuple:
     if math.prod(lead) != len(layers):
         raise ValueError(f"adafactor: stacks[{name!r}] = {lead} does not hold {len(layers)} layers")
     return lead
+
+
+def _stacked(p, lead: tuple):
+    """``(shape, placements)`` of leaf ``p`` stacked on the leading axes
+    ``lead``: a DTensor's placements with each ``Shard(d)`` moved past
+    them (the stacked axes are never split), ``None`` for a plain tensor."""
+    pl = None
+    if isinstance(p, DTensor):
+        pl = [Shard(q.dim + len(lead)) if isinstance(q, Shard) else q for q in p.placements]
+    return lead + tuple(p.shape), pl
+
+
+def _stacked_leaves(params, stacks):
+    """The stacked tree's leaves as ``(shape, placements)``
+    (:func:`_stacked`), in the layout of :func:`_stack_tree`."""
+    return {name: tree_map(lambda p, lead=_stack_lead(stacks, name, x): _stacked(p, lead), x[0])
+            if isinstance(x, list) else tree_map(lambda p: _stacked(p, ()), x) for name, x in params.items()}
 
 
 def _stack_tree(tree, stacks):
@@ -200,31 +242,32 @@ def adafactor(
     stacks = dict(stacks or {})
 
     def init(params):
-        device = tree_leaves(params)[0].device
-        shapes = {name: tree_map(lambda p, lead=_stack_lead(stacks, name, x): lead + tuple(p.shape), x[0])
-                  if isinstance(x, list) else tree_map(lambda p: tuple(p.shape), x) for name, x in params.items()}
+        first = tree_leaves(params)[0]
 
-        def zeros(shape):
-            return torch.zeros(shape, dtype=torch.float32, device=device)
+        def zeros(leaf, drop):
+            """Zeros of the leaf's shape without dim ``drop`` (counted from
+            the end; none for a leaf of rank < 2, a 0-d zero for vc there)."""
+            shape, pl = leaf
+            if len(shape) >= 2:
+                n = len(shape)
+                keep = [d for d in range(n) if d != n - drop]
+                shape = tuple(shape[d] for d in keep)
+                pl = pl and [Shard(keep.index(p.dim)) if isinstance(p, Shard) and p.dim in keep else
+                             (Replicate() if isinstance(p, Shard) else p) for p in pl]
+            elif drop == 2:
+                shape, pl = (), pl and [Replicate()] * len(pl)
+            if pl is None:
+                return torch.zeros(shape, dtype=torch.float32, device=first.device)
+            return dtensor_zeros(shape, dtype=torch.float32, device_mesh=first.device_mesh, placements=pl)
 
-        return AdafactorState(
-            step=torch.zeros((), dtype=torch.int32, device=device),
-            vr=tree_map(lambda s: zeros(s[:-1] if len(s) >= 2 else s), shapes),
-            vc=tree_map(lambda s: zeros(s[:-2] + s[-1:] if len(s) >= 2 else ()), shapes),
-        )
+        leaves = _stacked_leaves(params, stacks)
+        return AdafactorState(step=torch.zeros((), dtype=torch.int32, device=first.device),
+                              vr=tree_map(lambda lf: zeros(lf, 1), leaves), vc=tree_map(lambda lf: zeros(lf, 2), leaves))
 
     def update(grads, state, params):
         with torch.no_grad():
             step = state.step + 1
             beta = 1.0 - (step.float() + 1.0) ** (-decay)
-
-            def mean(x, dim=None, keepdim=False):
-                """A float32 mean summed in float64: the correctly rounded
-                mean, within float32 summation-order noise of the
-                reference's."""
-                if dim is None:
-                    return x.mean(dtype=torch.float64).float()
-                return x.mean(dim=dim, keepdim=keepdim, dtype=torch.float64).float()
 
             def sqrt(x):
                 """The correctly rounded float32 square root, through
@@ -232,7 +275,31 @@ def adafactor(
                 within an ulp)."""
                 return x.double().sqrt().float()
 
-            def upd(g, vr, vc):
+            def upd(g, vr, vc, leaf):
+                shape, pl = leaf
+                split = {}  # dim of the stacked leaf -> the mesh dims (of size > 1) that split it
+                for i, q in enumerate(pl or ()):
+                    if isinstance(q, Shard) and mesh.size(i) > 1:
+                        split.setdefault(q.dim, []).append(i)
+
+                def mean(x, dim=None, keepdim=False):
+                    """A float32 mean summed in float64: the correctly rounded
+                    mean, within float32 summation-order noise of the
+                    reference's. ``x``'s dims are the stacked leaf's first
+                    ones; over a split dim the local sums are added over
+                    the mesh dims that split it (an all-reduce)."""
+                    if not split:
+                        m = x.mean(dtype=torch.float64) if dim is None else x.mean(dim=dim, keepdim=keepdim,
+                                                                                     dtype=torch.float64)
+                        return m.float()
+                    dims = range(x.dim()) if dim is None else [dim % x.dim()]
+                    m = x.sum(dtype=torch.float64) if dim is None else x.sum(dim=dim, keepdim=keepdim,
+                                                                             dtype=torch.float64)
+                    for i in sorted({i for d in dims for i in split.get(d, ())}):
+                        dist.all_reduce(m, group=mesh.get_group(i))
+                    return (m / math.prod(shape[d] for d in dims)).float()
+
+                vr, vc = _local(vr), _local(vc)
                 g32 = g.float()
                 g2 = g32.square() + eps
                 if g.dim() >= 2:
@@ -249,9 +316,14 @@ def adafactor(
                 pre = pre / (rms / clip_threshold).clamp_min(1.0)
                 return -lr * pre
 
-            g_stacked = _stack_tree(grads, stacks)
-            u_stacked = tree_map(upd, g_stacked, state.vr, state.vc)
-            updates = tree_map(lambda u, p: u.to(p.dtype), _unstack_tree(u_stacked, params), params)
+            # on DTensors every leaf's arithmetic runs on its local shards:
+            # the gradients in the parameters' placements, stacked locally
+            first = tree_leaves(params)[0]
+            mesh = first.device_mesh if isinstance(first, DTensor) else None
+            local_params = tree_map(_local, params)
+            g_stacked = _stack_tree(tree_map(_local, grads, params), stacks)
+            u_stacked = tree_map(upd, g_stacked, state.vr, state.vc, _stacked_leaves(params, stacks))
+            updates = tree_map(lambda u, p: _like(u.to(p.dtype), p), _unstack_tree(u_stacked, local_params), params)
         return updates, AdafactorState(step=step, vr=state.vr, vc=state.vc)
 
     return Optimizer(init, update)

@@ -27,7 +27,7 @@ from repro_torch.configs import get_config
 from repro_torch.launch import sharding as shd
 from repro_torch.launch import steps
 from repro_torch.models.model import init_cache, init_params, layer_stacks
-from repro_torch.models.moe_dispatch import _ep_group
+from repro_torch.models.moe_dispatch import _ep_ranks
 
 # the reference's stand-in mesh (tests/test_sharding_and_hlo_analysis.py)
 class FakeMesh:
@@ -249,9 +249,24 @@ def test_spec_to_placements():
         shd.spec_to_placements(("pod",), mesh)
 
 
-def test_a2a_refuses_more_than_one_expert_axis():
-    with pytest.raises(NotImplementedError, match="one axis only"):
-        _ep_group(SmallMesh(), ("data", "model"))
+@pytest.mark.parametrize("mesh", [SmallMesh(), FakeMesh()], ids=["2x4", "16x16"])
+def test_a2a_groups_hold_the_expert_blocks_in_order(mesh):
+    """The expert groups of a2a (``_ep_ranks``, which ``_ep_group`` checks
+    its flattened group against) against the blocks that the experts'
+    ``Shard(0)`` on each expert axis gives the ranks of a row-major mesh:
+    DTensor splits the expert dim over the mesh dims in order, so the rank
+    at (data d, model m) holds block ``d * M + m`` of ``("data",
+    "model")``, and block ``m`` of ``("model",)`` within its row ``d``."""
+    D, M = mesh.shape["data"], mesh.shape["model"]
+    rank = lambda d, m: d * M + m  # noqa: E731
+    both = _ep_ranks(mesh, ("data", "model"))
+    assert len(both) == 1 and len(both[0]) == D * M
+    for d in range(D):
+        for m in range(M):
+            assert both[0][d * M + m] == rank(d, m)
+    rows = _ep_ranks(mesh, ("model",))
+    assert rows == [[rank(d, m) for m in range(M)] for d in range(D)]
+    assert _ep_ranks(mesh, ("data",)) == [[rank(d, m) for d in range(D)] for m in range(M)]
 
 
 def test_shard_is_the_identity_without_a_mesh_and_refuses_plain_tensors_under_one(meshes):
