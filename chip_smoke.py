@@ -320,6 +320,7 @@ import contextlib
 import io
 import json
 import math
+import os
 import re
 import itertools
 import statistics
@@ -652,6 +653,19 @@ DIST_PALI_SERVE_B = 1
 DIST_OLMOE_LAYERS, DIST_OLMOE_F32_LAYERS = 4, 2
 DIST_MLA_CAPACITY = 8.0
 DIST_ZOO_ROUNDS = 1  # (d)-(h)'s turns: one round keeps the script within 850 s
+# Phase 20: the dry run. (a) Two combos of the reference's dry run on the
+# production mesh, (data, model) = (16, 16) over a fake process group of 256
+# ranks: gemma2-2b train_4k and olmoe-1b-7b prefill_32k (MoE a2a), each
+# ``python -m repro_torch.launch.dryrun`` in its own process (it opens the
+# default process group), the two at once and beside (b), each within
+# DRYRUN_TIMEOUT s, also counting the same step unsharded. (b) The counter
+# on the card: gemma2-2b FULL at phase 10's shape on the plain route,
+# unsharded; its FLOPs and bytes from the fake trace must equal those of the
+# same step run on the card, and DRYRUN_STEPS timed steps (CUDA events) are
+# printed beside the roofline's terms.
+DRYRUN_COMBOS = (("gemma2-2b", "train_4k"), ("olmoe-1b-7b", "prefill_32k"))
+DRYRUN_TIMEOUT = 170
+DRYRUN_STEPS = 3
 
 
 def check(cond, msg):
@@ -1148,6 +1162,50 @@ def bwd_limits(want, dtype):
     return BWD_BF16_RTOL, BWD_BF16_ATOL_REL * float(want.abs().max())
 
 
+def ref64(fa, q, k, v, o, lse, do, kind, window, softcap, scale):
+    """``(dq, dk, dv)`` as ``flash_attention_bwd_ref`` forms them, in float64
+    from the same inputs (the kernel's ``o`` and ``lse`` among them, so the
+    only difference from the kernel is the kernel's own rounding); and the
+    largest distances of that ``lse`` and ``o`` from a float64 forward."""
+    B, H, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    G = H // Hkv
+    qf = (q.double() * scale).reshape(B, Hkv, G, Sq, D)
+    kf, vf = k.double()[:, :, None], v.double()[:, :, None]
+    dof = do.double().reshape(B, Hkv, G, Sq, D)
+    masked = ~fa.flash_mask(Sq, Sk, kind, window, q.device)
+    s = torch.matmul(qf, kf.transpose(-1, -2))
+    t = (s / softcap).tanh() if softcap else None
+    s = (t * softcap if softcap else s).masked_fill(masked, float("-inf"))
+    lse64 = torch.logsumexp(s, dim=-1, keepdim=True)
+    d_lse = float((lse64.reshape(lse.shape) - lse.double()).abs().max())
+    d_o = float((torch.matmul((s - lse64).exp(), vf).reshape(o.shape) - o.double()).abs().max())
+    del lse64
+    p = (s - lse.double().reshape(B, Hkv, G, Sq, 1)).exp()
+    del s
+    delta = (dof * o.double().reshape(B, Hkv, G, Sq, D)).sum(-1, keepdim=True)
+    ds = (torch.matmul(dof, vf.transpose(-1, -2)) - delta) * p
+    if softcap:
+        ds = ds * (1 - t * t)
+    ds = ds.masked_fill(masked, 0.0)
+    dq = torch.matmul(ds, kf).mul(scale).reshape(B, H, Sq, D)
+    dk = torch.matmul(ds.transpose(-1, -2), qf).sum(2)
+    dv = torch.matmul(p.transpose(-1, -2), dof).sum(2)
+    return (dq, dk, dv), d_lse, d_o
+
+
+def f64_limits(w64: torch.Tensor) -> torch.Tensor:
+    """Per-entry limits of a bfloat16 backward kernel's gradient against
+    the float64 plain backward ``w64`` on the same inputs: one bfloat16 ulp
+    at each float64 value's binade, plus BWD_BF16_ATOL_REL of its largest
+    entry. One ulp, not half: the kernel rounds its float32 sum once, and
+    that sum may lie across a rounding boundary from the float64 value (on
+    gemma2-2b's random-init gradients: kernel 4.7684e-7 = 2^-21, float64
+    4.7961e-7, a gap of 2.77e-9 against the ulp of 2^-28 = 3.73e-9 there;
+    that float64 value came from its own forward's lse and o)."""
+    return ulp(w64, torch.bfloat16) + BWD_BF16_ATOL_REL * float(w64.abs().max())
+
+
 def bwd_err(fa, got, args, kind, window, softcap, scale=None):
     """Holds the kernels' ``(dq, dk, dv)`` against the plain backward on the
     widened inputs. Returns (ok, [max |g - want|], want)."""
@@ -1163,7 +1221,7 @@ def bwd_err(fa, got, args, kind, window, softcap, scale=None):
     return ok, errs, want
 
 
-def tile_margins(fa, args, want, kind, window, softcap):
+def tile_margins(fa, args, want, kind, window, softcap, lims=None):
     """What one tile visited wrongly would do at this shape, beside the limit.
 
     For every q tile, the contribution to dq of its diagonal K/V tile (the
@@ -1172,7 +1230,10 @@ def tile_margins(fa, args, want, kind, window, softcap):
     visits). Skipping, repeating or mis-masking such a tile moves the
     gradient by that contribution. Returns, for dq, dk and dv, the smallest
     over the tiles of (its contribution's largest entry, that entry over the
-    largest deviation the check allows on the tile's rows)."""
+    largest deviation the check allows on the tile's rows). Given ``lims``
+    (per-entry limits of dq, dk and dv, as :func:`f64_limits` gives them),
+    the second is the largest ratio of the contribution to the limit over
+    the tile's entries."""
     q, k, v, o, lse, do = args
     B, H, S, D = q.shape
     Hkv = k.shape[1]
@@ -1202,23 +1263,29 @@ def tile_margins(fa, args, want, kind, window, softcap):
             ds = ds * (1 - t * t)
         return r1, c1, p, torch.where(m, ds, 0.0)
 
-    def margin(contrib, w, i):
-        rtol, atol = limits[i]
+    def margin(contrib, w, i, lim=None):
         c = float(contrib.abs().max())
+        if lim is not None:
+            return c, float((contrib.abs() / lim).max())
+        rtol, atol = limits[i]
         return c, c / (atol + rtol * float(w.abs().max()))
 
+    lq = None if lims is None else lims[0].reshape(B, Hkv, G, S, D)
     out = {"dq": [], "dk": [], "dv": []}
     BQ, BK = dq_tile
     for r0 in range(0, S, BQ):
         c0 = (min(r0 + BQ, S) - 1) // BK * BK
         r1, c1, _, ds = tile(r0, c0, BQ, BK)
-        out["dq"].append(margin(ds @ kf[..., c0:c1, :] * scale, dq_w[..., r0:r1, :], 0))
+        out["dq"].append(margin(ds @ kf[..., c0:c1, :] * scale, dq_w[..., r0:r1, :], 0,
+                                None if lims is None else lq[..., r0:r1, :]))
     BQ, BK = dkv_tile
     for c0 in range(0, S, BK):
         r0 = c0 // BQ * BQ
         r1, c1, p, ds = tile(r0, c0, BQ, BK)
-        out["dk"].append(margin((ds.transpose(-1, -2) @ qf[..., r0:r1, :]).sum(2), want[1][:, :, c0:c1], 1))
-        out["dv"].append(margin((p.transpose(-1, -2) @ dof[..., r0:r1, :]).sum(2), want[2][:, :, c0:c1], 2))
+        out["dk"].append(margin((ds.transpose(-1, -2) @ qf[..., r0:r1, :]).sum(2), want[1][:, :, c0:c1], 1,
+                                None if lims is None else lims[1][:, :, c0:c1]))
+        out["dv"].append(margin((p.transpose(-1, -2) @ dof[..., r0:r1, :]).sum(2), want[2][:, :, c0:c1], 2,
+                                None if lims is None else lims[2][:, :, c0:c1]))
     return {name: (min(c for c, _ in vals), min(m for _, m in vals)) for name, vals in out.items()}
 
 
@@ -3415,8 +3482,12 @@ def run_with_bwd_launches_held(fa, what, part, *args, cases=SSM_FLASH_BWD_CASES,
     holds each against the plain backward on the same inputs
     (:func:`bwd_err`) and checks that the shape is one of ``cases``, which
     phase 9 held (the window compared only for a sliding launch: the other
-    kinds ignore it). With ``values=False`` the shape is held and the
-    comparison only printed. Returns ``part``'s result."""
+    kinds ignore it). With ``values="float64"`` (bfloat16 launches) the
+    values are held instead against a float64 plain backward on the same
+    inputs (:func:`ref64`) within :func:`f64_limits`, and the check is shown
+    to still catch a tile visited wrongly (:func:`tile_margins` under those
+    limits: every diagonal tile's contribution exceeds them somewhere).
+    Returns ``part``'s result."""
     seen = {}
 
     def record(out, q, k, v, o, lse, do, kind="causal", window=0, softcap=0.0, scale=None):
@@ -3436,17 +3507,49 @@ def run_with_bwd_launches_held(fa, what, part, *args, cases=SSM_FLASH_BWD_CASES,
         *shape, dtype = key
         check(sig(*shape) in allowed, f"{what}: a flash backward launch at {tuple(shape)}, which phase 9 did not hold "
                                       f"against the plain version")
-        ok, errs, _ = bwd_err(fa, got, inputs, *shape[5:], scale)
-        if values:
+        ok, errs, want = bwd_err(fa, got, inputs, *shape[5:], scale)
+        if values == "float64":
+            check(dtype == torch.bfloat16, f"{what}: a float64-held backward launch in {dtype}")
+            held_f64(fa, what, tag, key, inputs, got, want, scale)
+        else:
             check(ok, f"{what}: the flash backward at {key} != plain on its inputs (max |d dq|, |d dk|, |d dv| "
                       f"{errs})")
-        verdict = "within" if ok else "NOT within (printed, not held)"
+        verdict = "within" if ok else "NOT within (printed; held against float64)"
         log(f"[{tag}] {what}: backward launch (B, H, Hkv, S, D, kind, window, softcap) {tuple(shape)} {dtype}, the "
             f"first of its shape: {verdict} phase 9's tolerance of the plain backward on its own inputs (max |d dq| "
             f"{errs[0]:.3e}, |d dk| {errs[1]:.3e}, |d dv| {errs[2]:.3e})")
-        del inputs, got
+        del inputs, got, want
         torch.cuda.empty_cache()
     return result
+
+
+def held_f64(fa, what, tag, key, inputs, got, want, scale):
+    """Holds a bfloat16 backward launch's ``got = (dq, dk, dv)`` against the
+    float64 plain backward on its ``inputs`` within :func:`f64_limits`, and
+    checks that a tile visited wrongly would still fail that limit
+    (:func:`tile_margins`, every ratio above 1)."""
+    q, k, v, o, lse, do = inputs
+    kind, window, softcap = key[5:8]
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    w64, d_lse, d_o = ref64(fa, q, k, v, o, lse, do, kind, window, softcap, scale)
+    lims = [f64_limits(w) for w in w64]
+    parts = []
+    for name, g, w6, lim, w32 in zip(("dq", "dk", "dv"), got, w64, lims, want):
+        ratio = (g.double() - w6).abs() / lim
+        worst = float(ratio.max())
+        check(worst <= 1.0, f"{what}: the flash backward's {name} at {key} lies {worst:.3f}x the float64 limit from "
+                            f"the float64 plain backward")
+        parts.append(f"{name} worst {worst:.3f}x the limit (kernel max |d| {float((g.double() - w6).abs().max()):.3e}"
+                     f", float32 plain {float((w32.double() - w6).abs().max()):.3e})")
+    margins = tile_margins(fa, inputs, want, kind, window, softcap, lims=[lim.float() for lim in lims])
+    for name, (c, m) in margins.items():
+        check(m > 1.0, f"{what}: a {name} tile visited wrongly moves it by at most {m:.3f}x the float64 limit")
+    log(f"[{tag}] {what}: backward launch {key[:8]} held against the float64 plain backward (1 bf16 ulp at its "
+        f"binade + {BWD_BF16_ATOL_REL} of its largest entry; forward |lse - lse64| {d_lse:.3e}, |o - o64| "
+        f"{d_o:.3e}): " + "; ".join(parts) + "; one tile visited wrongly (smallest contribution, its ratio to the "
+        "limit): " + ", ".join(f"{n} {c:.3e} {m:.1f}x" for n, (c, m) in margins.items()))
+    del w64, lims
+    torch.cuda.empty_cache()
 
 
 def ssm_prefix_decode(params, cfg, tokens):
@@ -5213,15 +5316,16 @@ def dist_adafactor_part(fa, dev, card, mesh):
 
     cfg = get_config(ARCH).replace(attn_impl="flash", optimizer="adafactor")
     batch = make_dummy_batch(cfg, B_TRAIN, S_TRAIN, "train", np.random.default_rng(SEED), device=dev)
-    # the backward launches' shapes are held, their values printed: on
-    # this step's random-init gradients (|dk| under 1e-6, sums of 8,192
-    # terms with cancellation) the kernels' bf16 outputs lie a bf16 ulp
-    # from the float32 plain backward, whose own distance from a float64
-    # one is as large, and phase 9's bf16 limit (half an ulp at the bottom
-    # of a binade) then fails on a few of 8.4 M entries
+    # the backward launches' shapes are held, their values against a
+    # float64 plain backward: on this step's random-init gradients (|dk|
+    # under 1e-6, sums of 8,192 terms with cancellation) the kernels' bf16
+    # outputs lie a bf16 ulp from the float32 plain backward, whose own
+    # distance from a float64 one is as large, and phase 9's bf16 limit
+    # (half an ulp at the bottom of a binade) fails on a few of 8.4 M
+    # entries
     what = f"(h) {ARCH} FULL, train ({B_TRAIN}, {S_TRAIN}) under Adafactor"
     ada = run_with_bwd_launches_held(fa, what, dist_train_pair, fa, what, cfg, batch, mesh, {"act_seq": "model"}, dev,
-                                     card, cases=DIST_TRAIN_FLASH_BWD_CASES, tag="dist", values=False)
+                                     card, cases=DIST_TRAIN_FLASH_BWD_CASES, tag="dist", values="float64")
     del batch
     torch.cuda.empty_cache()
 
@@ -5332,6 +5436,114 @@ def distributed_phase(fa, dev, card):
     return launches, dict(train=train, moe=moe, serve=serve, **parts)
 
 
+def dryrun_phase(card, dev, kernel_step_ms):
+    """Phase 20: the dry run (the constants' comment). ``kernel_step_ms`` is
+    phase 10's warm kernel-route step. Stops both subprocesses whatever
+    happens."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import build_train_step
+    from repro_torch.launch.dryrun import count_step
+    from repro_torch.launch.hlo_analysis import CostCounter
+    from repro_torch.launch.roofline import HW, roofline_terms_from_cost
+    from repro_torch.models import init_params, make_dummy_batch
+
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    out_dir = root / "build" / "dryrun"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    env = {**os.environ, "PYTHONPATH": str(root / "src")}
+    procs = {}
+    for arch, shape in DRYRUN_COMBOS:
+        out = out_dir / f"{arch}.{shape}.pod.json"
+        out.unlink(missing_ok=True)
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape, "--mesh", "pod",
+               "--device", dev.type, "--unsharded", "--out", str(out)]
+        procs[(arch, shape)] = (out, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                                                      env=env, cwd=str(root)))
+    try:
+        # (b) the counter on the card, while (a) runs on the host's other cores
+        cfg = get_config(ARCH).replace(attn_impl="plain")
+        shape = InputShape("phase10", S_TRAIN, B_TRAIN, "train")
+        fake, fake_s, memory = count_step(cfg, shape, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        m0 = torch.cuda.memory_allocated()
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED))
+        step, opt = build_train_step(cfg)
+        state = opt.init(params)
+        batch = make_dummy_batch(cfg, B_TRAIN, S_TRAIN, "train", np.random.default_rng(SEED), device=dev)
+        torch.cuda.synchronize()
+        placed = torch.cuda.memory_allocated() - m0
+        leaves = tree_leaves_of((params, state, batch))
+        n_tensors = len(leaves)
+        # the caching allocator rounds a block up to 512 B, and leaves a
+        # large block's (over 1 MiB) tail unsplit when it is at most 1 MiB
+        slack = sum((1 << 20) + 512 if t.numel() * t.element_size() > 1 << 20 else 512 for t in leaves)
+        check(0 <= placed - memory["argument_bytes"] <= slack,
+              f"(b) the placed parameters, optimizer state and batch take {placed} B on the card, the fake trace's "
+              f"argument_bytes {memory['argument_bytes']} (allocator rounding over {n_tensors} tensors: at most "
+              f"{slack} B)")
+        with CostCounter() as real:
+            params, state, loss = step(params, state, batch)
+        torch.cuda.synchronize()
+        check(math.isfinite(float(loss)), f"(b) loss {float(loss)}")
+        check(real.cost.flops == fake.cost.flops and real.cost.mem_bytes == fake.cost.mem_bytes,
+              f"(b) the counter on the card (FLOPs {real.cost.flops:.6e}, bytes {real.cost.mem_bytes:.6e}) != the "
+              f"fake trace (FLOPs {fake.cost.flops:.6e}, bytes {fake.cost.mem_bytes:.6e})")
+        ms = []
+        for _ in range(DRYRUN_STEPS):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            params, state, loss = step(params, state, batch)
+            end.record()
+            torch.cuda.synchronize()
+            ms.append(start.elapsed_time(end))
+        plain_ms = statistics.median(ms)
+        terms = roofline_terms_from_cost(fake.cost)
+        log(f"[dryrun] {card}")
+        log(f"[dryrun] (b) {ARCH} FULL train step, plain route, B={B_TRAIN} S={S_TRAIN}, unsharded: counted on the "
+            f"card {real.cost.flops:.6e} FLOPs, {real.cost.mem_bytes:.6e} B (2 x result bytes), equal to the fake "
+            f"trace's ({fake_s:.2f} s); roofline with HW {HW}: t_compute {1e3 * terms['t_compute_s']:.3f} ms, "
+            f"t_memory {1e3 * terms['t_memory_s']:.3f} ms ({terms['dominant']}); measured plain-route step "
+            f"{plain_ms:.3f} ms (CUDA events, median of {DRYRUN_STEPS}: {', '.join(f'{x:.3f}' for x in ms)}), "
+            f"phase 10's kernel-route step {kernel_step_ms:.3f} ms; argument_bytes {memory['argument_bytes']} B "
+            f"against {placed} B allocated for the placed parameters, optimizer state and batch ({n_tensors} "
+            f"tensors, {placed - memory['argument_bytes']} B of allocator rounding, at most {slack})")
+        del params, state, batch, step, opt
+        torch.cuda.empty_cache()
+
+        # (a) the production mesh
+        results = {}
+        for (arch, shape), (out, proc) in procs.items():
+            try:
+                stdout, stderr = proc.communicate(timeout=max(1.0, DRYRUN_TIMEOUT - (time.perf_counter() - t_phase)))
+            except subprocess.TimeoutExpired:
+                raise RuntimeError(f"check failed: (a) the dry run of {arch} {shape} took over {DRYRUN_TIMEOUT} s")
+            check(proc.returncode == 0, f"(a) the dry run of {arch} {shape} exited {proc.returncode}: {stderr[-2000:]}")
+            r = json.loads(out.read_text())
+            results[(arch, shape)] = r
+            check(r["status"] == "ok" and r["n_chips"] == 256 and r["collectives"]["total"] > 0,
+                  f"(a) {arch} {shape}: status {r['status']}, n_chips {r.get('n_chips')}, collective bytes "
+                  f"{r.get('collectives', {}).get('total')}")
+            t = r["roofline"]
+            un = r["unsharded"]["flops"]
+            log(f"[dryrun] (a) {arch} {shape} on (16, 16): per device {t['hlo_flops_per_device']:.6e} FLOPs, "
+                f"{t['hlo_bytes_per_device']:.6e} B, {t['collective_bytes_per_device']:.6e} collective B "
+                f"({r['collectives']['_counts']}); t_compute {t['t_compute_s']:.6e} s, t_memory "
+                f"{t['t_memory_s']:.6e} s, t_collective {t['t_collective_s']:.6e} s -> {t['dominant']}; trace "
+                f"{r['lower_s']} s (unsharded {r['unsharded']['lower_s']} s); per-device FLOPs x 256 "
+                f"{256 * t['hlo_flops_per_device']:.6e} against the unsharded step's {un:.6e} (ratio "
+                f"{256 * t['hlo_flops_per_device'] / un:.4f}); memory (rank 0) {r['memory']}")
+    finally:
+        for _, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+            proc.communicate()
+    log(f"[dryrun] phase 20 wall time {time.perf_counter() - t_phase:.1f} s")
+    return results
+
+
 def main() -> int:
     # -- phase 1: device ---------------------------------------------------
     if not torch.cuda.is_available():
@@ -5422,7 +5634,7 @@ def main() -> int:
 
     # -- phases 9-11: the flash backward kernels and gemma2-2b training -----
     bwd_main, dq_err, dkv_err = flash_bwd_phase(fa, dev)
-    cfg, tokens, launches_train, _ = train_phase(fa, mp, dev, card)
+    cfg, tokens, launches_train, train_figs = train_phase(fa, mp, dev, card)
     train_f32_check(fa, dev, cfg, {"tokens": tokens})
     dq_t, dkv_t = flash_bwd_times(fa, bwd_main, card)
     del bwd_main
@@ -5455,6 +5667,9 @@ def main() -> int:
     # -- phase 19: the LM zoo over torch.distributed -------------------------------
     dist_launches, _ = distributed_phase(fa, dev, card)
     dist_train = dist_launches["train"]
+
+    # -- phase 20: the dry run ------------------------------------------------------
+    dryrun_phase(card, dev, train_figs["warm_ms"])
 
     kernels = [{
         "name": "minplus_cuda",

@@ -3,7 +3,8 @@ dK/dV launch of each kind (causal, sliding) in gemma2-2b FULL's train step
 at ``chip_smoke.py`` phase 10's shape (B = 1, S = 8,192, bf16, remat
 "full"; ``init_params`` from ``torch.Generator`` seed 0), held against the
 plain float32 backward (``flash_attention_bwd_ref``, phase 9's limits) and
-against a float64 backward formed the same way on the same inputs.
+against a float64 backward formed the same way on the same inputs, the
+kernel's forward ``o`` and ``lse`` among them (``chip_smoke.ref64``).
 
     python3 scripts/flash_bwd_model_grads.py [adafactor|adamw]
 
@@ -24,32 +25,6 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-
-
-def ref64(fa, q, k, v, o, lse, do, kind, window, softcap, scale):
-    """``(dq, dk, dv)`` as ``flash_attention_bwd_ref`` forms them, in float64
-    from the same inputs, with the float64 forward's lse and output; and
-    the largest distances of the kernel's forward lse and output from them."""
-    B, H, Sq, D = q.shape
-    Hkv, Sk = k.shape[1], k.shape[2]
-    G = H // Hkv
-    qf = (q.double() * scale).reshape(B, Hkv, G, Sq, D)
-    kf, vf = k.double()[:, :, None], v.double()[:, :, None]
-    dof = do.double().reshape(B, Hkv, G, Sq, D)
-    masked = ~fa.flash_mask(Sq, Sk, kind, window, q.device)
-    t = (torch.matmul(qf, kf.transpose(-1, -2)) / softcap).tanh()
-    s = (t * softcap).masked_fill(masked, float("-inf"))
-    lse64 = torch.logsumexp(s, dim=-1, keepdim=True)
-    p = (s - lse64).exp()
-    o64 = torch.matmul(p, vf)
-    delta = (dof * o64).sum(-1, keepdim=True)
-    ds = ((torch.matmul(dof, vf.transpose(-1, -2)) - delta) * p * (1 - t * t)).masked_fill(masked, 0.0)
-    dq = torch.matmul(ds, kf).mul(scale).reshape(B, H, Sq, D)
-    dk = torch.matmul(ds.transpose(-1, -2), qf).sum(2)
-    dv = torch.matmul(p.transpose(-1, -2), dof).sum(2)
-    d_lse = float((lse64.reshape(lse.shape) - lse.double()).abs().max())
-    d_o = float((o64.reshape(o.shape) - o.double()).abs().max())
-    return (dq, dk, dv), d_lse, d_o
 
 
 def main() -> int:
@@ -88,7 +63,7 @@ def main() -> int:
         scale = q.shape[-1] ** -0.5 if scale is None else scale
         want = fa.flash_attention_bwd_ref(q.float(), k.float(), v.float(), o.float(), lse, do.float(), kind,
                                           window, softcap, scale)
-        w64, d_lse, d_o = ref64(fa, q, k, v, o, lse, do, kind, window, softcap, scale)
+        w64, d_lse, d_o = cs.ref64(fa, q, k, v, o, lse, do, kind, window, softcap, scale)
         print(f"{kind} window {window} softcap {softcap}: forward |lse - lse64| {d_lse:.3e}, |o - o64| {d_o:.3e}",
               flush=True)
         for name, g, w, w6 in zip(("dq", "dk", "dv"), got, want, w64):

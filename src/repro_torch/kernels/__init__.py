@@ -20,7 +20,7 @@ Import it as a module; it is not re-exported here, so
 ``kernels.flash_attention`` stays the module.
 """
 
-from .blocked import auto_block_sizes, minplus_blocked_batch
+from .blocked import auto_block_sizes, minplus_blocked, minplus_blocked_batch
 from .minplus import (
     hopper_tile_sizes,
     minplus_backtrack_cuda,
@@ -39,6 +39,7 @@ __all__ = [
     "backtrack_ref",
     "hopper_tile_sizes",
     "minplus_backtrack_cuda",
+    "minplus_blocked",
     "minplus_blocked_batch",
     "minplus_cuda",
     "minplus_cuda_batch",

@@ -32,6 +32,7 @@ from .ref import BIG, _big
 
 __all__ = [
     "auto_block_sizes",
+    "minplus_blocked",
     "minplus_blocked_batch",
     "pad_band_inputs",
     "DEFAULT_BLOCK_BUDGET_BYTES",
@@ -138,3 +139,13 @@ def minplus_blocked_batch(
         iout[:, base : base + BT] = best_idx.to(torch.int32)
     return kout[:, :Tp].contiguous(), iout[:, :Tp].contiguous()
 
+
+
+def minplus_blocked(kprev: torch.Tensor, cost: torch.Tensor, *, BT: int | None = None, BW: int | None = None):
+    """One blocked DP row update: the ``B = 1`` slice of
+    :func:`minplus_blocked_batch` (same contract as
+    :func:`repro_torch.kernels.ref.minplus_step_ref`): ``kprev (T+1,)``,
+    ``cost (W,)`` -> ``(T+1,)`` float32 values and int32 first-min argmins."""
+    kprev = torch.as_tensor(kprev)
+    kout, iout = minplus_blocked_batch(kprev[None], torch.as_tensor(cost, device=kprev.device)[None], BT=BT, BW=BW)
+    return kout[0], iout[0]

@@ -1,7 +1,10 @@
 """Launchers of the port: the mesh context and sharding rules
 (``sharding.py``, ``mesh.py``), step builders (``steps.py``), the FL training
-launcher (``train.py``, ``python -m repro_torch.launch.train``) and the
-serving launcher (``serve.py``, ``python -m repro_torch.launch.serve``).
+launcher (``train.py``, ``python -m repro_torch.launch.train``), the
+serving launcher (``serve.py``, ``python -m repro_torch.launch.serve``) and
+the dry run (``dryrun.py``, ``python -m repro_torch.launch.dryrun``, its own
+process; with the per-device cost counter ``hlo_analysis.py`` and the H100
+roofline ``roofline.py``).
 
 The step builders load on first use: the models import ``sharding`` from
 this package, and ``steps`` imports the models."""

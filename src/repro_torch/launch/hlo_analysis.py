@@ -1,0 +1,218 @@
+"""Per-device cost of one step, counted on the local shards, after the JAX
+package's ``launch/hlo_analysis.py``.
+
+The reference reads its costs from the partitioned HLO text of a compiled
+step: ``analyze_hlo`` walks the module, expands ``while`` bodies by their
+trip counts (``cost_analysis()`` counts a scanned layer stack once) and
+counts an in-place dynamic-update-slice by its update. The port has no
+HLO and no such walker: its layer loop is Python, so a traced step runs
+every layer, and there is no trip count to expand and no loop body counted
+once. Its counterpart is :class:`CostCounter`, a ``TorchDispatchMode``
+that fills the same record, :class:`HloCost`, while the step runs (on fake
+tensors over a fake process group in the dry run,
+:mod:`repro_torch.launch.dryrun`, or on real tensors on the card):
+
+  * flops      -- the matmul-class ops, by the formulas that
+    ``torch.utils.flop_counter`` registers (mm, addmm, bmm, baddbmm,
+    convolutions, scaled-dot-product attention), applied to the shapes the
+    op runs at on this device. A DTensor op is not counted itself: the
+    counter steps aside (``NotImplemented``), DTensor runs the op on the
+    local shards, and the counter counts that local op. ``local_map``
+    bodies run on local tensors and are counted the same way. (torch's
+    ``FlopCounterMode`` counts a DTensor op at its global shapes and a
+    ``local_map`` body at its local ones, so its total is neither the
+    global nor the per-device count.) Elementwise FLOPs are ignored, as
+    the reference ignores them. The ops DTensor runs at the global shapes
+    to propagate an output's shape are not counted;
+  * mem_bytes  -- 2 x the result bytes of every local op that is not a
+    view or an allocation: a read-plus-write proxy for HBM traffic. It is
+    not comparable to the reference's count: XLA fuses elementwise chains
+    and counts a fusion's result once, while eager PyTorch writes every
+    intermediate, so this count is larger for the same step;
+  * coll_bytes -- the collectives that reach the dispatcher: the
+    ``_c10d_functional`` ops (DTensor's redistributions: all-gather,
+    all-reduce, reduce-scatter, all-to-all) and the ``c10d`` ops that
+    ``torch.distributed``'s calls issue (MoE's all-to-all, Adafactor's
+    all-reduced means, the sequence-split decode cache's all-reduces),
+    each from its local result bytes and its group size, with the
+    reference's ring multipliers (:func:`repro_torch.launch.roofline.ring_bytes`).
+
+``CostCounter.by_op`` keeps calls, FLOPs and bytes per op, so that a
+difference between two counts can be explained; ``CostCounter.records``
+keeps ``(op, local result bytes, group size)`` per collective, the input of
+:func:`repro_torch.launch.roofline.collective_bytes`.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+from dataclasses import dataclass, field
+from typing import Dict, List, Tuple
+
+import torch
+from torch.distributed.tensor import DTensor
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils.flop_counter import flop_registry
+
+from .roofline import COLLECTIVES as _COLLECTIVES
+from .roofline import ring_bytes
+
+__all__ = ["CostCounter", "HloCost"]
+
+
+@dataclass
+class HloCost:
+    flops: float = 0.0
+    mem_bytes: float = 0.0
+    coll_bytes: Dict[str, float] = field(default_factory=lambda: {c: 0.0 for c in _COLLECTIVES})
+    coll_counts: Dict[str, int] = field(default_factory=lambda: {c: 0 for c in _COLLECTIVES})
+
+    @property
+    def coll_total(self) -> float:
+        return float(sum(self.coll_bytes.values()))
+
+    def add(self, other: "HloCost", mult: float = 1.0, mem: bool = True):
+        self.flops += mult * other.flops
+        if mem:
+            self.mem_bytes += mult * other.mem_bytes
+        for c in _COLLECTIVES:
+            self.coll_bytes[c] += mult * other.coll_bytes[c]
+            self.coll_counts[c] += int(mult * other.coll_counts[c])
+
+
+# collective ops -> the reference's op; a functional op's local result is
+# its output, a c10d op's the tensor(s) it writes in place (its first
+# argument)
+_FUNCTIONAL = {
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_out": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "all_reduce": "all-reduce",
+    "all_reduce_": "all-reduce",
+    "all_reduce_coalesced": "all-reduce",
+    "all_reduce_coalesced_": "all-reduce",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_to_all_single": "all-to-all",
+}
+_C10D = {
+    "allreduce_": "all-reduce",
+    "allreduce_coalesced_": "all-reduce",
+    "allgather_": "all-gather",
+    "_allgather_base_": "all-gather",
+    "allgather_into_tensor_coalesced_": "all-gather",
+    "reduce_scatter_": "reduce-scatter",
+    "_reduce_scatter_base_": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced_": "reduce-scatter",
+    "alltoall_base_": "all-to-all",
+    "alltoall_": "all-to-all",
+}
+# allocations, and the wait on a collective: no memory traffic
+_NO_TRAFFIC = {"empty", "empty_strided", "empty_like", "new_empty", "new_empty_strided", "wait_tensor"}
+
+
+def _tensors(x) -> List[torch.Tensor]:
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, (list, tuple)):
+        return [t for e in x for t in _tensors(e)]
+    return []
+
+
+def _nbytes(x) -> int:
+    return sum(t.numel() * t.element_size() for t in _tensors(x))
+
+
+def _group_size(args, kwargs) -> int:
+    """The size of the process group an op names: an explicit
+    ``group_size``, a ``group_name``, or a ``ProcessGroup`` argument."""
+    import torch.distributed as dist
+
+    if "group_size" in kwargs:
+        return int(kwargs["group_size"])
+    for a in (*args, *kwargs.values()):
+        if isinstance(a, torch.ScriptObject):
+            return dist.ProcessGroup.unbox(a).size()
+    name = kwargs.get("group_name", args[-1])
+    return torch._C._distributed_c10d._resolve_process_group(name).size()
+
+
+def _collective(func, args, kwargs, out):
+    """``(op, local result bytes, group size)`` of a collective, else
+    ``None``."""
+    ns, name = func.namespace, func._schema.name.split("::")[-1]
+    if ns == "_c10d_functional" and name in _FUNCTIONAL:
+        op = _FUNCTIONAL[name]
+        if name.startswith(("all_gather_into_tensor", "reduce_scatter_tensor")):
+            n = int(args[1] if name.startswith("all_gather") else args[2])
+        else:
+            n = _group_size(args, kwargs)
+        return op, _nbytes(out), n
+    if ns == "c10d" and name in _C10D:
+        return _C10D[name], _nbytes(args[0]), _group_size(args, kwargs)
+    return None
+
+
+_PROPAGATION_FILE = os.path.join("distributed", "tensor", "_sharding_prop.py")
+
+
+def _in_shape_propagation() -> bool:
+    """Whether the op runs inside DTensor's sharding propagation, which
+    runs each DTensor op once more on fake tensors of the global shapes to
+    learn its output's shape (under the active fake mode, on the mesh's
+    device type). Those runs are no part of the step: they are told apart
+    by a frame of ``torch/distributed/tensor/_sharding_prop.py`` on the
+    Python stack."""
+    f = sys._getframe(2)
+    while f is not None:
+        if f.f_code.co_filename.endswith(_PROPAGATION_FILE):
+            return True
+        f = f.f_back
+    return False
+
+
+class CostCounter(TorchDispatchMode):
+    """Counts the per-device cost of what runs under it into ``cost`` (an
+    :class:`HloCost`), ``by_op`` (``{op: [calls, flops, mem_bytes]}``) and
+    ``records`` (one ``(op, local result bytes, group size)`` per
+    collective). See the module docstring for what is counted."""
+
+    def __init__(self):
+        super().__init__()
+        self.cost = HloCost()
+        self.by_op: Dict[str, list] = {}
+        self.records: List[Tuple[str, int, int]] = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented  # DTensor runs it on the local shards, which come back here
+        packet = func.overloadpacket
+        if packet not in flop_registry and func is not torch.ops.prim.device.default:
+            with self:  # a composite op (matmul, einsum under inference mode): count its parts
+                r = func.decompose(*args, **kwargs)
+                if r is not NotImplemented:
+                    return r
+        out = func(*args, **kwargs)
+        if func is torch.ops.prim.device.default or _in_shape_propagation():
+            return out
+        flops = float(flop_registry[packet](*args, **kwargs, out_val=out)) if packet in flop_registry else 0.0
+        coll = _collective(func, args, kwargs, out)
+        mem = 0.0
+        if coll is not None:
+            op, size, n = coll
+            self.records.append(coll)
+            self.cost.coll_bytes[op] += ring_bytes(op, size, n)
+            self.cost.coll_counts[op] += 1
+            mem = 2.0 * size
+        elif not func.is_view and func._schema.name.split("::")[-1] not in _NO_TRAFFIC:
+            mem = 2.0 * _nbytes(out)
+        self.cost.flops += flops
+        self.cost.mem_bytes += mem
+        entry = self.by_op.setdefault(str(func), [0, 0.0, 0.0])
+        entry[0] += 1
+        entry[1] += flops
+        entry[2] += mem
+        return out
+

@@ -150,13 +150,17 @@ def spec_to_placements(spec, mesh, shape=None) -> list:
     order must be the mesh's. Given the tensor's ``shape``, a dim of size 1
     is placed as ``Replicate()`` on every axis (it holds the same values on
     every rank): DTensor's views refuse a sharded singleton (MQA's one KV
-    head on a model axis of size 1). Raises ``ValueError`` on an axis used
-    twice, on an axis the mesh lacks, or on a tuple out of the mesh's
-    order."""
+    head on a model axis of size 1). So is a dim that its axes do not
+    divide (gemma2-2b's 8 heads on the production mesh's 16-wide model
+    axis): DTensor would split it unevenly, which ``local_map`` bodies
+    (attention) cannot take, where the reference's GSPMD pads it. Raises
+    ``ValueError`` on an axis used twice, on an axis the mesh lacks, or on
+    a tuple out of the mesh's order."""
     names = _axis_names(mesh)
     placements, used = [Replicate()] * len(names), set()
     for dim, entry in enumerate(spec):
-        if shape is not None and shape[dim] == 1:
+        if shape is not None and entry is not None and (
+                shape[dim] == 1 or shape[dim] % math.prod(mesh_shape(mesh)[a] for a in _axes(entry))):
             entry = None
         mesh_dims = []
         for a in _axes(entry):

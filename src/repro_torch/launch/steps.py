@@ -12,8 +12,10 @@ run on DTensor arguments, one process per rank: parameters placed by
 :func:`repro_torch.launch.sharding.distribute_params` (or
 :func:`train_shardings`), batches by :func:`batch_pspecs`, decode caches by
 :func:`cache_pspecs`. The spec functions are pure functions of shapes and
-the mesh's axis sizes. ``abstract_params`` and ``abstract_opt_state`` are
-not ported yet (ROADMAP.md, Queue 1).
+the mesh's axis sizes. ``abstract_params`` and ``abstract_opt_state`` give
+the parameters and the optimizer state as fake tensors
+(:func:`repro_torch.models.model.fake_mode`), for the dry run
+(:mod:`repro_torch.launch.dryrun`).
 """
 
 from __future__ import annotations
@@ -25,11 +27,13 @@ from torch.distributed.tensor.experimental import local_map
 
 from ..configs.base import ModelConfig
 from ..fl.client import loss_and_grads
-from ..models.model import decode_fn, layer_stacks, loss_fn, prefill_fn
+from ..models.model import decode_fn, fake_mode, init_params, layer_stacks, loss_fn, prefill_fn
 from ..optim.optimizers import AdafactorState, AdamState, apply_updates, get_optimizer
 from . import sharding as shd
 
 __all__ = [
+    "abstract_opt_state",
+    "abstract_params",
     "batch_pspecs",
     "build_prefill_step",
     "build_serve_step",
@@ -41,6 +45,13 @@ __all__ = [
     "train_shardings",
     "value_and_grad",
 ]
+
+
+def _optimizer(cfg: ModelConfig):
+    """The train step's optimizer: Adafactor factors the reference's stacked
+    leaves (``stacks=layer_stacks(cfg)``)."""
+    kw = {"stacks": layer_stacks(cfg)} if cfg.optimizer == "adafactor" else {}
+    return get_optimizer(cfg.optimizer, cfg.learning_rate, **kw)
 
 
 def value_and_grad(params, cfg: ModelConfig, batch):
@@ -56,8 +67,7 @@ def build_train_step(cfg: ModelConfig):
     cfg.learning_rate)`` and ``opt_state = opt.init(params)``. The parameters
     and the optimizer state are updated in place and returned. Adafactor
     factors the reference's stacked leaves (``stacks=layer_stacks(cfg)``)."""
-    kw = {"stacks": layer_stacks(cfg)} if cfg.optimizer == "adafactor" else {}
-    opt = get_optimizer(cfg.optimizer, cfg.learning_rate, **kw)
+    opt = _optimizer(cfg)
 
     def train_step(params, opt_state, batch):
         loss, grads = value_and_grad(params, cfg, batch)
@@ -102,6 +112,25 @@ def build_serve_step(cfg: ModelConfig):
         return _greedy(logits[:, -1:, :]), cache
 
     return serve_step
+
+
+# ---------------------------------------------------------------------------
+# abstract values (fake tensors: no allocation)
+# ---------------------------------------------------------------------------
+
+
+def abstract_params(cfg: ModelConfig, device="cuda"):
+    """:func:`repro_torch.models.init_params` under the fake mode: the
+    parameter tree's shapes and dtypes on ``device``, nothing allocated."""
+    with fake_mode():
+        return init_params(cfg, 0, device)
+
+
+def abstract_opt_state(cfg: ModelConfig, params_struct):
+    """The train step's optimizer state (:func:`build_train_step`'s
+    ``opt.init``) for ``params_struct`` under the fake mode."""
+    with fake_mode():
+        return _optimizer(cfg).init(params_struct)
 
 
 # ---------------------------------------------------------------------------

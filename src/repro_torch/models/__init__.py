@@ -13,7 +13,9 @@ from .model import (
     decode_fn,
     expert_param_count,
     init_cache,
+    fake_mode,
     init_params,
+    input_specs,
     layer_stacks,
     loss_fn,
     make_dummy_batch,
@@ -31,7 +33,9 @@ __all__ = [
     "decode_fn",
     "expert_param_count",
     "init_cache",
+    "fake_mode",
     "init_params",
+    "input_specs",
     "layer_stacks",
     "loss_fn",
     "make_dummy_batch",

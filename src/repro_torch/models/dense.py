@@ -25,7 +25,6 @@ the cache of an earlier step keeps a clone.
 from __future__ import annotations
 
 import functools
-import math
 
 import torch
 import torch.nn.functional as F
@@ -36,7 +35,8 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ModelConfig
 from ..core.torch_dp import resolve_device
 from ..launch.sharding import axis_size, like, linear, shard, whole_groups
-from .layers import apply_rope, attention, gelu, make_rope, mlp_act, mlp_gated, rms_norm, softcap, squared_relu
+from .layers import (_local_extent, apply_rope, attention, dense_init, gelu, make_rope, mlp_act, mlp_gated, rms_norm,
+                     softcap, squared_relu)
 
 __all__ = [
     "attn_pattern",
@@ -48,16 +48,12 @@ __all__ = [
     "dense_decode_step",
     "init_dense",
     "init_dense_cache",
+    "init_layer_stack",
     "layer_apply",
     "stack_decode",
     "stack_forward",
     "write_cache",
 ]
-
-# erf(sqrt(2)) = 2 * Phi(2) - 1: the uniform range whose erfinv is a normal
-# truncated at +-2 sigma
-_TRUNC2 = math.erf(math.sqrt(2.0))
-
 
 def attn_pattern(cfg: ModelConfig):
     if cfg.attn_kind == "local_global":
@@ -74,18 +70,6 @@ def attn_pattern(cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
-
-
-def dense_init(gen: torch.Generator, shape, fan_in=None, dtype=torch.float32, scale: float = 1.0):
-    """A normal truncated at +-2 standard deviations, times
-    ``scale / sqrt(fan_in)`` (``fan_in`` defaults to ``shape[0]``): the
-    distribution of the reference's ``dense_init``. Drawn in float32 on the
-    generator's device by inverting the normal CDF, then cast."""
-    fan_in = fan_in if fan_in is not None else shape[0]
-    std = scale / max(fan_in, 1) ** 0.5
-    t = torch.empty(shape, dtype=torch.float32, device=gen.device).uniform_(-_TRUNC2, _TRUNC2, generator=gen)
-    t.erfinv_().mul_(math.sqrt(2.0) * std).clamp_(-2.0 * std, 2.0 * std)
-    return t.to(dtype)
 
 
 def _init_layer(cfg: ModelConfig, gen: torch.Generator):
@@ -116,6 +100,25 @@ def _init_layer(cfg: ModelConfig, gen: torch.Generator):
         p["ln1b"] = torch.zeros((d,), dtype=pd, device=dev)
         p["ln2b"] = torch.zeros((d,), dtype=pd, device=dev)
     return p
+
+
+def init_layer_stack(cfg: ModelConfig, gen: torch.Generator, init_one=None):
+    """The reference's stacked layers: every leaf of ``init_one(cfg, gen)``
+    (default: one dense layer) stacked on ``(n_groups, period)`` leading
+    axes, layer ``g * period + sub`` at ``[g, sub]``, drawn in layer order
+    (so equal to :func:`init_dense`'s ``"layers"`` list, stacked, from the
+    same generator state)."""
+    init_one = init_one or _init_layer
+    period = len(attn_pattern(cfg))
+    n_groups = cfg.num_layers // period
+    layers = [init_one(cfg, gen) for _ in range(n_groups * period)]
+
+    def stack(xs):
+        if isinstance(xs[0], dict):
+            return {k: stack([x[k] for x in xs]) for k in xs[0]}
+        return torch.stack(xs).reshape(n_groups, period, *xs[0].shape)
+
+    return stack(layers)
 
 
 def init_dense(cfg: ModelConfig, gen: torch.Generator):
@@ -195,9 +198,7 @@ def _off_seq(placements) -> list:
 
 def _block_start(cache) -> int:
     """The first global slot of this rank's block of ``cache``'s sequence dim."""
-    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
-
-    return compute_local_shape_and_global_offset(cache.shape, cache.device_mesh, cache.placements)[1][1]
+    return _local_extent(cache.shape[1], cache.device_mesh, cache.placements, 1)[1]
 
 
 def _write_block(c, i, xl, start):

@@ -9,6 +9,7 @@ JAX parameter tree one to one.
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -21,7 +22,9 @@ from ..launch.sharding import like, linear
 __all__ = [
     "apply_rope",
     "attention",
+    "dense_init",
     "gelu",
+    "gqa_attention",
     "make_rope",
     "mlp_act",
     "mlp_gated",
@@ -29,6 +32,23 @@ __all__ = [
     "softcap",
     "squared_relu",
 ]
+
+
+# erf(sqrt(2)) = 2 * Phi(2) - 1: the uniform range whose erfinv is a normal
+# truncated at +-2 sigma
+_TRUNC2 = math.erf(math.sqrt(2.0))
+
+
+def dense_init(gen: torch.Generator, shape, fan_in=None, dtype=torch.float32, scale: float = 1.0):
+    """A normal truncated at +-2 standard deviations, times
+    ``scale / sqrt(fan_in)`` (``fan_in`` defaults to ``shape[0]``): the
+    distribution of the reference's ``dense_init``. Drawn in float32 on the
+    generator's device by inverting the normal CDF, then cast."""
+    fan_in = fan_in if fan_in is not None else shape[0]
+    std = scale / max(fan_in, 1) ** 0.5
+    t = torch.empty(shape, dtype=torch.float32, device=gen.device).uniform_(-_TRUNC2, _TRUNC2, generator=gen)
+    t.erfinv_().mul_(math.sqrt(2.0) * std).clamp_(-2.0 * std, 2.0 * std)
+    return t.to(dtype)
 
 
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -113,6 +133,24 @@ def _flash_bshd(q, k, v, kind, window, softcap, scale):
     return o.transpose(1, 2)
 
 
+def _local_extent(n: int, mesh, placements, dim: int):
+    """``(size, offset)`` of this rank's piece of a dim of global length
+    ``n`` that ``placements`` shard (DTensor's split: pieces of
+    ``ceil(len / ways)``, nested in mesh-dim order), from the mesh's
+    coordinate as Python ints. DTensor's own helper reads the coordinate
+    from a tensor, which a fake tensor cannot give (the dry run's fake
+    process group)."""
+    from torch.distributed.tensor import Shard
+
+    coord, size, off = mesh.get_coordinate(), n, 0
+    for i, p in enumerate(placements):
+        if isinstance(p, Shard) and p.dim == dim:
+            piece = -(-size // mesh.size(i))
+            start = min(piece * coord[i], size)
+            size, off = min(piece, size - start), off + start
+    return size, off
+
+
 def _attention_local_map(q, k, v, kv_valid, masks, local_attention):
     """Attention on DTensors: each rank runs ``local_attention(q, k, v,
     kv_valid, *masks)`` (the one-device :func:`attention`, either route) on
@@ -126,7 +164,6 @@ def _attention_local_map(q, k, v, kv_valid, masks, local_attention):
     k's and v's gradients on that mesh dim are partial sums. ``kv_valid``
     follows q's batch; the mask positions (``masks``) are replicated."""
     from torch.distributed.tensor import Partial, Replicate, Shard
-    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
     from torch.distributed.tensor.experimental import local_map
 
     mesh, H, Hkv = q.device_mesh, q.shape[2], k.shape[2]
@@ -140,15 +177,15 @@ def _attention_local_map(q, k, v, kv_valid, masks, local_attention):
         kp.append(Replicate() if remap_dim else p)
         kgp.append(Partial() if remap_dim else p)
     bp = [p if p == Shard(0) else Replicate() for p in qp]
-    (_, _, Hl, _), off = compute_local_shape_and_global_offset(q.shape, mesh, qp)
+    Hl, off = _local_extent(H, mesh, qp, 2)
     G = H // Hkv
 
     def body(ql, kl, vl, valid, *mask_args):
         if remap:
-            if Hl % G == 0 and off[2] % G == 0:  # whole groups: KV heads [off / G, (off + Hl) / G)
-                kl, vl = (x.narrow(2, off[2] // G, Hl // G) for x in (kl, vl))
+            if Hl % G == 0 and off % G == 0:  # whole groups: KV heads [off / G, (off + Hl) / G)
+                kl, vl = (x.narrow(2, off // G, Hl // G) for x in (kl, vl))
             else:  # one KV head for each local q head
-                idx = (off[2] + torch.arange(Hl, device=kl.device)) // G
+                idx = (off + torch.arange(Hl, device=kl.device)) // G
                 kl, vl = (x.index_select(2, idx) for x in (kl, vl))
         return local_attention(ql, kl, vl, valid, *mask_args)
 
@@ -282,6 +319,30 @@ def attention(
     w = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", w.to(v.dtype), v)
     return out.reshape(B, Sq, H, v.shape[-1])
+
+
+def gqa_attention(params, x, cfg_heads, *, rope_sincos, kind="causal", window=0, prefix_len=None,
+                  attn_softcap=0.0, query_pre_scale=None):
+    """Projection, RoPE, attention and out-projection for the common case.
+
+    params: ``{wq (d, H, hd), wk (d, Hkv, hd), wv (d, Hkv, hd), wo (H, hd,
+    d)}``; ``x (B, S, d)``; ``cfg_heads = (H, Hkv, hd)``; ``rope_sincos``
+    the ``(sin, cos)`` of :func:`make_rope` at positions ``0..S-1``.
+    Returns ``(B, S, d)``."""
+    H, Hkv, hd = cfg_heads
+    sin, cos = rope_sincos
+    B, S, d = x.shape
+
+    def proj(w, heads):
+        return linear(x, w.reshape(d, heads * hd)).reshape(B, S, heads, hd)
+
+    q = apply_rope(proj(params["wq"], H), sin, cos)
+    k = apply_rope(proj(params["wk"], Hkv), sin, cos)
+    v = proj(params["wv"], Hkv)
+    pos = torch.arange(S, device=x.device)
+    out = attention(q, k, v, q_pos=pos, kv_pos=pos, kind=kind, window=window, prefix_len=prefix_len,
+                    attn_softcap=attn_softcap, scale=query_pre_scale)
+    return linear(out.reshape(B, S, H * hd), params["wo"].reshape(H * hd, d))
 
 
 # ---------------------------------------------------------------------------

@@ -6,8 +6,9 @@ The port holds all six families of the reference's zoo: ``dense``,
 ``vlm`` (PaliGemma), each with its forward (prefill), loss (training),
 decode cache and step (the encoder has neither: ``init_cache`` returns
 ``None`` and ``decode_fn`` raises, as in the reference). An unknown family
-raises ``ValueError``. ``input_specs`` is not ported (it comes with the dry
-run, ROADMAP.md Queue 1).
+raises ``ValueError``. ``input_specs`` gives the dry run's stand-ins
+(:mod:`repro_torch.launch.dryrun`): fake tensors of :func:`fake_mode`, which
+carry shapes, dtypes and devices and allocate nothing.
 
 Entry points run on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``; without a CUDA device they raise rather than run on the CPU.
@@ -29,8 +30,10 @@ __all__ = [
     "active_param_count",
     "decode_fn",
     "expert_param_count",
+    "fake_mode",
     "init_cache",
     "init_params",
+    "input_specs",
     "layer_stacks",
     "loss_fn",
     "make_dummy_batch",
@@ -186,6 +189,70 @@ def layer_stacks(cfg: ModelConfig) -> Dict[str, tuple]:
         period = len(dense.attn_pattern(cfg))
         return {"layers": (cfg.num_layers // period, period)}
     raise ValueError(cfg.family)
+
+
+# ---------------------------------------------------------------------------
+# input specs (fake-tensor stand-ins; no allocation)
+# ---------------------------------------------------------------------------
+
+_FAKE_MODE = None
+
+
+def fake_mode():
+    """The process's ``FakeTensorMode`` (one, so that stand-ins made at
+    different times meet in one step; real tensors that meet them, such as
+    a mesh's, are taken as constants). Tensors made under it carry shape,
+    dtype and device and allocate nothing; ops on them compute shapes
+    only. ``FakeTensorMode`` is a private torch module, imported here on
+    first use."""
+    global _FAKE_MODE
+    if _FAKE_MODE is None:
+        from torch._subclasses.fake_tensor import FakeTensorMode
+
+        _FAKE_MODE = FakeTensorMode(allow_non_fake_inputs=True)
+    return _FAKE_MODE
+
+
+def _batch_struct(cfg: ModelConfig, B: int, S: int, mode: str, device="cuda") -> Dict[str, Any]:
+    """The batch of :func:`make_dummy_batch` as fake tensors on ``device``
+    (integers int64, the port's token dtype; the encoder's frames and the
+    VLM's patches in the compute dtype, as the reference's stand-ins)."""
+    dev = resolve_device(device)
+    i64, cd = torch.int64, cfg.cdtype()
+    with fake_mode():
+        def empty(shape, dtype):
+            return torch.empty(shape, dtype=dtype, device=dev)
+
+        if cfg.family == "encoder":
+            return {"frames": empty((B, S, cfg.frame_dim), cd), "mask": empty((B, S), torch.bool),
+                    "labels": empty((B, S), i64)}
+        extra = 1 if mode == "train" else 0
+        if cfg.family == "vlm":
+            S_txt = max(S - cfg.num_patches, 16)
+            return {"patches": empty((B, cfg.num_patches, cfg.patch_dim), cd), "tokens": empty((B, S_txt + extra), i64)}
+        if cfg.use_mtp and mode == "train":
+            extra = 2
+        return {"tokens": empty((B, S + extra), i64)}
+
+
+def input_specs(cfg: ModelConfig, shape: InputShape, device="cuda") -> Dict[str, Any]:
+    """Dry-run stand-ins for one (arch, input-shape) pair, as fake tensors on
+    ``device`` (:func:`fake_mode`).
+
+    train/prefill: ``{"batch": batch}``. decode: ``{"cache", "tokens" (B,
+    1), "pos" ()}``, the cache made by :func:`init_cache` under the fake
+    mode, so nothing is allocated at any length (the reference builds a
+    concrete cache here); tokens and position int64, the port's dtype."""
+    B, S = shape.global_batch, shape.seq_len
+    if shape.mode in ("train", "prefill"):
+        return {"batch": _batch_struct(cfg, B, S, shape.mode, device)}
+    dev = resolve_device(device)
+    with fake_mode():
+        return {
+            "cache": init_cache(cfg, B, S, dev),
+            "tokens": torch.empty((B, 1), dtype=torch.int64, device=dev),
+            "pos": torch.empty((), dtype=torch.int64, device=dev),
+        }
 
 
 def make_dummy_batch(cfg: ModelConfig, B: int, S: int, mode: str, rng: np.random.Generator,

@@ -167,8 +167,11 @@ def _slstm_block(cfg, p, h, state=None, step=False):
     D = d // H
     x = rms_norm(h, p["ln"])
     B, S = x.shape[0], x.shape[1]
-    # the gates lead the product's columns: whole before they are unbound
-    zifo = whole_groups(linear(x, p["w_zifo"].reshape(d, -1)), -1).reshape(B, S, 4, H, D)
+    # the gates lead the product's columns: whole before they are unbound;
+    # the flattened weight's gradient comes back in the weight's placements
+    # before it is unflattened (4 gates do not divide a model axis of 16)
+    w = whole_groups(p["w_zifo"].reshape(d, -1), 1, 4)
+    zifo = whole_groups(linear(x, w), -1).reshape(B, S, 4, H, D)
     z, i_pre, f_pre, o_pre = zifo.unbind(2)
     f_pre = f_pre + p["f_bias"].to(zifo.dtype).reshape(H, D)
     r = {k: p[k] for k in ("rz", "ri", "rf", "ro")}

@@ -45,6 +45,7 @@ def test_importing_every_port_module_pulls_in_no_jax():
         "repro_torch.configs.zamba2_2_7b", "repro_torch.models.encoder", "repro_torch.models.vlm",
         "repro_torch.configs.hubert_xlarge", "repro_torch.configs.paligemma_3b",
         "repro_torch.launch", "repro_torch.launch.sharding", "repro_torch.launch.mesh",
+        "repro_torch.launch.dryrun", "repro_torch.launch.hlo_analysis", "repro_torch.launch.roofline",
     } <= set(mods)
     code = (
         "import importlib, sys\n"
