@@ -653,19 +653,37 @@ DIST_PALI_SERVE_B = 1
 DIST_OLMOE_LAYERS, DIST_OLMOE_F32_LAYERS = 4, 2
 DIST_MLA_CAPACITY = 8.0
 DIST_ZOO_ROUNDS = 1  # (d)-(h)'s turns: one round keeps the script within 850 s
-# Phase 20: the dry run. (a) Two combos of the reference's dry run on the
+# Phase 19 (i): olmoe-1b-7b cut to DIST_OLMOE_LAYERS layers decoding with
+# the einsum dispatch at the dry run's decode_32k batch (B =
+# DIST_EINSUM_B: 28 slots an expert, which a 16-wide mesh axis does not
+# divide), from a random KV cache at position DIST_EINSUM_POS: one decode's
+# logits and DIST_SERVE_G greedy tokens sharded (the dispatch under
+# local_map, the experts' weights DTensors) against unsharded, identical at
+# world size 1, then a token in turns.
+DIST_EINSUM_B, DIST_EINSUM_POS = 128, 1024
+# Phase 20: the dry run. (a) Four combos of the reference's dry run on the
 # production mesh, (data, model) = (16, 16) over a fake process group of 256
-# ranks: gemma2-2b train_4k and olmoe-1b-7b prefill_32k (MoE a2a), each
-# ``python -m repro_torch.launch.dryrun`` in its own process (it opens the
-# default process group), the two at once and beside (b), each within
-# DRYRUN_TIMEOUT s, also counting the same step unsharded. (b) The counter
-# on the card: gemma2-2b FULL at phase 10's shape on the plain route,
-# unsharded; its FLOPs and bytes from the fake trace must equal those of the
-# same step run on the card, and DRYRUN_STEPS timed steps (CUDA events) are
-# printed beside the roofline's terms.
-DRYRUN_COMBOS = (("gemma2-2b", "train_4k"), ("olmoe-1b-7b", "prefill_32k"))
+# ranks: gemma2-2b train_4k, olmoe-1b-7b prefill_32k (MoE a2a) and
+# decode_32k (the einsum dispatch), xlstm-1.3b prefill_32k (the sLSTM scan
+# and the mLSTM chunks counted by their trip counts), each ``python -m
+# repro_torch.launch.dryrun`` in its own process (it opens the default
+# process group), all at once and beside (b) and (c), each within
+# DRYRUN_TIMEOUT s of the phase's start, also counting the same step
+# unsharded. (b) The counter on the card: gemma2-2b FULL at phase 10's
+# shape on the plain route, unsharded; its FLOPs and bytes from the fake
+# trace must equal those of the same step run on the card, and DRYRUN_STEPS
+# timed steps (CUDA events) are printed beside the roofline's terms. (c)
+# The trip count held on the card: xlstm-1.3b at full width cut to
+# DRYRUN_TRIP_LAYERS layers (one group of 7 mLSTM blocks and the sLSTM
+# block), prefill and train step at DRYRUN_TRIP (1,024 steps of the sLSTM
+# scan, 4 mLSTM chunks of 256), counted on the card (every step runs) and
+# by the fake trace (the steps between the first and the last run once):
+# FLOPs, bytes and collective bytes equal.
+DRYRUN_COMBOS = (("gemma2-2b", "train_4k"), ("olmoe-1b-7b", "prefill_32k"), ("olmoe-1b-7b", "decode_32k"),
+                 ("xlstm-1.3b", "prefill_32k"))
 DRYRUN_TIMEOUT = 170
 DRYRUN_STEPS = 3
+DRYRUN_TRIP_ARCH, DRYRUN_TRIP_LAYERS, DRYRUN_TRIP = "xlstm-1.3b", 8, (1, 1024)
 
 
 def check(cond, msg):
@@ -5070,7 +5088,8 @@ def dist_serve_pair(what, cfg, params, cache, slots, first, pos0, mesh, card):
 
     step = build_serve_step(cfg)
     B, G, S = first.shape[0], DIST_SERVE_G, slots
-    kv = lambda c: c["attn"] if isinstance(c, dict) and "attn" in c else (c if isinstance(c, tuple) else ())  # noqa: E731
+    kv = lambda c: next((c[k] for k in ("attn", "moe") if k in c), ()) if isinstance(c, dict) else (  # noqa: E731
+        c if isinstance(c, tuple) else ())
 
     def greedy(params, cache, tok):
         ptrs = [whole_local(t).data_ptr() for t in kv(cache)]
@@ -5285,6 +5304,59 @@ def dist_olmoe_part(fa, dev, card, mesh):
     return dict(f32=f32, train=tr)
 
 
+def dist_einsum_part(fa, dev, card, mesh):
+    """Phase 19 (i): olmoe-1b-7b's decode with the einsum dispatch, sharded
+    against unsharded (the constants' comment). The sharded decode must run
+    the dispatch's ``local_map`` body once a layer, the unsharded never."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.steps import _map_tensors, batch_pspecs, cache_pspecs, distribute_tree
+    from repro_torch.models import decode_fn, init_cache, init_params, moe_dispatch
+
+    B, pos0 = DIST_EINSUM_B, DIST_EINSUM_POS
+    slots = pos0 + DIST_SERVE_G
+    cfg = get_config(MOE_ARCH).replace(num_layers=DIST_OLMOE_LAYERS, moe_impl="einsum")
+    cap = moe_dispatch.einsum_capacity(cfg, B)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    cache = init_cache(cfg, B, slots)
+    with torch.inference_mode():
+        for c in tree_leaves_of(cache):
+            for layer in c:
+                layer[:, :pos0].normal_(generator=gen).mul_(0.5)
+    first = torch.randint(0, cfg.vocab_size, (B, 1), generator=gen, device=dev)
+    bodies = []
+    cache_u = _map_tensors(lambda t: t.clone(), cache)
+    with spying(moe_dispatch, "_moe_einsum_sharded", lambda *a, **k: bodies.append("u")):
+        logits_u, cache_u = decode_fn(params, cfg, cache_u, first, pos0)
+    n_u = len(bodies)
+    with shd.mesh_context(mesh):
+        pd = shd.distribute_params(params)
+        cs = _map_tensors(lambda t: t.clone(), cache)
+        cd = distribute_tree(cs, cache_pspecs(cfg, cs, B, slots), mesh)
+        td = distribute_tree(first, batch_pspecs(cfg, first, B), mesh)
+        with spying(moe_dispatch, "_moe_einsum_sharded", lambda *a, **k: bodies.append("s")):
+            logits_s, cd = decode_fn(pd, cfg, cd, td, pos0)
+    d_logits = float((whole(logits_s).float() - logits_u.float()).abs().max())
+    d_cache = max_diff(cd, cache_u)
+    check(n_u == 0 and len(bodies) == cfg.num_layers,
+          f"(i) the einsum dispatch's local_map body ran {n_u} times unsharded and {len(bodies) - n_u} times sharded "
+          f"({cfg.num_layers} MoE layers)")
+    check(d_logits == 0.0 and d_cache == 0.0, f"(i) the sharded einsum decode differs from the unsharded one: "
+                                              f"logits max |d| {d_logits:.3e}, cache {d_cache:.3e}")
+    log(f"[dist] (i) {MOE_ARCH} x {cfg.num_layers} layers, einsum decode at B={B} ({cap} slots an expert) from a "
+        f"random cache at position {pos0}: the sharded decode ran the dispatch under local_map in each of its "
+        f"{cfg.num_layers} layers; logits and cache identical to the unsharded decode's (max |d| {d_logits}, "
+        f"{d_cache})")
+    del pd, cs, cd, logits_s, logits_u, cache_u
+    torch.cuda.empty_cache()
+    sv = dist_serve_pair(f"(i) {MOE_ARCH} x {cfg.num_layers} layers, einsum serve at B={B} from position {pos0}", cfg,
+                         params, cache, slots, first, pos0, mesh, card)
+    del params, cache
+    torch.cuda.empty_cache()
+    return dict(serve=sv, capacity=cap)
+
+
 def widened(tree, dev):
     """A float32 copy on ``dev`` of a tree of dicts and lists of host
     tensors, each leaf widened on the card a slab of its leading dim at a
@@ -5414,7 +5486,7 @@ def distributed_phase(fa, dev, card):
         serve = dist_serve_part(fa, dev, card, mesh)
         parts, times = {}, {}
         for name, part in (("d", dist_xlstm_part), ("e", dist_zamba_part), ("f", dist_encoder_part),
-                           ("g", dist_olmoe_part), ("h", dist_adafactor_part)):
+                           ("g", dist_olmoe_part), ("h", dist_adafactor_part), ("i", dist_einsum_part)):
             t1 = time.perf_counter()
             parts[name] = part(fa, dev, card, mesh)
             times[name] = round(time.perf_counter() - t1, 1)
@@ -5431,9 +5503,65 @@ def distributed_phase(fa, dev, card):
             f"{ARCH} Adafactor train": parts["h"]["adafactor"]["flash"], f"{MLA_ARCH} prefill": parts["h"]["mla"]["flash"]}
     runs = {k: (v, 0, 0) if isinstance(v, int) else v for k, v in runs.items()}
     launches = {"train": train_launches, "moe_prefill": moe_launches, "zoo": runs}
-    log(f"[dist] phase 19 wall time {time.perf_counter() - t0:.1f} s (parts (d)-(h) {times} s); flash launches of "
+    log(f"[dist] phase 19 wall time {time.perf_counter() - t0:.1f} s (parts (d)-(i) {times} s); flash launches of "
         f"the sharded runs {launches}")
     return launches, dict(train=train, moe=moe, serve=serve, **parts)
+
+
+def trip_count_part(card, dev):
+    """Phase 20 (c): the fake trace's trip-counted count of xlstm-1.3b's
+    prefill and train step against the count of the same step run on the
+    card (the constants' comment). The fake trace must take the trip-counted
+    loops, the run on the card never."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import build_prefill_step, build_train_step
+    from repro_torch.launch.dryrun import count_step
+    from repro_torch.launch.hlo_analysis import CostCounter
+    from repro_torch.models import init_params, make_dummy_batch, ssm
+
+    B, S = DRYRUN_TRIP
+    cfg = get_config(DRYRUN_TRIP_ARCH).replace(num_layers=DRYRUN_TRIP_LAYERS)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED))
+    out = {}
+    for mode in ("prefill", "train"):
+        trips = []
+        with spying(ssm, "_slstm_by_trips", lambda *a, **k: trips.append("s")), \
+                spying(ssm, "_mlstm_by_trips", lambda *a, **k: trips.append("m")):
+            fake, fake_s, _ = count_step(cfg, InputShape("trip", S, B, mode), device=dev)
+            n_fake = (trips.count("s"), trips.count("m"))
+            batch = make_dummy_batch(cfg, B, S, mode, np.random.default_rng(SEED), device=dev)
+            if mode == "train":
+                step, opt = build_train_step(cfg)
+                args = (params, opt.init(params), batch)
+            else:
+                step, args = build_prefill_step(cfg), (params, batch)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with CostCounter() as real:
+                res = step(*args)
+            torch.cuda.synchronize()
+            real_s = time.perf_counter() - t0
+        check(n_fake[0] > 0 and n_fake[1] > 0 and len(trips) == sum(n_fake),
+              f"(c) {mode}: trip-counted sLSTM / mLSTM loops in the fake trace {n_fake}, on the card "
+              f"{len(trips) - sum(n_fake)}")
+        check(all(bool(torch.isfinite(t).all()) for t in tree_leaves_of(res[-1] if mode == "train" else res)),
+              f"(c) {mode}: a result is not finite")
+        check(real.cost.flops == fake.cost.flops and real.cost.mem_bytes == fake.cost.mem_bytes
+              and real.cost.coll_total == fake.cost.coll_total,
+              f"(c) {mode}: the count on the card (FLOPs {real.cost.flops:.6e}, bytes {real.cost.mem_bytes:.6e}, "
+              f"collective {real.cost.coll_total:.6e}) != the trip-counted fake trace's (FLOPs {fake.cost.flops:.6e}, "
+              f"bytes {fake.cost.mem_bytes:.6e}, collective {fake.cost.coll_total:.6e})")
+        log(f"[dryrun] (c) {DRYRUN_TRIP_ARCH} x {cfg.num_layers} layers, {mode} (B={B}, S={S}), unsharded: the fake "
+            f"trace counted {n_fake[0]} sLSTM scans and {n_fake[1]} mLSTM chunk loops by their trip counts in "
+            f"{fake_s:.2f} s; the card ran every step under the counter in {real_s:.2f} s: FLOPs {real.cost.flops:.6e}, "
+            f"bytes {real.cost.mem_bytes:.6e}, collective bytes {real.cost.coll_total:.6e}, equal to the fake "
+            f"trace's")
+        out[mode] = dict(flops=fake.cost.flops, bytes=fake.cost.mem_bytes, fake_s=fake_s, real_s=real_s)
+        del res, args, batch
+    del params
+    torch.cuda.empty_cache()
+    return out
 
 
 def dryrun_phase(card, dev, kernel_step_ms):
@@ -5512,6 +5640,7 @@ def dryrun_phase(card, dev, kernel_step_ms):
             f"tensors, {placed - memory['argument_bytes']} B of allocator rounding, at most {slack})")
         del params, state, batch, step, opt
         torch.cuda.empty_cache()
+        trip_count_part(card, dev)
 
         # (a) the production mesh
         results = {}

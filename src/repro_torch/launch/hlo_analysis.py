@@ -5,12 +5,18 @@ The reference reads its costs from the partitioned HLO text of a compiled
 step: ``analyze_hlo`` walks the module, expands ``while`` bodies by their
 trip counts (``cost_analysis()`` counts a scanned layer stack once) and
 counts an in-place dynamic-update-slice by its update. The port has no
-HLO and no such walker: its layer loop is Python, so a traced step runs
-every layer, and there is no trip count to expand and no loop body counted
-once. Its counterpart is :class:`CostCounter`, a ``TorchDispatchMode``
-that fills the same record, :class:`HloCost`, while the step runs (on fake
-tensors over a fake process group in the dry run,
-:mod:`repro_torch.launch.dryrun`, or on real tensors on the card):
+HLO and no such walker: its loops are Python, so a traced step runs every
+layer and every chunk. Its counterpart is :class:`CostCounter`, a
+``TorchDispatchMode`` that fills the same record, :class:`HloCost`, while
+the step runs (on fake tensors over a fake process group in the dry run,
+:mod:`repro_torch.launch.dryrun`, or on real tensors on the card). Two
+loops are counted by their trip counts, the counterpart of the reference's
+``known_trip_count`` expansion: the sLSTM scan over time and the mLSTM
+chunk loop (:mod:`repro_torch.models.ssm`; 32,768 and 128 trips at
+prefill_32k). On fake tensors under an active counter their body runs once
+for all the trips between the first and the last (:func:`run_trips`),
+forward and backward, and ``CostCounter.repeated`` counts that run so many
+times; the count equals the full loop's. On real tensors every trip runs.
 
   * flops      -- the matmul-class ops, by the formulas that
     ``torch.utils.flop_counter`` registers (mm, addmm, bmm, baddbmm,
@@ -45,6 +51,7 @@ keeps ``(op, local result bytes, group size)`` per collective, the input of
 
 from __future__ import annotations
 
+import contextlib
 import os
 import sys
 from dataclasses import dataclass, field
@@ -52,13 +59,13 @@ from typing import Dict, List, Tuple
 
 import torch
 from torch.distributed.tensor import DTensor
-from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._python_dispatch import TorchDispatchMode, _get_current_dispatch_mode_stack
 from torch.utils.flop_counter import flop_registry
 
 from .roofline import COLLECTIVES as _COLLECTIVES
 from .roofline import ring_bytes
 
-__all__ = ["CostCounter", "HloCost"]
+__all__ = ["CostCounter", "HloCost", "run_trips", "trip_counters"]
 
 
 @dataclass
@@ -183,6 +190,18 @@ class CostCounter(TorchDispatchMode):
         self.cost = HloCost()
         self.by_op: Dict[str, list] = {}
         self.records: List[Tuple[str, int, int]] = []
+        self.trips = 1
+
+    @contextlib.contextmanager
+    def repeated(self, trips: int):
+        """Counts every op that runs under it ``trips`` times (in ``cost``,
+        ``by_op`` and ``records``): a loop body run once for all its trips."""
+        prev = self.trips
+        self.trips = prev * trips
+        try:
+            yield
+        finally:
+            self.trips = prev
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -197,22 +216,95 @@ class CostCounter(TorchDispatchMode):
         out = func(*args, **kwargs)
         if func is torch.ops.prim.device.default or _in_shape_propagation():
             return out
-        flops = float(flop_registry[packet](*args, **kwargs, out_val=out)) if packet in flop_registry else 0.0
+        trips = self.trips
+        flops = float(flop_registry[packet](*args, **kwargs, out_val=out)) * trips if packet in flop_registry else 0.0
         coll = _collective(func, args, kwargs, out)
         mem = 0.0
         if coll is not None:
             op, size, n = coll
-            self.records.append(coll)
-            self.cost.coll_bytes[op] += ring_bytes(op, size, n)
-            self.cost.coll_counts[op] += 1
-            mem = 2.0 * size
+            self.records.extend([coll] * trips)
+            self.cost.coll_bytes[op] += trips * ring_bytes(op, size, n)
+            self.cost.coll_counts[op] += trips
+            mem = 2.0 * size * trips
         elif not func.is_view and func._schema.name.split("::")[-1] not in _NO_TRAFFIC:
-            mem = 2.0 * _nbytes(out)
+            mem = 2.0 * _nbytes(out) * trips
         self.cost.flops += flops
         self.cost.mem_bytes += mem
         entry = self.by_op.setdefault(str(func), [0, 0.0, 0.0])
-        entry[0] += 1
+        entry[0] += trips
         entry[1] += flops
         entry[2] += mem
         return out
+
+
+def trip_counters(*tensors) -> list:
+    """The active :class:`CostCounter` modes when every one of ``tensors``
+    is a fake tensor (a dry run's trace), else ``[]``: where a loop may be
+    counted by its trip count. On real tensors every trip runs."""
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    if not tensors or not all(isinstance(t, FakeTensor) for t in tensors):
+        return []
+    return [m for m in _get_current_dispatch_mode_stack() if isinstance(m, CostCounter)]
+
+
+@contextlib.contextmanager
+def _repeated(counters, trips):
+    with contextlib.ExitStack() as stack:
+        for c in counters:
+            stack.enter_context(c.repeated(trips))
+        yield
+
+
+def _same(x):
+    return x
+
+
+class _Trips(torch.autograd.Function):
+    """One trip of a loop body, counted as ``trips`` trips forward and
+    backward. The forward runs the body on detached leaves under grad mode
+    and keeps that graph (saved tensors kept as they are, out of reach of
+    an enclosing checkpoint's hooks); the backward runs the graph's
+    backward under the same count. The autograd engine sums the trips'
+    gradients of an input that every trip reads (the first ``n_shared``):
+    ``trips - 1`` adds of its size, counted so (the values are fake)."""
+
+    @staticmethod
+    def forward(ctx, counters, trips, body, n_shared, *args):
+        ctx.set_materialize_grads(False)
+        leaves = [a.detach().requires_grad_(a.requires_grad) for a in args]
+        with torch.enable_grad(), torch.autograd.graph.saved_tensors_hooks(_same, _same), \
+                _repeated(counters, trips):
+            outs = body(*leaves)
+        ctx.run = (counters, trips, n_shared, leaves, outs)
+        return tuple(o.detach() for o in outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        counters, trips, n_shared, leaves, outs = ctx.run
+        pairs = [(o, g) for o, g in zip(outs, grads) if g is not None and o.requires_grad]
+        want = [i for i, x in enumerate(leaves) if x.requires_grad]
+        with _repeated(counters, trips):
+            got = torch.autograd.grad([o for o, _ in pairs], [leaves[i] for i in want], [g for _, g in pairs],
+                                      allow_unused=True)
+        out = [None] * len(leaves)
+        for i, g in zip(want, got):
+            if g is not None and i < n_shared:
+                with _repeated(counters, trips - 1):
+                    g = g + g
+            out[i] = g
+        return (None, None, None, None, *out)
+
+
+def run_trips(counters, trips: int, body, shared, carried) -> tuple:
+    """``body(*shared, *carried)``, a loop body whose ops are the same at
+    every trip, run once and counted ``trips`` times by ``counters``
+    (:func:`trip_counters`), its backward too under grad mode. ``shared``
+    are the inputs every trip reads, ``carried`` the state one trip hands
+    the next; the body returns a tuple of tensors."""
+    args = (*shared, *carried)
+    if not (torch.is_grad_enabled() and any(a.requires_grad for a in args)):
+        with _repeated(counters, trips):
+            return tuple(body(*args))
+    return _Trips.apply(counters, trips, body, len(shared), *args)
 

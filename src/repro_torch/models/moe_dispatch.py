@@ -90,7 +90,21 @@ def einsum_capacity(cfg: ModelConfig, tokens: int) -> int:
 
 def _moe_einsum(cfg: ModelConfig, x2d, experts, gate_w, gate_idx, capacity: int):
     """One-hot capacity dispatch: the (t, slot) pairs of each expert take
-    its ``capacity`` slots in t-major order, the rest are dropped."""
+    its ``capacity`` slots in t-major order, the rest are dropped. On
+    DTensors it runs under ``local_map`` (:func:`_moe_einsum_sharded`)."""
+    if isinstance(x2d, DTensor):
+        return _moe_einsum_sharded(cfg, x2d, experts, gate_w, gate_idx, capacity)
+    ys = _einsum_local(x2d, experts["w_gate"], experts["w_in"], experts["w_out"], gate_w, gate_idx, cfg=cfg,
+                       capacity=capacity)
+    return ys.to(x2d.dtype)
+
+
+def _einsum_local(x2d, w_gate, w_in, w_out, gate_w, gate_idx, *, cfg, capacity, e0=0):
+    """The einsum dispatch of all ``T`` tokens to the experts ``[e0, e0 +
+    len(w_gate))`` that the weights hold: their float32 ``(T, d)``
+    contribution. Slot positions are counted over all tokens and all
+    experts, so a (token, choice) pair takes the slot, or is dropped, as in
+    the dispatch over every expert at once."""
     T, _ = x2d.shape
     E, k = cfg.num_experts, cfg.top_k
     onehot = F.one_hot(gate_idx, E).float()  # (T, k, E)
@@ -99,11 +113,44 @@ def _moe_einsum(cfg: ModelConfig, x2d, experts, gate_w, gate_idx, capacity: int)
     pos = pos.sum(-1).reshape(T, k).long()
     # a dropped pair gets the one-hot of slot `capacity`, which is cut off
     pos_oh = F.one_hot(pos.clamp_max(capacity), capacity + 1)[..., :capacity].float()  # (T, k, C)
+    if w_gate.shape[0] != E:
+        onehot = onehot[..., e0:e0 + w_gate.shape[0]]  # the local experts' columns
     dispatch = torch.einsum("tke,tkc->tec", onehot, pos_oh)  # (T, E, C) 0/1
     combine = torch.einsum("tk,tke,tkc->tec", gate_w.float(), onehot, pos_oh)
     xs = torch.einsum("tec,td->ecd", dispatch, x2d.float()).to(x2d.dtype)
-    ys = _expert_mlp(experts, xs)  # (E, C, d)
-    return torch.einsum("tec,ecd->td", combine, ys.float()).to(x2d.dtype)
+    ys = _expert_mlp({"w_gate": w_gate, "w_in": w_in, "w_out": w_out}, xs)  # (E, C, d)
+    return torch.einsum("tec,ecd->td", combine, ys.float())
+
+
+def _moe_einsum_sharded(cfg: ModelConfig, x2d, experts, gate_w, gate_idx, capacity: int):
+    """The einsum dispatch on DTensors: the tokens, gates and experts'
+    choices whole on every rank, the experts split as the parameters are
+    placed (``Shard(0)`` on the ``expert`` rule's axes, data major, or
+    ``Replicate()`` where those axes do not divide the experts). Each rank
+    dispatches every token to its own experts (:func:`_einsum_local`)
+    under ``local_map``; the float32 partial sums over the expert axes are
+    reduced into ``x2d``'s placements (a partial sum there replicated)
+    before the cast, as the reference sums over every expert before it. The
+    slot dim is never split, so no mesh size has to divide the capacity."""
+    mesh = x2d.device_mesh
+    ws = [experts[n] for n in ("w_gate", "w_in", "w_out")]
+    exp = list(ws[0].placements)
+    if any(list(w.placements) != exp for w in ws) or any(p not in (Shard(0), Replicate()) for p in exp):
+        raise ValueError(f"the einsum dispatch needs the experts split on their first dim or whole, not "
+                         f"{[list(w.placements) for w in ws]}")
+    split = [i for i, p in enumerate(exp) if p == Shard(0)]
+    coord = mesh.get_coordinate()
+    block = 0
+    for i in split:  # DTensor nests the shards in mesh-dim order
+        block = block * mesh.size(i) + coord[i]
+    e_local = cfg.num_experts // math.prod(mesh.size(i) for i in split)
+    rep = [Replicate()] * mesh.ndim
+    out = [Partial() if i in split else Replicate() for i in range(mesh.ndim)]
+    body = functools.partial(_einsum_local, cfg=cfg, capacity=capacity, e0=block * e_local)
+    y = local_map(body, out_placements=out, in_placements=(rep, exp, exp, exp, rep, rep), device_mesh=mesh,
+                  redistribute_inputs=True)(x2d, *ws, gate_w, gate_idx)
+    y = y.redistribute(mesh, [Replicate() if p.is_partial() else p for p in x2d.placements])
+    return y.to(x2d.dtype)
 
 
 # ---------------------------------------------------------------------------

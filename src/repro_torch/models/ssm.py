@@ -35,6 +35,14 @@ independent per batch row and per head, the convs per channel, so batch
 goes to the batch axes and heads (channels) to the tensor axes, where they
 divide them. DTensor's host dispatch is then paid once per cell call, not
 once per chunk or per sLSTM time step.
+
+In a dry run (fake tensors under an active
+:class:`repro_torch.launch.hlo_analysis.CostCounter`) the sLSTM scan and
+the mLSTM chunk loop are counted by their trip counts, as the reference's
+HLO walker expands a ``while`` body: their first and last trips run, and
+one trip stands for all the others (:func:`_slstm_by_trips`,
+:func:`_mlstm_by_trips`). The count equals the full loop's. On real tensors,
+or with no counter, every trip runs. The SSD chunk loop always runs whole.
 """
 
 from __future__ import annotations
@@ -46,6 +54,7 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
+from ..launch.hlo_analysis import run_trips, trip_counters
 from ..launch.sharding import local_shards
 
 __all__ = [
@@ -265,6 +274,8 @@ def mlstm_chunked(q, k, v, i_pre, f_pre, chunk: int, state=None):
 
     state: optional (S (B,H,DK,DV), n (B,H,DK), m (B,H)).
     Returns: h (B, L, H, DV) in v's dtype, (S, n, m) final, float32.
+    On a dry run's fake tensors under a cost counter the chunk loop is
+    counted by its trip count (:func:`_mlstm_by_trips`).
     """
     if isinstance(q, DTensor):
         h, *new = local_shards(lambda *a: _flat(mlstm_chunked(*a[:5], chunk, None if a[5] is None else a[5:])),
@@ -295,11 +306,35 @@ def mlstm_chunked(q, k, v, i_pre, f_pre, chunk: int, state=None):
         S, n, m = (s.float() for s in state)
 
     body = _chunk_remat(_mlstm_chunk)
+    parts = (qc, kc, vc, Fc, g, g_runmax, F_last)
+    counters = trip_counters(*parts, S, n, m)
+    if counters and nc > 3:
+        return _mlstm_by_trips(counters, body, parts, S, n, m, v.dtype)
     hs = []
     for c in range(nc):
         S, n, m, h = body(S, n, m, qc[:, c], kc[:, c], vc[:, c], Fc[:, c], g[:, c], g_runmax[:, c], F_last[:, c])
         hs.append(h)
     return torch.cat(hs, dim=1).to(v.dtype), (S, n, m)
+
+
+def _mlstm_by_trips(counters, body, parts, S, n, m, dtype):
+    """:func:`mlstm_chunked`'s chunk loop on a dry run's fake tensors under a
+    cost counter, as :func:`_slstm_by_trips` runs the sLSTM's time loop:
+    the first and last chunks as the loop runs them, the ``nc - 2`` between
+    once, as chunk 1, counted ``nc - 2`` times (:func:`run_trips`). The
+    loop's chunk outputs take one gradient each (from the ``cat``), so the
+    repeats of chunk 1's are detached: stacked as one tensor, the copies'
+    gradients would be summed, which the loop does not do."""
+    nc = parts[0].shape[1]
+
+    def chunk(c, *a):  # a: the chunked inputs, then the carried (S, n, m)
+        return body(*a[len(parts):], *(x[:, c] for x in a[:len(parts)]))
+
+    S, n, m, h0 = chunk(0, *parts, S, n, m)
+    S, n, m, h1 = run_trips(counters, nc - 2, functools.partial(chunk, 1), parts, (S, n, m))
+    S, n, m, h = chunk(nc - 1, *parts, S, n, m)
+    hs = [h0, h1] + [h1.detach()] * (nc - 3) + [h]
+    return torch.cat(hs, dim=1).to(dtype), (S, n, m)
 
 
 def mlstm_step(q_t, k_t, v_t, i_t, f_t, state):
@@ -363,7 +398,8 @@ def slstm_scan(z, i_pre, f_pre, o_pre, r_weights, state=None, unroll: int = 16):
     for the reference's signature and does nothing here; there it is the
     scan's unroll factor, and the batch-broadcast of the recurrent weights
     is a GSPMD device for sharded gradients; both are the identity on one
-    device.
+    device. On a dry run's fake tensors under a cost counter the loop is
+    counted by its trip count (:func:`_slstm_by_trips`).
     """
     gates = ("rz", "ri", "rf", "ro")
     if isinstance(z, DTensor):
@@ -379,11 +415,41 @@ def slstm_scan(z, i_pre, f_pre, o_pre, r_weights, state=None, unroll: int = 16):
     c, n, m, h_prev = state
     w = torch.cat([r_weights[k].float() for k in gates], dim=-1)  # (H, D, 4D)
     pre = torch.stack([z, i_pre, f_pre, o_pre], dim=2)  # (B, L, 4, H, D)
+    counters = trip_counters(pre, w, c, n, m, h_prev)
+    if counters and L > 3:
+        return _slstm_by_trips(counters, pre, w, c, n, m, h_prev)
     hs = []
     for t in range(L):
-        rec = (h_prev.transpose(0, 1) @ w).unflatten(-1, (4, D)).permute(1, 2, 0, 3)  # (B, 4, H, D)
-        z_t, i_t, f_t, o_t = (pre[:, t] + rec).unbind(1)
-        h, (c, n, m) = slstm_step(z_t, i_t, f_t, o_t, (c, n, m))
+        h, c, n, m = _slstm_time_step(pre, w, t, c, n, m, h_prev)
         h_prev = h.float()
         hs.append(h)
     return torch.stack(hs, dim=1), (c, n, m, h_prev)
+
+
+def _slstm_time_step(pre, w, t, c, n, m, h_prev):
+    """Time step ``t`` of :func:`slstm_scan`: ``(h, c, n, m)``."""
+    D = pre.shape[-1]
+    rec = (h_prev.transpose(0, 1) @ w).unflatten(-1, (4, D)).permute(1, 2, 0, 3)  # (B, 4, H, D)
+    z_t, i_t, f_t, o_t = (pre[:, t] + rec).unbind(1)
+    h, (c, n, m) = slstm_step(z_t, i_t, f_t, o_t, (c, n, m))
+    return h, c, n, m
+
+
+def _slstm_by_trips(counters, pre, w, c, n, m, h_prev):
+    """:func:`slstm_scan` on a dry run's fake tensors under a cost counter
+    (the reference's HLO walker expands the scan's ``while`` body by its
+    trip count): the first and the last time steps run as the loop runs
+    them (the first reads a state that may need no gradient, the last hands
+    none on), and the ``L - 2`` between run once, as step 1, counted ``L -
+    2`` times forward and backward (:func:`run_trips`). The output and the
+    final state have the loop's shapes; ``h`` is stacked from ``L`` entries
+    as the loop stacks it. Each of the loop's ``h`` takes two gradients
+    (the stack's and the next step's), so the engine's sum of the stack's
+    ``L - 2`` gradients of step 1's ``h`` and the last step's is the loop's
+    one add a step."""
+    L = pre.shape[1]
+    h0, c, n, m = _slstm_time_step(pre, w, 0, c, n, m, h_prev)
+    h1, c, n, m = run_trips(counters, L - 2, lambda pre, w, *s: _slstm_time_step(pre, w, 1, *s), (pre, w),
+                            (c, n, m, h0.float()))
+    h, c, n, m = _slstm_time_step(pre, w, L - 1, c, n, m, h1.float())
+    return torch.stack([h0] + [h1] * (L - 2) + [h], dim=1), (c, n, m, h.float())

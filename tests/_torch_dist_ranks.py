@@ -274,7 +274,8 @@ def zoo_serve_case(inp, mesh, shd, tag, arch, B, S, pos0, steps, **replace):
     cache = _map_tensors(lambda _: torch.from_numpy(inp[f"{tag}/c/{next(paths)}"]), cache)
     tok = torch.from_numpy(inp[f"{tag}/tok"]).long()
     step = build_serve_step(cfg)
-    kv = lambda c: c["attn"] if isinstance(c, dict) and "attn" in c else (c if isinstance(c, tuple) else ())  # noqa: E731
+    kv = lambda c: next((c[k] for k in ("attn", "moe") if k in c), ()) if isinstance(c, dict) else (  # noqa: E731
+        c if isinstance(c, tuple) else ())
     with shd.mesh_context(mesh):
         pd = shd.distribute_params(params)
         specs = cache_pspecs(cfg, cache, B, S)
@@ -290,6 +291,31 @@ def zoo_serve_case(inp, mesh, shd, tag, arch, B, S, pos0, steps, **replace):
         in_place = [x.to_local().data_ptr() for x in kv(cd)] == ptrs
     return {f"{tag}/tok": np.stack(toks), f"{tag}/placed": np.asarray(ok), f"{tag}/in_place": np.asarray(in_place),
             **gathered(cd, f"{tag}/c")}
+
+
+def einsum_case(inp, mesh, shd, tag, arch, rules, **replace):
+    """One layer's ``moe_ffn`` of ``arch`` SMOKE with the einsum dispatch on
+    the mesh under ``rules``, the tokens' batch on "data": its output and
+    aux, whether the experts lay as the ``expert`` rule places them
+    (``spec_to_placements`` replicates them where its axes do not divide
+    them) and whether they lay whole on every rank."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.models.moe_dispatch import moe_ffn
+
+    cfg = get_config(arch, smoke=True).replace(moe_impl="einsum", **replace)
+    p = fill(init_params(cfg, 0, device="cpu")["moe_layers"][0]["moe"], inp, f"{tag}/p")
+    x = torch.from_numpy(inp[f"{tag}/x"])
+    with shd.mesh_context(mesh, rules):
+        want = shd.spec_to_placements(shd.logical_to_mesh("expert", None, None), mesh, p["experts"]["w_in"].shape)
+        pd = shd.distribute_params({"moe": p})["moe"]
+        y, aux = moe_ffn(cfg, pd, distribute_tensor(x, mesh, [Shard(0), Replicate()]))
+    placements = [list(w.placements) for w in pd["experts"].values()]
+    return {f"{tag}/y": y.full_tensor().numpy(), f"{tag}/aux": aux.full_tensor().numpy(),
+            f"{tag}/split": np.asarray(all(pl == want for pl in placements)),
+            f"{tag}/whole": np.asarray(all(pl == [Replicate()] * mesh.ndim for pl in placements))}
 
 
 def cells_case(inp, mesh, shd):
@@ -398,6 +424,11 @@ def zoo_cases(inp, mesh, mesh81, shd):
         ("spg", lambda: zoo_serve_case(inp, mesh, shd, "spg", "paligemma-3b", 8, 32, 20, 2)),
         ("lgm", lambda: zoo_serve_case(inp, mesh, shd, "lgm", "gemma2-2b", 1, 128, 63, 2, long_context=True)),
         ("lzb", lambda: zoo_serve_case(inp, mesh, shd, "lzb", "zamba2-2.7b", 1, 128, 63, 2)),
+        ("som", lambda: zoo_serve_case(inp, mesh, shd, "som", "olmoe-1b-7b", 8, 32, 20, 2, moe_impl="einsum")),
+        ("eom", lambda: einsum_case(inp, mesh, shd, "eom", "olmoe-1b-7b", {}, capacity_factor=0.2)),
+        ("edv", lambda: einsum_case(inp, mesh, shd, "edv", "deepseek-v3-671b", {"expert": ("data", "model")},
+                                    num_experts=8, capacity_factor=0.2)),
+        ("eor", lambda: einsum_case(inp, mesh, shd, "eor", "olmoe-1b-7b", {}, num_experts=6, capacity_factor=0.15)),
     )
 
 

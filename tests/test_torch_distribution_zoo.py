@@ -25,6 +25,13 @@ DIR zoo`` once in a subprocess, which spawns 8 gloo ranks on a (2, 4) and an
     with 8 experts (one per rank, ``expert = ("data", "model")``, MLA, MTP,
     Adafactor with DTensor state) against JAX's dense step, at a capacity
     where nothing is dropped;
+  * the einsum dispatch on (2, 4): one layer's ``moe_ffn`` of olmoe-1b-7b
+    SMOKE (experts on "model"; with 6 experts, which the model axis does
+    not divide, whole on every rank) and of deepseek-v3-671b SMOKE with 8
+    experts (on ("data", "model")) against the reference's unsharded
+    einsum, at a capacity of 11 slots, which neither mesh axis divides,
+    with pairs dropped; two serve steps of olmoe-1b-7b SMOKE with it (B =
+    8: 13 slots);
   * the serve steps of xlstm-1.3b, zamba2-2.7b and paligemma-3b on (2, 4),
     and the long-context decode at B = 1 (gemma2-2b ``long_context`` and
     zamba2-2.7b, a cache of 128 slots split over "data", positions 63 and
@@ -51,6 +58,8 @@ from repro.models import init_cache as jax_init_cache
 from repro.models import init_params as jax_init_params
 from repro.models import make_dummy_batch as jax_make_dummy_batch
 from repro.models import ssm as J
+from repro.models.moe_dispatch import moe_ffn as jax_moe_ffn
+from repro.models.moe_dispatch import route as jax_route
 from repro_torch.models import config_from_jax, params_from_jax
 from repro_torch.models.convert import cache_from_jax
 
@@ -66,6 +75,7 @@ TOL_CACHE = dict(rtol=1e-5, atol=1e-5)
 TOL_STATE = dict(rtol=1e-4, atol=1e-4)  # recurrent states: tests/test_torch_ssm_models.py's, unsharded
 EPS32 = 2.0 ** -23
 TOL_OP = dict(rtol=1e-6, atol=1e-6)
+MOE_ATOL = 2e-4  # tests/test_torch_distribution.py's, the reference's
 
 TRAIN = {  # tag: (arch, config replacements of the reference's dense step)
     "xl": ("xlstm-1.3b", {}),
@@ -84,6 +94,12 @@ SERVE = {  # tag: (arch, B, S, first position, steps, random KV cache, config re
     "spg": ("paligemma-3b", 8, 32, 20, 2, True, {}),
     "lgm": ("gemma2-2b", 1, 128, 63, 2, True, {"long_context": True}),
     "lzb": ("zamba2-2.7b", 1, 128, 63, 2, True, {}),
+    "som": ("olmoe-1b-7b", 8, 32, 20, 2, True, {"moe_impl": "einsum"}),
+}
+EINSUM = {  # tag: (arch, B, S, config replacements): top 2 of 4, 8 or 6 experts, a capacity of 11 slots
+    "eom": ("olmoe-1b-7b", 4, 8, {"capacity_factor": 0.2}),
+    "edv": ("deepseek-v3-671b", 4, 16, {"num_experts": 8, "capacity_factor": 0.2}),
+    "eor": ("olmoe-1b-7b", 4, 16, {"num_experts": 6, "capacity_factor": 0.15}),  # 6 experts whole on every rank
 }
 CELLS = ("conv", "conv_step", "ssd", "ssd_step", "mlstm", "mlstm_step", "slstm", "slstm_step")
 CHUNKED = {"ssd": 8, "mlstm": 8}
@@ -173,7 +189,7 @@ def _jax_serve(inp, tag):
     if random_kv:  # the dense and hybrid KV caches hold random keys and values
         rng = np.random.default_rng(11)
         kv = lambda c: jax.tree.map(lambda x: jnp.asarray(rng.normal(size=x.shape) * 0.5, x.dtype), c)  # noqa: E731
-        cache = {**cache, "attn": kv(cache["attn"])} if isinstance(cache, dict) else kv(cache)
+        cache = {**cache, "attn": kv(cache["attn"])} if isinstance(cache, dict) and "attn" in cache else kv(cache)
     tok = np.random.default_rng(12).integers(0, cfg.vocab_size, (B, 1)).astype(np.int32)
     inp[f"{tag}/tok"] = tok
     inp.update(_port_flat(cfg, params, f"{tag}/p"))
@@ -190,6 +206,31 @@ def _jax_serve(inp, tag):
     return want
 
 
+def _jax_einsum(inp, tag):
+    """One MoE layer of the reference (its first) with the einsum dispatch;
+    the thunk gives its output, aux, capacity and the number of (token,
+    choice) pairs the capacity drops."""
+    arch, B, S, rep = EINSUM[tag]
+    cfg = jax_get_config(arch, smoke=True).replace(moe_impl="einsum", **rep)
+    params = _init(cfg)
+    layer = jax.tree.map(lambda a: a[0], params["moe_layers"])["moe"]
+    x = np.random.default_rng(13).normal(size=(B, S, cfg.d_model)).astype(np.float32) * np.float32(0.3)
+    inp[f"{tag}/x"] = x
+    head = f"{tag}/moe_layers/0/moe/"
+    inp.update({f"{tag}/p/{k[len(head):]}": v for k, v in _port_flat(cfg, params, tag).items() if k.startswith(head)})
+
+    def want():
+        y, aux = jax_moe_ffn(cfg, layer, jnp.asarray(x))
+        _, idx, _ = jax_route(cfg, jnp.asarray(x.reshape(-1, cfg.d_model)), layer["router"])
+        T = x.shape[0] * x.shape[1]
+        cap = max(8, int(T * cfg.top_k * cfg.capacity_factor / cfg.num_experts) + 8)
+        load = np.bincount(np.asarray(idx).reshape(-1), minlength=cfg.num_experts)
+        return {"y": np.asarray(y), "aux": float(aux), "capacity": cap,
+                "dropped": int(np.maximum(load - cap, 0).sum())}
+
+    return want
+
+
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
     """``(want, got)``: the reference's results and rank 0's. The ranks start
@@ -202,7 +243,8 @@ def ranks(tmp_path_factory):
                             text=True)
     try:
         futures, inputs = {}, {}
-        makers = [("cell", _jax_cells)] + [(t, _jax_train) for t in TRAIN] + [(t, _jax_serve) for t in SERVE]
+        makers = ([("cell", _jax_cells)] + [(t, _jax_train) for t in TRAIN] + [(t, _jax_serve) for t in SERVE]
+                  + [(t, _jax_einsum) for t in EINSUM])
         with ThreadPoolExecutor(3) as pool:
             for tag, make in makers:
                 inp = {}
@@ -265,6 +307,21 @@ def test_sharded_train_step_matches_single_device(ranks, tag):
     assert bool(got[f"{tag}/placed"])
     for k, v in want[tag]["params"].items():
         np.testing.assert_allclose(got[k], v, **TOL_PARAMS, err_msg=k)
+
+
+@pytest.mark.parametrize("tag", list(EINSUM))
+def test_einsum_dispatch_on_the_mesh_matches_the_reference(ranks, tag):
+    """The einsum dispatch on DTensors (experts split on the ``expert``
+    rule's axes, the dispatch under ``local_map``) against the reference's
+    einsum on one device: a capacity of 11 slots, which neither mesh axis
+    divides (DTensor's own einsum splits the slots and cannot flatten
+    them), and (token, choice) pairs dropped, the same as the reference
+    drops."""
+    want, got = ranks
+    assert want[tag]["capacity"] == 11 and want[tag]["dropped"] > 0
+    assert bool(got[f"{tag}/split"]) and bool(got[f"{tag}/whole"]) == (tag == "eor")
+    np.testing.assert_allclose(got[f"{tag}/y"], want[tag]["y"], rtol=0, atol=MOE_ATOL)
+    np.testing.assert_allclose(float(got[f"{tag}/aux"]), want[tag]["aux"], rtol=1e-6)
 
 
 @pytest.mark.parametrize("tag", list(SERVE))

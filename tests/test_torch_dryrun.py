@@ -20,7 +20,12 @@
   per-device FLOPs within 10% of the reference's at 8 forced host devices
   (a second subprocess, started with the first);
 * ``python -m repro_torch.launch.dryrun`` runs a SMOKE combo on the
-  production mesh (a third).
+  production mesh (a third);
+* the sLSTM scan and the mLSTM chunks counted by their trip counts
+  (:func:`repro_torch.launch.hlo_analysis.run_trips`) count what the full
+  loops count: unsharded against real tensors run step by step under the
+  counter, and on the (2, 4) fake mesh against the same trace with the
+  trip count turned off.
 """
 
 from __future__ import annotations
@@ -69,8 +74,17 @@ from repro_torch.models.convert import cache_from_jax, params_from_jax  # noqa: 
 
 ARCHS = list_archs()
 SHAPES = list(INPUT_SHAPES)
-# the (2, 4) combos: one per step kind, a2a on the MoE one
-MESH_COMBOS = (("deepseek-7b", "train_4k"), ("olmoe-1b-7b", "prefill_32k"), ("gemma2-2b", "decode_32k"))
+# the (2, 4) combos (arch, shape, config replacements): one per step kind,
+# a2a on the MoE prefill; the MoE decode with the einsum dispatch at a
+# capacity of 91 slots (B = 128, top 2 of 4 experts), which neither mesh
+# axis divides
+MESH_COMBOS = (("deepseek-7b", "train_4k", {}), ("olmoe-1b-7b", "prefill_32k", {}), ("gemma2-2b", "decode_32k", {}),
+               ("olmoe-1b-7b", "decode_32k", {"capacity_factor": 1.3}))
+# the trip-counted loops: xlstm-1.3b SMOKE cut to one group (an mLSTM and
+# an sLSTM block) with chunks of 4 and the group checkpointed as at full
+# size: 16 steps of the sLSTM scan and 4 mLSTM chunks
+TRIP_ARCH, TRIP_CFG = "xlstm-1.3b", {"remat": "full", "num_layers": 2, "chunk_size": 4}
+TRIP = {"train": InputShape("trip", 16, 2, "train"), "prefill": InputShape("trip", 16, 2, "prefill")}
 MESH_FLOPS_RTOL = 0.10
 HLO_FLOPS_RTOL = 0.02
 SMALL = {"train": InputShape("small", 64, 8, "train"), "prefill": InputShape("small", 64, 8, "prefill")}
@@ -120,18 +134,38 @@ out["all_reduce"] = counted(lambda: (xk @ wk).redistribute(mesh, [Replicate(), R
 out["all_to_all"] = counted(lambda: funcol.all_to_all_single(t, None, None, group=(mesh, 1)))
 out["c10d_all_reduce"] = counted(lambda: dist.all_reduce(t, group=mesh.get_group(1)))
 out["lower_one"] = {}
-for arch, shape in %r:
-    r = D.lower_one(arch, shape, verbose=False, device="cpu", smoke=True)
-    out["lower_one"][arch] = {"keys": sorted(r), "status": r["status"], "n_chips": r["n_chips"],
-                              "flops": r["roofline"]["hlo_flops_per_device"],
-                              "coll_total": r["collectives"]["total"]}
+for arch, shape, over in %r:
+    r = D.lower_one(arch, shape, verbose=False, device="cpu", smoke=True, cfg_overrides=over)
+    out["lower_one"][f"{arch}.{shape}"] = {"keys": sorted(r), "status": r["status"], "n_chips": r["n_chips"],
+                                           "flops": r["roofline"]["hlo_flops_per_device"],
+                                           "coll_total": r["collectives"]["total"]}
+# the trip-counted sLSTM and mLSTM loops against the full loops, on the mesh
+from repro_torch.configs import get_config
+from repro_torch.configs.base import InputShape
+from repro_torch.models import ssm
+cfg = get_config(%r, smoke=True).replace(**%r)
+out["trips"] = {}
+for mode in ("prefill", "train"):
+    shape = InputShape("trip", 16, 2, mode)
+    calls = []
+    by_trips = ssm._slstm_by_trips, ssm._mlstm_by_trips
+    ssm._slstm_by_trips = lambda *a: calls.append("s") or by_trips[0](*a)
+    ssm._mlstm_by_trips = lambda *a: calls.append("m") or by_trips[1](*a)
+    trip, _, _ = D.count_step(cfg, shape, mesh, {"act_seq": "model"}, device="cpu")
+    counters = ssm.trip_counters
+    ssm.trip_counters = lambda *t: []
+    full, _, _ = D.count_step(cfg, shape, mesh, {"act_seq": "model"}, device="cpu")
+    ssm.trip_counters = counters
+    ssm._slstm_by_trips, ssm._mlstm_by_trips = by_trips
+    out["trips"][mode] = {"calls": calls, **{k: [c.cost.flops, c.cost.mem_bytes, c.cost.coll_total, len(c.records)]
+                                             for k, c in (("trip", trip), ("full", full))}}
 # a2a over a flattened ("data", "model") expert group (deepseek-v3's rule)
 r = D.lower_one("deepseek-v3-671b", "train_4k", verbose=False, device="cpu", smoke=True,
                 cfg_overrides={"num_experts": 8}, rules_overrides={"expert": ("data", "model")})
 out["two_expert_axes"] = {"status": r["status"], "a2a": r["collectives"]["_counts"]["all-to-all"],
                           "records": [x for x in D.moe_dispatch._EP_GROUPS]}
 print("RESULT" + json.dumps(out))
-""" % (MESH_COMBOS,)
+""" % (MESH_COMBOS, TRIP_ARCH, TRIP_CFG)
 
 REF_RANKS = """
 import os
@@ -154,9 +188,9 @@ D.get_config = lambda arch: get_config(arch, smoke=True)
 D.make_production_mesh = lambda multi_pod=False: jax.make_mesh((2, 4), ("data", "model"),
                                                                axis_types=(AxisType.Auto,) * 2)
 out = {"lower_one": {}, "unsharded": {}}
-for arch, shape in %r:
-    r = D.lower_one(arch, shape, False, verbose=False)
-    out["lower_one"][arch] = {"keys": sorted(r), "flops": r["roofline"]["hlo_flops_per_device"]}
+for arch, shape, over in %r:
+    r = D.lower_one(arch, shape, False, verbose=False, cfg_overrides=over)
+    out["lower_one"][f"{arch}.{shape}"] = {"keys": sorted(r), "flops": r["roofline"]["hlo_flops_per_device"]}
 shd.set_mesh(None)  # lower_one leaves its mesh active
 cfg = get_config("deepseek-7b", smoke=True)
 p = abstract_params(cfg)
@@ -466,15 +500,70 @@ def test_counter_counts_ring_bytes_of_collectives(port_ranks):
     assert c10d["records"] == [["all-reduce", 64 * 32 * 4, 4]]
 
 
-@pytest.mark.parametrize("arch,shape", MESH_COMBOS)
-def test_lower_one_on_the_2x4_mesh_matches_the_reference(arch, shape, port_ranks, ref_ranks):
-    got, want = port_ranks["lower_one"][arch], ref_ranks["lower_one"][arch]
+@pytest.mark.parametrize("arch,shape,over", MESH_COMBOS, ids=[f"{a}-{s}" for a, s, _ in MESH_COMBOS])
+def test_lower_one_on_the_2x4_mesh_matches_the_reference(arch, shape, over, port_ranks, ref_ranks):
+    got, want = port_ranks["lower_one"][f"{arch}.{shape}"], ref_ranks["lower_one"][f"{arch}.{shape}"]
     assert got["status"] == "ok" and got["n_chips"] == 8
     assert got["keys"] == want["keys"]
     assert got["coll_total"] > 0
     print(f"{arch} {shape} SMOKE on (2, 4): per-device FLOPs port {got['flops']:.6e} reference {want['flops']:.6e} "
           f"(ratio {got['flops'] / want['flops']:.4f})")
     assert abs(got["flops"] / want["flops"] - 1) <= MESH_FLOPS_RTOL
+
+
+@pytest.mark.parametrize("mode", ["prefill", "train"])
+def test_trip_counted_loops_count_what_the_full_loops_count(mode):
+    """xlstm-1.3b SMOKE with its groups checkpointed (the recompute inside
+    the backward is counted by trips too), unsharded: the fake trace, whose
+    sLSTM scan and mLSTM chunk loop run their first and last trips and one
+    trip for all the others, against real tensors run step by step under
+    the counter. FLOPs, bytes and collective bytes are equal: the trips
+    between the first and the last run the same ops, the autograd engine's
+    sums of the gradients of what every trip reads are counted as adds, and
+    the first trip (whose state needs no gradient) and the last (which hands
+    no gradient on) run as the loop runs them."""
+    from repro_torch.launch.hlo_analysis import CostCounter
+    from repro_torch.launch.steps import build_prefill_step, build_train_step
+    from repro_torch.models import init_params, make_dummy_batch, ssm
+
+    cfg = get_config(TRIP_ARCH, smoke=True).replace(**TRIP_CFG)
+    shape = TRIP[mode]
+    calls = []
+    by_trips = ssm._slstm_by_trips, ssm._mlstm_by_trips
+    try:
+        ssm._slstm_by_trips = lambda *a: calls.append("s") or by_trips[0](*a)
+        ssm._mlstm_by_trips = lambda *a: calls.append("m") or by_trips[1](*a)
+        fake, _, _ = dryrun.count_step(cfg, shape, device="cpu")
+        n_fake = len(calls)
+        params = init_params(cfg, 0, device="cpu")
+        batch = make_dummy_batch(cfg, shape.global_batch, shape.seq_len, mode, np.random.default_rng(0), device="cpu")
+        if mode == "train":
+            step, opt = build_train_step(cfg)
+            args = (params, opt.init(params), batch)
+        else:
+            step, args = build_prefill_step(cfg), (params, batch)
+        with CostCounter() as real:
+            step(*args)
+    finally:
+        ssm._slstm_by_trips, ssm._mlstm_by_trips = by_trips
+    groups = cfg.num_layers // cfg.slstm_every
+    runs = 2 if mode == "train" else 1  # forward, and the groups' recompute
+    assert calls.count("s") == groups * runs and calls.count("m") == groups * (cfg.slstm_every - 1) * runs
+    assert n_fake == len(calls)  # the real tensors ran every trip
+    assert real.cost.flops == fake.cost.flops > 0
+    assert real.cost.mem_bytes == fake.cost.mem_bytes
+    assert real.cost.coll_total == fake.cost.coll_total == 0
+
+
+@pytest.mark.parametrize("mode", ["prefill", "train"])
+def test_trip_counted_loops_on_the_2x4_mesh(mode, port_ranks):
+    """The same step on the (2, 4) fake mesh (``act_seq`` on "model", the
+    cells on local shards): the trip-counted trace against the same trace
+    with the trip count turned off (every trip run on the fake shards):
+    FLOPs, bytes, collective bytes and collectives equal."""
+    got = port_ranks["trips"][mode]
+    assert "s" in got["calls"] and "m" in got["calls"]
+    assert got["trip"] == got["full"] and got["trip"][0] > 0 and got["trip"][2] > 0
 
 
 def test_lower_one_flattens_two_expert_axes_before_the_trace(port_ranks):
