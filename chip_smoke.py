@@ -206,7 +206,7 @@ Phases, in order; any failure ends the run with a non-zero exit code:
                 fails); the phase's wall time.
 16. ssm       — the SSM families at full width and depth (bf16, random
                 weights from ``torch.Generator`` seed 0): (a) xlstm-1.3b, a
-                prefill of 2,048 tokens through ``build_prefill_step``, one
+                prefill of 1,024 tokens through ``build_prefill_step``, one
                 layer's sLSTM scan alone on the prefill's own inputs (its
                 share of the prefill's kernel time by the profiler, its
                 launches and host cost); (b) zamba2-2.7b, a prefill of 8,192
@@ -219,7 +219,7 @@ Phases, in order; any failure ends the run with a non-zero exit code:
                 step's ms a token by CUDA events, busy share, launches and
                 bound; a float32 cut (8 and 12 layers) within 2e-3, and
                 zamba2's flash route within 1e-4 of the plain route; one
-                cold and two warm train steps (remat full, AdamW; 1,024 and
+                cold and two warm train steps (remat full, AdamW; 512 and
                 4,096 tokens; zamba2 18 forward, 9 dQ and 9 dK/dV launches
                 each, all tensor-core), losses falling, peak memory, the last
                 step's busy share by the profiler. Every flash launch's shape
@@ -311,6 +311,24 @@ Phases, in order; any failure ends the run with a non-zero exit code:
                 under Adafactor (DTensor state), deepseek-v3 at 2 layers,
                 a prefill with a2a over the flattened ("data", "model")
                 group held by its float32 distance as (b)'s.
+20. dry run   — the roofline's per-device counts (the constants' comment
+                before ``DRYRUN_COMBOS``).
+21. remat     — ``remat="dots"`` (the products without batch dims saved,
+                the rest recomputed) against ``"full"``: (a) gemma2-2b
+                FULL at phase 10's shape on the kernel route, the same
+                weights and batch: REMAT_STEPS steps each, the first
+                step's loss and the parameters after it (one AdamW step)
+                within phase 11's limits, 52 forward, 26 dQ and 26 dK/dV
+                launches a step under both (the launch counters from 0 for
+                each), the warm steps' ms, the peak memory allocated and
+                reserved and the allocator's retries of each; the float32 2-layer cut under
+                "dots" against "none" (phase 11's limits); (b) the
+                hill-climb (``python -m repro_torch.launch.hillclimb``) of
+                deepseek-7b train_4k on the "cuda" fake pod mesh under
+                ``baseline`` and ``remat_dots``, in subprocesses started at
+                the phase's start, each within REMAT_CLIMB_TIMEOUT s: the
+                three terms of each, ``remat_dots``'s FLOPs below
+                ``baseline``'s; the phase's wall time.
 
 The line before the last is a JSON object of every kernel with its launch
 count and times; the last line is ``{"ok": true, "device": {...}}``.
@@ -412,6 +430,9 @@ BF16_GRID_TOL = 2e-2
 # (device_ms_by), and the sessions run again per kernel, for the kernels line.
 PROFILED_COUNTERS = {"minplus_row_kernel": "launches", "minplus_backtrack_kernel": "launches_backtrack"}
 PROFILER_SESSIONS = 3
+# The host time each profiler window of device_ms_by spends idle before its
+# first call and after its last synchronize (its docstring says why).
+PROFILER_MARGIN_S = 0.05
 PROFILER_RERUNS = dict.fromkeys(PROFILED_COUNTERS, 0)
 # The min-plus row update: lane instructions per candidate (an add, a
 # compare, a select of the value and one of the index), issued by 4
@@ -532,10 +553,13 @@ DECODE_F32_TOL = 2e-3
 # from its prefill by less than the prefill differs from float32 is within
 # rounding, while a wrong state or position moves the logits by O(1).
 SSM_ARCHS = ("xlstm-1.3b", "zamba2-2.7b")
-SSM_S = {"xlstm-1.3b": 2048, "zamba2-2.7b": ZAMBA_S}
-SSM_TRAIN_S = {"xlstm-1.3b": 1024, "zamba2-2.7b": ZAMBA_TRAIN_S}
+SSM_S = {"xlstm-1.3b": 1024, "zamba2-2.7b": ZAMBA_S}
+SSM_TRAIN_S = {"xlstm-1.3b": 512, "zamba2-2.7b": ZAMBA_TRAIN_S}
 SSM_F32_LAYERS = {"xlstm-1.3b": 8, "zamba2-2.7b": 12}
 SSM_TRAIN_STEPS = 3
+# xlstm-1.3b's lengths are the shortest that still cross a chunk: its
+# Python sLSTM scan issues about 25 launches a token, so its share of the
+# script's time limit grows with the length.
 # Phase 17: the encoder and VLM families at full width and depth, bfloat16,
 # random weights from torch.Generator seed SEED, batches from
 # make_dummy_batch (numpy seed SEED). (a) hubert-xlarge with attn_impl
@@ -646,7 +670,7 @@ DIST_TRAIN_FLASH_BWD_CASES = ((B_TRAIN, 8, 4, S_TRAIN, 256, "causal", 0, 50.0),
 # (checked against the largest load). A deepseek-v3 train step at full
 # width fits no card (one MoE layer's experts are 11.3 B parameters); it
 # runs at 8 CPU ranks in tests/test_torch_distribution_zoo.py.
-DIST_XLSTM_LAYERS, DIST_XLSTM_PREFILL, DIST_XLSTM_TRAIN = 8, (1, 2048), (1, 1024)
+DIST_XLSTM_LAYERS, DIST_XLSTM_PREFILL, DIST_XLSTM_TRAIN = 8, (1, 1024), (1, 512)
 DIST_ZAMBA_LAYERS = 12
 DIST_GRANITE_LAYERS = 4
 DIST_PALI_SERVE_B = 1
@@ -684,6 +708,11 @@ DRYRUN_COMBOS = (("gemma2-2b", "train_4k"), ("olmoe-1b-7b", "prefill_32k"), ("ol
 DRYRUN_TIMEOUT = 170
 DRYRUN_STEPS = 3
 DRYRUN_TRIP_ARCH, DRYRUN_TRIP_LAYERS, DRYRUN_TRIP = "xlstm-1.3b", 8, (1, 1024)
+# Phase 21: remat="dots" (the header). REMAT_STEPS steps under each remat,
+# the first held, the rest timed; (b)'s hill-climb combos and their limit.
+REMAT_STEPS = 4
+REMAT_CLIMB = ("deepseek-7b", "train_4k", ("baseline", "remat_dots"))
+REMAT_CLIMB_TIMEOUT = 120
 
 
 def check(cond, msg):
@@ -1697,7 +1726,19 @@ def device_ms_by(fn, kernels, calls=1):
     (sessions on the card have seen 18 of 20 and 4 of 5 row-kernel launches
     that the counters saw): such a session is logged, counted in
     ``PROFILER_RERUNS`` for the kernels line, and run again, up to
-    PROFILER_SESSIONS in all; if the last one still disagrees, this fails."""
+    PROFILER_SESSIONS in all; if the last one still disagrees, this fails.
+
+    The profiler keeps a kernel's record only if the record's start and end,
+    moved from the card's clock onto the host's, fall inside the window
+    between the profiler's start and stop on the host; a window that holds
+    only a few short launches (5 of the row kernel, about 1 ms in all) ends
+    within a fraction of a millisecond of its last record, so a small
+    disagreement between the two clocks drops records at either end. Each
+    window therefore opens PROFILER_MARGIN_S before the first call and
+    closes PROFILER_MARGIN_S after the last synchronize: the records lie
+    well inside it, and the device time it sums is the kernels' alone
+    (``scripts/profiler_records.py`` counts the sessions that lose records
+    with and without the margin)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import minplus as mp
@@ -1707,9 +1748,11 @@ def device_ms_by(fn, kernels, calls=1):
     for session in range(1, PROFILER_SESSIONS + 1):
         before = {k: getattr(mp, PROFILED_COUNTERS[k]) for k in kernels}
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILER_MARGIN_S)
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
+            time.sleep(PROFILER_MARGIN_S)
         launched = {k: getattr(mp, PROFILED_COUNTERS[k]) - before[k] for k in kernels}
         out = {k: (0.0, 0) for k in kernels}
         for e in prof.key_averages():
@@ -5673,6 +5716,151 @@ def dryrun_phase(card, dev, kernel_step_ms):
     return results
 
 
+def remat_train(fa, cfg, start, batch, dev, what):
+    """REMAT_STEPS train steps of ``cfg`` from the host copy ``start``: the
+    first step's loss and parameters (a host copy), the flash launches of
+    each step (the counters set to 0 before the steps), the warm steps' ms
+    (CUDA events), the peak device memory over the steps, allocated and
+    reserved, and the caching allocator's retries in them (a retry frees
+    the cache and calls cudaMalloc again, which waits on the card)."""
+    from repro_torch.launch import build_train_step
+    from repro_torch.optim import tree_map
+
+    step, opt = build_train_step(cfg)
+    params = tree_map(lambda x: x.to(dev, copy=True), start)  # the step updates its parameters in place
+    state = opt.init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in FLASH_COUNTERS:
+        setattr(fa, c, 0)
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+    L, ms, first = cfg.num_layers, [], None
+    for i in range(REMAT_STEPS):
+        n0 = flash_counts(fa)
+        start_ev, end_ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start_ev.record()
+        params, state, loss = step(params, state, batch)
+        end_ev.record()
+        torch.cuda.synchronize()
+        per = tuple(b - a for a, b in zip(n0, flash_counts(fa)))
+        check(per == (2 * L, L, L) * 2, f"{what} step {i + 1}: flash (forward, dQ, dK/dV) launches and their "
+                                        f"tensor-core ones {per}, expected {(2 * L, L, L) * 2}")
+        check(math.isfinite(float(loss)), f"{what} step {i + 1}: loss {float(loss)}")
+        if i == 0:
+            first = (float(loss), host_copy(params))
+        else:
+            ms.append(start_ev.elapsed_time(end_ev))
+    launches = flash_counts(fa)[:3]
+    peak = (torch.cuda.max_memory_allocated() / 1e9, torch.cuda.max_memory_reserved() / 1e9,
+            torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries)
+    del params, state, step, opt
+    torch.cuda.empty_cache()
+    return first, launches, statistics.median(ms), ms, peak
+
+
+def remat_phase(fa, dev, card):
+    """Phase 21: ``remat="dots"`` against ``"full"`` (the header). Returns
+    the flash launches of the "dots" steps. Stops (b)'s subprocesses
+    whatever happens."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import value_and_grad
+    from repro_torch.models import init_params, make_dummy_batch
+    from repro_torch.optim import tree_leaves
+
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    out_dir = root / "build" / "perf"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    env = {**os.environ, "PYTHONPATH": str(root / "src")}
+    arch, shape, variants = REMAT_CLIMB
+    procs = {}
+    for v in variants:
+        out = out_dir / f"{arch}.{shape}.{v}.json"
+        out.unlink(missing_ok=True)
+        cmd = [sys.executable, "-m", "repro_torch.launch.hillclimb", "--arch", arch, "--shape", shape, "--variant", v,
+               "--mesh", "pod", "--device", dev.type, "--out", str(out)]
+        procs[v] = (out, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+                                          cwd=str(root)))
+    try:
+        # (a) the train step under each remat, from the same weights and batch
+        cfg = get_config(ARCH).replace(attn_impl="flash")
+        check(cfg.remat == "full", f"{ARCH} FULL trains with remat {cfg.remat}")
+        start = host_copy(init_params(cfg, torch.Generator(device=dev).manual_seed(SEED)))
+        batch = make_dummy_batch(cfg, B_TRAIN, S_TRAIN, "train", np.random.default_rng(SEED), device=dev)
+        torch.cuda.empty_cache()
+        runs = {r: remat_train(fa, cfg.replace(remat=r), start, batch, dev, f"(a) remat={r}") for r in ("full", "dots")}
+        (loss_f, p_f), (loss_d, p_d) = runs["full"][0], runs["dots"][0]
+        d_loss = abs(loss_d - loss_f)
+        worst, ok = 0.0, True
+        for a, b in zip(tree_leaves_of(p_d), tree_leaves_of(p_f)):
+            d = (a.float() - b.float()).abs()
+            ok = ok and bool((d <= MODEL_GRAD_ATOL + MODEL_GRAD_RTOL * b.float().abs()).all())
+            worst = max(worst, float(d.max()))
+        del start, p_f, p_d
+        log(f"[remat] {card}")
+        log(f"[remat] (a) {ARCH} FULL B={B_TRAIN} S={S_TRAIN}, flash route, AdamW, the same weights and batch: first "
+            f"step's loss dots {loss_d:.6f}, full {loss_f:.6f} (|d| {d_loss:.3e}, limit {LOSS_ATOL}); parameters "
+            f"after it within rtol={MODEL_GRAD_RTOL}, atol={MODEL_GRAD_ATOL} of full's: {ok} (largest |d| "
+            f"{worst:.3e})")
+        for r, (_, launches, warm, ms, peak) in runs.items():
+            log(f"[remat] (a) remat={r}: flash launches over {REMAT_STEPS} steps (forward, dQ, dK/dV) {launches}, "
+                f"{tuple(n // REMAT_STEPS for n in launches)} a step, all tensor-core; warm step {warm:.3f} ms (CUDA "
+                f"events, median of {len(ms)}: {', '.join(f'{x:.3f}' for x in ms)}); peak device memory {peak[0]:.2f} GB "
+                f"allocated, {peak[1]:.2f} GB reserved; allocator retries over the steps {peak[2]}")
+        check(d_loss < LOSS_ATOL and ok, f"(a) remat=dots against full: loss |d| {d_loss}, parameters within limits "
+                                         f"{ok}")
+        cfg32 = cfg.replace(num_layers=F32_LAYERS, param_dtype="float32", compute_dtype="float32")
+        p32 = init_params(cfg32, torch.Generator(device=dev).manual_seed(SEED))
+        n0 = flash_counts(fa)
+        loss_n, g_n = value_and_grad(p32, cfg32.replace(remat="none"), batch)
+        loss_d32, g_d = value_and_grad(p32, cfg32.replace(remat="dots"), batch)
+        per = tuple(b - a for a, b in zip(n0, flash_counts(fa)))[:3]
+        check(per == (3 * F32_LAYERS, 2 * F32_LAYERS, 2 * F32_LAYERS), f"(a) float32 none + dots launches {per}")
+        d32 = abs(float(loss_d32) - float(loss_n))
+        worst32, ok32 = 0.0, True
+        for a, b in zip(tree_leaves(g_d), tree_leaves(g_n)):
+            d = (a - b).abs()
+            ok32 = ok32 and bool((d <= MODEL_GRAD_ATOL + MODEL_GRAD_RTOL * b.abs()).all())
+            worst32 = max(worst32, float(d.max()))
+        del p32, g_n, g_d, batch
+        torch.cuda.empty_cache()
+        log(f"[remat] (a) float32, {F32_LAYERS} layers at full width: loss under dots {float(loss_d32):.6f} against "
+            f"none {float(loss_n):.6f} (|d| {d32:.3e}, limit {LOSS_ATOL}); gradients within rtol={MODEL_GRAD_RTOL}, "
+            f"atol={MODEL_GRAD_ATOL} (largest |d| {worst32:.3e}); flash launches (forward, dQ, dK/dV) {per}")
+        check(d32 < LOSS_ATOL and ok32, f"(a) float32 dots against none: loss |d| {d32}, gradients within limits "
+                                        f"{ok32}")
+
+        # (b) the hill-climb on the fake pod mesh
+        terms = {}
+        for v, (out, proc) in procs.items():
+            try:
+                stdout, stderr = proc.communicate(
+                    timeout=max(1.0, REMAT_CLIMB_TIMEOUT - (time.perf_counter() - t_phase)))
+            except subprocess.TimeoutExpired:
+                raise RuntimeError(f"check failed: (b) the hill-climb of {arch} {shape} [{v}] took over "
+                                   f"{REMAT_CLIMB_TIMEOUT} s")
+            check(proc.returncode == 0, f"(b) the hill-climb [{v}] exited {proc.returncode}: {stderr[-2000:]}")
+            r = json.loads(out.read_text())
+            check(r["status"] == "ok" and r["variant"] == v and r["n_chips"] == 256,
+                  f"(b) [{v}]: status {r['status']}, variant {r.get('variant')}, n_chips {r.get('n_chips')}")
+            t = terms[v] = r["roofline"]
+            log(f"[remat] (b) {arch} {shape} [{v}] on the fake (16, 16) mesh of \"{dev.type}\" stand-ins: per device "
+                f"{t['hlo_flops_per_device']:.6e} FLOPs, {t['hlo_bytes_per_device']:.6e} B, "
+                f"{t['collective_bytes_per_device']:.6e} collective B; t_compute {t['t_compute_s']:.6e} s, t_memory "
+                f"{t['t_memory_s']:.6e} s, t_collective {t['t_collective_s']:.6e} s -> {t['dominant']}; trace "
+                f"{r['lower_s']} s; summary: {stdout.strip().splitlines()[-1]}")
+        ratio = terms["remat_dots"]["hlo_flops_per_device"] / terms["baseline"]["hlo_flops_per_device"]
+        log(f"[remat] (b) remat_dots / baseline per-device FLOPs {ratio:.4f}")
+        check(ratio < 1.0, f"(b) remat_dots counts {ratio:.4f} x baseline's FLOPs per device")
+    finally:
+        for _, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+            proc.communicate()
+    log(f"[remat] phase 21 wall time {time.perf_counter() - t_phase:.1f} s")
+    return runs["dots"][1]
+
+
 def main() -> int:
     # -- phase 1: device ---------------------------------------------------
     if not torch.cuda.is_available():
@@ -5800,6 +5988,9 @@ def main() -> int:
     # -- phase 20: the dry run ------------------------------------------------------
     dryrun_phase(card, dev, train_figs["warm_ms"])
 
+    # -- phase 21: remat="dots" and the hill-climb ------------------------------------
+    dots_launches = remat_phase(fa, dev, card)
+
     kernels = [{
         "name": "minplus_cuda",
         "route": "cuda",
@@ -5856,6 +6047,7 @@ def main() -> int:
         "distributed_launches_by_part": {"gemma2-2b train": dist_train[0], f"{MOE_ARCH} prefill":
                                          dist_launches["moe_prefill"],
                                          **{k: v[0] for k, v in dist_launches["zoo"].items()}},
+        "remat_dots_launches": dots_launches[0],
         "max_abs_err": flash_err_max,
         **ft,
     }, {
@@ -5870,6 +6062,7 @@ def main() -> int:
         "encoder_launches_by_part": {k: v for k, v in enc_by_use.items() if k.endswith("train dq")},
         "hubert_d80": hubert_d80[f"dq_S{HUBERT_TRAIN[1]}"],
         "distributed_launches": dist_train[1] + sum(v[1] for v in dist_launches["zoo"].values()),
+        "remat_dots_launches": dots_launches[1],
         "max_abs_err": dq_err,
         **dq_t,
     }, {
@@ -5884,6 +6077,7 @@ def main() -> int:
         "encoder_launches_by_part": {k: v for k, v in enc_by_use.items() if k.endswith("train dkv")},
         "hubert_d80": hubert_d80[f"dkv_S{HUBERT_TRAIN[1]}"],
         "distributed_launches": dist_train[2] + sum(v[2] for v in dist_launches["zoo"].values()),
+        "remat_dots_launches": dots_launches[2],
         "max_abs_err": dkv_err,
         **dkv_t,
     }]

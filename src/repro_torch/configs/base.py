@@ -109,7 +109,7 @@ class ModelConfig:
     # numerics / training
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
-    remat: str = "none"  # none | full | dots (dots is not ported: no config uses it)
+    remat: str = "none"  # none | full | dots
     optimizer: str = "adamw"
     learning_rate: float = 3e-4
 

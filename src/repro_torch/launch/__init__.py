@@ -4,7 +4,9 @@ launcher (``train.py``, ``python -m repro_torch.launch.train``), the
 serving launcher (``serve.py``, ``python -m repro_torch.launch.serve``) and
 the dry run (``dryrun.py``, ``python -m repro_torch.launch.dryrun``, its own
 process; with the per-device cost counter ``hlo_analysis.py`` and the H100
-roofline ``roofline.py``).
+roofline ``roofline.py``) and the sharding hill-climb over it
+(``hillclimb.py``, ``python -m repro_torch.launch.hillclimb``, its own
+process).
 
 The step builders load on first use: the models import ``sharding`` from
 this package, and ``steps`` imports the models."""

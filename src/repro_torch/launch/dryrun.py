@@ -11,6 +11,8 @@ process has one. One combo per invocation:
         --out build/dryrun/deepseek-7b.train_4k.pod.json
 
 ``--mesh pod`` = (data=16, model=16); ``--mesh multipod`` = (pod=2, 16, 16).
+:mod:`repro_torch.launch.hillclimb` runs :func:`lower_one` under the
+reference's named variants of the config and the rules.
 ``--device cpu`` traces with CPU stand-ins (no card needed; the default is
 ``cuda``), ``--smoke`` takes the arch's SMOKE config, ``--unsharded`` also
 counts the same step without a mesh (under the result's ``"unsharded"``).

@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import math
 import re
+import threading
 from collections.abc import Mapping
 from contextlib import contextmanager
 from typing import Optional
@@ -47,6 +48,7 @@ __all__ = [
     "local_shards",
     "logical_to_mesh",
     "mesh_context",
+    "no_batch_product",
     "param_pspecs",
     "rules",
     "set_mesh",
@@ -267,15 +269,45 @@ def whole_rows_grad(y):
     return _WholeRowsGrad.apply(y) if torch.is_grad_enabled() and y.requires_grad else y
 
 
+_PRODUCT = threading.local()
+
+
+@contextmanager
+def no_batch_product():
+    """Marks the matrix products run under it as products with no batch
+    dims (the reference's ``dot_general`` without batch dimensions: an
+    activation times a weight, the einsum dispatch's gathers), whatever
+    aten op they reach (``mm``, ``addmm``, or ``bmm`` on an operand
+    broadcast over the batch): what ``remat="dots"`` saves
+    (:func:`repro_torch.models.dense._maybe_remat`)."""
+    depth = getattr(_PRODUCT, "depth", 0)
+    _PRODUCT.depth = depth + 1
+    try:
+        yield
+    finally:
+        _PRODUCT.depth = depth
+
+
+def in_no_batch_product() -> bool:
+    """Whether this thread runs inside :func:`no_batch_product`."""
+    return getattr(_PRODUCT, "depth", 0) > 0
+
+
 def linear(x, w):
-    """``x @ w`` for an activation ``x (..., d)`` and a weight ``(d, f)``.
-    On DTensors the rows (``x``'s leading dims) are made whole first, and
-    so are the gradient's (:func:`whole_rows`): the product flattens them
-    both ways, which torch 2.11's views refuse where a dim behind the
-    first is sharded (a sequence split by ``act_seq``)."""
+    """``x @ w`` for an activation ``x (..., d)`` and a weight ``(d, f)``, a
+    product with no batch dims (:func:`no_batch_product`). On DTensors the
+    rows (``x``'s leading dims) are made whole first, and so are the
+    gradient's (:func:`whole_rows`): the product flattens them both ways,
+    which torch 2.11's views refuse where a dim behind the first is sharded
+    (a sequence split by ``act_seq``). The gathered rows are recomputed
+    under ``remat="dots"``; the product is saved."""
     if not isinstance(x, DTensor):
-        return x @ w
-    return whole_rows_grad(whole_rows(x) @ w)
+        with no_batch_product():
+            return x @ w
+    x = whole_rows(x)
+    with no_batch_product():
+        y = x @ w
+    return whole_rows_grad(y)
 
 
 def shard(x, *logical):

@@ -8,8 +8,8 @@ Parameters are a dict ``{"emb", "layers", "ln_f"[, "lm_head"]}`` whose
 ``(n_groups, period, ...)`` stack maps onto it as layer ``g * period + sub``
 (:func:`repro_torch.models.convert.params_from_jax`). The stack is a Python
 loop over groups of ``period`` layers with ``kind = pattern[sub]``; under
-``cfg.remat == "full"`` each group is checkpointed, as the reference
-checkpoints its scan body. The reference's ``shard`` calls stand at the
+``cfg.remat == "full"`` or ``"dots"`` each group is checkpointed, as the
+reference checkpoints its scan body (:func:`_maybe_remat`). The reference's ``shard`` calls stand at the
 same points (:func:`repro_torch.launch.sharding.shard`): the identity
 without a mesh, a DTensor redistribution under one.
 
@@ -30,11 +30,11 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from ..configs.base import ModelConfig
 from ..core.torch_dp import resolve_device
-from ..launch.sharding import axis_size, like, linear, shard, whole_groups
+from ..launch.sharding import axis_size, in_no_batch_product, like, linear, shard, whole_groups
 from .layers import (_local_extent, apply_rope, attention, dense_init, gelu, make_rope, mlp_act, mlp_gated, rms_norm,
                      softcap, squared_relu)
 
@@ -157,7 +157,7 @@ def _proj(x, w):
     if isinstance(w2, DTensor):  # heads split evenly, or replicated
         w2 = whole_groups(w2, 1, w.shape[1])
         return whole_groups(linear(x, w2), -1, w.shape[1]).reshape(*x.shape[:-1], *w.shape[1:])
-    return (x @ w2).reshape(*x.shape[:-1], *w.shape[1:])
+    return linear(x, w2).reshape(*x.shape[:-1], *w.shape[1:])
 
 
 def _out_proj(out, wo):
@@ -311,20 +311,44 @@ def layer_apply(cfg: ModelConfig, p, h, kind: str, rope_sincos, *, q_pos, kv_pos
     return shard(h + mlp_out, "batch", "act_seq", None), new_kv
 
 
+_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default, torch.ops.aten.bmm.default)
+
+
+def _save_dots(ctx, func, *args, **kwargs):
+    """The policy of ``remat="dots"``, the reference's
+    ``checkpoint_dots_with_no_batch_dims``: save the output of every matrix
+    product with no batch dims, recompute everything else. Which aten op a
+    product reaches does not tell (a projection reaches ``mm``, or ``bmm``
+    on a weight broadcast over a batch that ``matmul`` could not fold; an
+    einsum without batch dims reaches ``bmm`` with a batch of one), so the
+    products the reference writes without batch dims are marked where they
+    are written (:func:`repro_torch.launch.sharding.no_batch_product`:
+    ``linear``, the MoE dispatches' gathers); attention's and the SSM
+    cells' batched products, and the MoE experts' products batched over
+    the experts, are recomputed. On DTensors the policy sees the DTensor
+    op (the mode runs above DTensor's dispatch), so a saved product keeps
+    its DTensor output and the redistributions before it are recomputed."""
+    if func in _PRODUCTS and in_no_batch_product():
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def _maybe_remat(cfg: ModelConfig, fn):
-    """``remat="full"``: ``fn`` under ``torch.utils.checkpoint``, which keeps
-    only its inputs and runs it again in the backward pass (the reference's
-    ``jax.checkpoint`` with ``nothing_saveable``); only when grad mode is on,
-    since without a backward pass there is nothing to recompute. The layers
-    draw no random numbers, so no RNG state is stashed."""
+    """``fn`` under ``torch.utils.checkpoint`` (not reentrant) when grad
+    mode is on, as the reference wraps its scan body in ``jax.checkpoint``:
+    ``remat="full"`` keeps only its inputs and runs it again in the backward
+    pass (``nothing_saveable``); ``remat="dots"`` also keeps the output of
+    every product with no batch dims (:func:`_save_dots`, through
+    ``create_selective_checkpoint_contexts``), and the backward pass
+    recomputes the rest from those. Without grad mode there is nothing to
+    recompute. The layers draw no random numbers, so no RNG state is
+    stashed."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    kw = dict(use_reentrant=False, preserve_rng_state=False)
     if cfg.remat == "dots":
-        raise NotImplementedError(
-            "remat='dots' (checkpoint_dots_with_no_batch_dims) is not ported: no config uses it "
-            "(ROADMAP.md, Queue 1)"
-        )
-    if cfg.remat == "full" and torch.is_grad_enabled():
-        return functools.partial(checkpoint, fn, use_reentrant=False, preserve_rng_state=False)
-    return fn
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _save_dots)
+    return functools.partial(checkpoint, fn, **kw)
 
 
 def stack_forward(cfg: ModelConfig, layers, h, *, prefix_len=None, collect_cache=False):

@@ -33,7 +33,7 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
 from ..configs.base import ModelConfig
-from ..launch.sharding import current_mesh, mesh_shape, rules, whole_rows, whole_rows_grad
+from ..launch.sharding import current_mesh, linear, mesh_shape, no_batch_product, rules, whole_rows, whole_rows_grad
 
 __all__ = ["einsum_capacity", "moe_ffn", "route"]
 
@@ -44,7 +44,7 @@ def route(cfg: ModelConfig, x2d: torch.Tensor, router_w: torch.Tensor):
     rank's rows under ``local_map``, the experts whole (the sort is an
     index-style op: torch 2.11's DTensor cannot run its backward, whose
     scatter meets a plain tensor)."""
-    probs = torch.softmax(x2d.float() @ router_w.float(), dim=-1)
+    probs = torch.softmax(linear(x2d.float(), router_w.float()), dim=-1)
     top_k = functools.partial(_top_k, k=cfg.top_k)
     if isinstance(probs, DTensor):
         pl = [Replicate() if p.is_partial() or p == Shard(1) else p for p in probs.placements]
@@ -75,8 +75,12 @@ def _expert_mlp(experts, xs):
 
 def _moe_dense(cfg: ModelConfig, x2d, experts, gate_w, gate_idx):
     """Every expert on every token, ``(E, T, d)``, combined by the gates
-    cast to the activations' dtype."""
-    h = F.silu(torch.matmul(x2d, experts["w_gate"])) * torch.matmul(x2d, experts["w_in"])  # (E, T, f)
+    cast to the activations' dtype. The tokens' products with the stacked
+    weights have no batch dims (the reference's ``td,edf->etf``; ``matmul``
+    runs them as ``bmm`` on the tokens broadcast over the experts)."""
+    with no_batch_product():
+        h_gate, h_in = torch.matmul(x2d, experts["w_gate"]), torch.matmul(x2d, experts["w_in"])
+    h = F.silu(h_gate) * h_in  # (E, T, f)
     y_all = torch.bmm(h, experts["w_out"])  # (E, T, d)
     onehot = F.one_hot(gate_idx, cfg.num_experts).to(x2d.dtype)  # (T, k, E)
     w = (gate_w.to(x2d.dtype)[..., None] * onehot).sum(1)  # (T, E)
@@ -99,39 +103,73 @@ def _moe_einsum(cfg: ModelConfig, x2d, experts, gate_w, gate_idx, capacity: int)
     return ys.to(x2d.dtype)
 
 
-def _einsum_local(x2d, w_gate, w_in, w_out, gate_w, gate_idx, *, cfg, capacity, e0=0):
-    """The einsum dispatch of all ``T`` tokens to the experts ``[e0, e0 +
-    len(w_gate))`` that the weights hold: their float32 ``(T, d)``
-    contribution. Slot positions are counted over all tokens and all
+def _slots(gate_w, gate_idx, *, cfg, capacity, e0=0, e_n=None, rows=None):
+    """``(dispatch, combine)`` of the einsum dispatch, each ``(T, e_n, C)``
+    float32: the 0/1 slot of each token at the experts ``[e0, e0 + e_n)``
+    (default: all), and the same weighted by the token's gate (``None``
+    without ``gate_w``). Slot positions are counted over all tokens and all
     experts, so a (token, choice) pair takes the slot, or is dropped, as in
-    the dispatch over every expert at once."""
-    T, _ = x2d.shape
+    the dispatch over every expert at once; ``rows`` (a slice) keeps the
+    tokens of one rank's rows after the count."""
+    T = gate_idx.shape[0]
     E, k = cfg.num_experts, cfg.top_k
     onehot = F.one_hot(gate_idx, E).float()  # (T, k, E)
     flat = onehot.reshape(T * k, E)
     pos = (torch.cumsum(flat, dim=0) - flat) * flat  # position within the expert if routed
     pos = pos.sum(-1).reshape(T, k).long()
+    if rows is not None:
+        onehot, pos = onehot[rows], pos[rows]
+        gate_w = None if gate_w is None else gate_w[rows]
     # a dropped pair gets the one-hot of slot `capacity`, which is cut off
     pos_oh = F.one_hot(pos.clamp_max(capacity), capacity + 1)[..., :capacity].float()  # (T, k, C)
-    if w_gate.shape[0] != E:
-        onehot = onehot[..., e0:e0 + w_gate.shape[0]]  # the local experts' columns
+    if e_n is not None and e_n != E:
+        onehot = onehot[..., e0:e0 + e_n]  # the local experts' columns
     dispatch = torch.einsum("tke,tkc->tec", onehot, pos_oh)  # (T, E, C) 0/1
-    combine = torch.einsum("tk,tke,tkc->tec", gate_w.float(), onehot, pos_oh)
-    xs = torch.einsum("tec,td->ecd", dispatch, x2d.float()).to(x2d.dtype)
-    ys = _expert_mlp({"w_gate": w_gate, "w_in": w_in, "w_out": w_out}, xs)  # (E, C, d)
-    return torch.einsum("tec,ecd->td", combine, ys.float())
+    combine = None if gate_w is None else torch.einsum("tk,tke,tkc->tec", gate_w.float(), onehot, pos_oh)
+    return dispatch, combine
+
+
+def _gather(dispatch, x):
+    """The experts' float32 inputs ``(E, C, d)`` of the tokens ``x``: a
+    product with no batch dims (an einsum's ``bmm`` of batch one)."""
+    with no_batch_product():
+        return torch.einsum("tec,td->ecd", dispatch, x.float())
+
+
+def _scatter(combine, ys):
+    """The tokens' float32 ``(T, d)`` from the experts' outputs, weighted by
+    the gates: a product with no batch dims."""
+    with no_batch_product():
+        return torch.einsum("tec,ecd->td", combine, ys.float())
+
+
+def _einsum_local(x2d, w_gate, w_in, w_out, gate_w, gate_idx, *, cfg, capacity):
+    """The einsum dispatch of all ``T`` tokens to all experts on one
+    device: the float32 ``(T, d)`` output."""
+    dispatch, combine = _slots(gate_w, gate_idx, cfg=cfg, capacity=capacity)
+    xs = _gather(dispatch, x2d).to(x2d.dtype)
+    return _scatter(combine, _expert_mlp({"w_gate": w_gate, "w_in": w_in, "w_out": w_out}, xs))
 
 
 def _moe_einsum_sharded(cfg: ModelConfig, x2d, experts, gate_w, gate_idx, capacity: int):
-    """The einsum dispatch on DTensors: the tokens, gates and experts'
-    choices whole on every rank, the experts split as the parameters are
-    placed (``Shard(0)`` on the ``expert`` rule's axes, data major, or
-    ``Replicate()`` where those axes do not divide the experts). Each rank
-    dispatches every token to its own experts (:func:`_einsum_local`)
-    under ``local_map``; the float32 partial sums over the expert axes are
-    reduced into ``x2d``'s placements (a partial sum there replicated)
-    before the cast, as the reference sums over every expert before it. The
-    slot dim is never split, so no mesh size has to divide the capacity."""
+    """The einsum dispatch on DTensors, in two ``local_map`` bodies. The
+    experts are split as the parameters are placed (``Shard(0)`` on the
+    ``expert`` rule's axes, data major, or ``Replicate()`` where those axes
+    do not divide the experts); the tokens keep ``x2d``'s row split on the
+    other mesh dims and are whole on the expert dims; the gates and the
+    experts' choices are whole on every rank, so slot positions are counted
+    over all tokens (the same pairs drop). The first body gathers each
+    rank's tokens into its experts' slots, a float32 partial sum over the
+    token split, which is reduced before the cast (each slot holds one
+    token, so the sum is exact); the second runs the experts and scatters
+    their outputs to the rank's tokens, a float32 partial sum over the
+    expert split, reduced into ``x2d``'s placements before the cast, as the
+    reference sums over every expert before it. Each rank does the products
+    of its share of the tokens and experts, as the reference's program
+    does. The slot dim is never split, so no mesh size has to divide the
+    capacity."""
+    from .layers import _local_extent
+
     mesh = x2d.device_mesh
     ws = [experts[n] for n in ("w_gate", "w_in", "w_out")]
     exp = list(ws[0].placements)
@@ -139,16 +177,37 @@ def _moe_einsum_sharded(cfg: ModelConfig, x2d, experts, gate_w, gate_idx, capaci
         raise ValueError(f"the einsum dispatch needs the experts split on their first dim or whole, not "
                          f"{[list(w.placements) for w in ws]}")
     split = [i for i, p in enumerate(exp) if p == Shard(0)]
+    tok = [i for i, p in enumerate(x2d.placements) if p == Shard(0) and i not in split]
     coord = mesh.get_coordinate()
     block = 0
     for i in split:  # DTensor nests the shards in mesh-dim order
         block = block * mesh.size(i) + coord[i]
     e_local = cfg.num_experts // math.prod(mesh.size(i) for i in split)
+    rows_pl = [Shard(0) if i in tok else Replicate() for i in range(mesh.ndim)]
+    n_rows, t0 = _local_extent(x2d.shape[0], mesh, rows_pl, 0)
+    rows = slice(t0, t0 + n_rows)
     rep = [Replicate()] * mesh.ndim
-    out = [Partial() if i in split else Replicate() for i in range(mesh.ndim)]
-    body = functools.partial(_einsum_local, cfg=cfg, capacity=capacity, e0=block * e_local)
-    y = local_map(body, out_placements=out, in_placements=(rep, exp, exp, exp, rep, rep), device_mesh=mesh,
-                  redistribute_inputs=True)(x2d, *ws, gate_w, gate_idx)
+
+    def by(tok_p, split_p, other):
+        return [tok_p if i in tok else split_p if i in split else other for i in range(mesh.ndim)]
+
+    def gather(x, idx):
+        dispatch, _ = _slots(None, idx, cfg=cfg, capacity=capacity, e0=block * e_local, e_n=e_local, rows=rows)
+        return _gather(dispatch, x)
+
+    xs = local_map(gather, out_placements=by(Partial(), Shard(0), Replicate()), in_placements=(rows_pl, rep),
+                   in_grad_placements=(by(Shard(0), Partial(), Replicate()), rep), device_mesh=mesh,
+                   redistribute_inputs=True)(x2d, gate_idx)
+    xs = xs.redistribute(mesh, exp).to(x2d.dtype)
+
+    def scatter(xl, w_g, w_i, w_o, gw, idx):
+        _, combine = _slots(gw, idx, cfg=cfg, capacity=capacity, e0=block * e_local, e_n=e_local, rows=rows)
+        return _scatter(combine, _expert_mlp({"w_gate": w_g, "w_in": w_i, "w_out": w_o}, xl))
+
+    exp_grad = by(Partial(), Shard(0), Replicate())  # each rank's tokens add to its experts' gradients
+    y = local_map(scatter, out_placements=by(Shard(0), Partial(), Replicate()), in_placements=(exp,) * 4 + (rep, rep),
+                  in_grad_placements=(exp_grad,) * 4 + (by(Partial(), Partial(), Replicate()), rep), device_mesh=mesh,
+                  redistribute_inputs=True)(xs, *ws, gate_w, gate_idx)
     y = y.redistribute(mesh, [Replicate() if p.is_partial() else p for p in x2d.placements])
     return y.to(x2d.dtype)
 
@@ -321,6 +380,6 @@ def moe_ffn(cfg: ModelConfig, p, x: torch.Tensor) -> Tuple[torch.Tensor, torch.T
 
     if "shared" in p:  # deepseek-style always-on shared expert(s)
         sh = p["shared"]
-        y = y + (F.silu(x2d @ sh["w_gate"]) * (x2d @ sh["w_in"])) @ sh["w_out"]
+        y = y + linear(F.silu(linear(x2d, sh["w_gate"])) * linear(x2d, sh["w_in"]), sh["w_out"])
     y = y.reshape(B, S, d)
     return (whole_rows_grad(y) if isinstance(y, DTensor) else y), aux

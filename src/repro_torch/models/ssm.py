@@ -23,7 +23,9 @@ float32 rounding:
 * The per-chunk ``jax.checkpoint`` is ``torch.utils.checkpoint`` (not
   reentrant), applied only when grad mode is on, as
   :func:`repro_torch.models.dense._maybe_remat` does; under ``remat="full"``
-  it sits inside the group's checkpoint.
+  or ``"dots"`` it sits inside the group's checkpoint (its products are
+  batched over heads, so ``"dots"`` saves none of them, as the reference's
+  ``nothing_saveable`` chunk inside its group saves none).
 * ``torch.einsum`` refuses mixed dtypes where ``jnp.einsum`` promotes, so
   the sLSTM's bfloat16 recurrent weights are widened to float32 before they
   meet the float32 ``h``: ``z_t`` and ``h`` come out float32, as in the

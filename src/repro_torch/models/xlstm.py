@@ -8,8 +8,9 @@ reference's ``groups`` stack becomes two top-level lists, ``"mlstm"`` of
 ``n_groups * (period - 1)`` blocks (reference ``groups/mlstm[g, j]`` is
 block ``g * (period - 1) + j``) and ``"slstm"`` of ``n_groups`` blocks, so
 that Adafactor's ``stacks`` (:func:`repro_torch.models.layer_stacks`) hand
-it the reference's stacked axes. Under ``cfg.remat == "full"`` each group
-is checkpointed, as the reference checkpoints its scan body.
+it the reference's stacked axes. Under ``cfg.remat == "full"`` or
+``"dots"`` each group is checkpointed, as the reference checkpoints its
+scan body.
 
 The recurrent state (the decode "cache") is
 ``{"mlstm": (conv, (S, n, m)), "slstm": (c, n, m, h)}``: the mLSTM leaves
@@ -244,7 +245,8 @@ def init_xlstm_cache(cfg: ModelConfig, batch: int, max_len: int = 0, device="cud
 
 def _run(cfg, params, h, state, step, collect):
     """The groups in order from ``state`` (zeros if ``None``), each
-    checkpointed under ``remat="full"`` when grad mode is on. Returns (h,
+    checkpointed under ``remat="full"`` or ``"dots"`` when grad mode is on
+    (:func:`repro_torch.models.dense._maybe_remat`). Returns (h,
     the stacked new state if ``collect``, else ``None``)."""
     G, Pm = _layout(cfg)
     body = _maybe_remat(cfg, functools.partial(_group_apply, cfg, step=step))

@@ -298,12 +298,15 @@ def einsum_case(inp, mesh, shd, tag, arch, rules, **replace):
     the mesh under ``rules``, the tokens' batch on "data": its output and
     aux, whether the experts lay as the ``expert`` rule places them
     (``spec_to_placements`` replicates them where its axes do not divide
-    them) and whether they lay whole on every rank."""
+    them) and whether they lay whole on every rank; and the gradients of
+    ``sum(y * r) + aux`` (``r`` from a seeded generator) with respect to
+    ``x`` and every parameter, on the mesh and unsharded on each rank."""
     from torch.distributed.tensor import Replicate, Shard, distribute_tensor
 
     from repro_torch.configs import get_config
     from repro_torch.models.model import init_params
     from repro_torch.models.moe_dispatch import moe_ffn
+    from repro_torch.optim.optimizers import tree_leaves, tree_map
 
     cfg = get_config(arch, smoke=True).replace(moe_impl="einsum", **replace)
     p = fill(init_params(cfg, 0, device="cpu")["moe_layers"][0]["moe"], inp, f"{tag}/p")
@@ -311,11 +314,21 @@ def einsum_case(inp, mesh, shd, tag, arch, rules, **replace):
     with shd.mesh_context(mesh, rules):
         want = shd.spec_to_placements(shd.logical_to_mesh("expert", None, None), mesh, p["experts"]["w_in"].shape)
         pd = shd.distribute_params({"moe": p})["moe"]
-        y, aux = moe_ffn(cfg, pd, distribute_tensor(x, mesh, [Shard(0), Replicate()]))
+        leaves = [xd := distribute_tensor(x, mesh, [Shard(0), Replicate()]).requires_grad_()]
+        leaves += [w.requires_grad_() for w in tree_leaves(pd)]
+        y, aux = moe_ffn(cfg, pd, xd)
+        r = torch.randn(y.shape, generator=torch.Generator().manual_seed(0))
+        grads = torch.autograd.grad((y * distribute_tensor(r, mesh, list(y.placements))).sum() + aux, leaves)
+    p1 = tree_map(lambda w: w.detach().clone().requires_grad_(), p)
+    xl = x.clone().requires_grad_()
+    y1, aux1 = moe_ffn(cfg, p1, xl)
+    grads1 = torch.autograd.grad((y1 * r).sum() + aux1, [xl, *tree_leaves(p1)])
     placements = [list(w.placements) for w in pd["experts"].values()]
-    return {f"{tag}/y": y.full_tensor().numpy(), f"{tag}/aux": aux.full_tensor().numpy(),
+    return {f"{tag}/y": y.full_tensor().detach().numpy(), f"{tag}/aux": aux.full_tensor().detach().numpy(),
             f"{tag}/split": np.asarray(all(pl == want for pl in placements)),
-            f"{tag}/whole": np.asarray(all(pl == [Replicate()] * mesh.ndim for pl in placements))}
+            f"{tag}/whole": np.asarray(all(pl == [Replicate()] * mesh.ndim for pl in placements)),
+            **{f"{tag}/grad/{i}": g.full_tensor().numpy() for i, g in enumerate(grads)},
+            **{f"{tag}/grad1/{i}": g.numpy() for i, g in enumerate(grads1)}}
 
 
 def cells_case(inp, mesh, shd):
@@ -495,6 +508,7 @@ def run(rank, d, which):
             cases = (
                 ("moe", lambda: moe_case(inp, mesh, shd)),
                 ("gm", lambda: train_case(inp, mesh, shd, "gm", "gemma2-2b", attn_impl="flash", remat="full")),
+                ("gd", lambda: train_case(inp, mesh, shd, "gd", "gemma2-2b", attn_impl="flash", remat="dots")),
                 ("ds", lambda: train_case(inp, mesh, shd, "ds", "deepseek-7b")),
                 ("sv", lambda: serve_case(inp, mesh, shd)),
             )

@@ -448,6 +448,30 @@ def test_cuda_train_step_launches_with_remat(cuda):
     assert torch.isfinite(loss)
 
 
+def test_cuda_train_step_launches_with_remat_dots(cuda):
+    """With remat="dots" the projections' outputs are saved and attention is
+    recomputed: each layer's forward kernel runs twice, each backward kernel
+    once, as under "full", and the loss and gradients agree with those of
+    no remat (the recompute runs the same kernels on the same inputs; the
+    limits leave room for the card's scatter-adds, which may sum in another
+    order from one run to the next)."""
+    from repro_torch.launch import value_and_grad
+    from repro_torch.optim import tree_leaves
+
+    cfg, params, state, batch, step = _smoke_train(cuda, "flash", remat="dots")
+    before = (fa.launches, fa.launches_dq, fa.launches_dkv)
+    loss, grads = value_and_grad(params, cfg, batch)
+    torch.cuda.synchronize()
+    L = cfg.num_layers
+    assert (fa.launches, fa.launches_dq, fa.launches_dkv) == (before[0] + 2 * L, before[1] + L, before[2] + L)
+    loss0, grads0 = value_and_grad(params, cfg.replace(remat="none"), batch)
+    torch.testing.assert_close(loss, loss0, rtol=1e-6, atol=0)
+    for g, w in zip(tree_leaves(grads), tree_leaves(grads0)):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-8)
+    params, state, loss = step(params, state, batch)
+    assert torch.isfinite(loss)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_head_dim_80_runs_the_flash_kernels(cuda, dtype):
     """D = 80 (hubert-xlarge, zamba2-2.7b) lies between the head dims the

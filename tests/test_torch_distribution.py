@@ -12,8 +12,9 @@ imports no JAX. Each test reads rank 0's results:
     gradients against ``jax.grad`` of the dense path;
   * a process group with no active mesh runs a2a as dense;
   * the sharded ``build_train_step`` of deepseek-7b SMOKE, and of gemma2-2b
-    SMOKE on the flash route with ``remat="full"`` (GQA with H = 4, Hkv = 2
-    on a model axis of 4: replicated KV), against JAX's step;
+    SMOKE on the flash route with ``remat="full"`` and ``remat="dots"``
+    (GQA with H = 4, Hkv = 2 on a model axis of 4: replicated KV), against
+    JAX's step;
   * two sharded serve steps of gemma2-2b SMOKE against JAX's unsharded ones.
 
 The einsum dispatch against dense runs in this process.
@@ -131,6 +132,7 @@ def ranks(tmp_path_factory):
         "moe": _jax_moe(inp),
         "ds": _jax_train(inp, "ds", "deepseek-7b"),
         "gm": _jax_train(inp, "gm", "gemma2-2b", remat="full"),
+        "gd": _jax_train(inp, "gd", "gemma2-2b", remat="dots"),
         "sv": _jax_serve(inp),
     }
     np.savez(d / "inputs.npz", **inp)
@@ -173,11 +175,14 @@ def test_moe_einsum_matches_dense():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=MOE_ATOL)
 
 
-@pytest.mark.parametrize("tag", ["ds", "gm"])
+@pytest.mark.parametrize("tag", ["ds", "gm", "gd"])
 def test_sharded_train_step_matches_single_device(ranks, tag):
     """deepseek-7b (``ds``) and gemma2-2b on the flash route with
-    ``remat="full"`` (``gm``): the loss, every parameter after the step,
-    and the placements that ``train_shardings`` gives."""
+    ``remat="full"`` (``gm``) and ``remat="dots"`` (``gd``, against the
+    reference's step under ``checkpoint_dots_with_no_batch_dims``; the
+    products are saved as DTensors, the redistributions before them
+    recomputed): the loss, every parameter after the step, and the
+    placements that ``train_shardings`` gives."""
     want, got = ranks
     assert abs(float(got[f"{tag}/loss"]) - want[tag]["loss"]) < LOSS_ATOL
     assert bool(got[f"{tag}/placed"])
@@ -185,7 +190,7 @@ def test_sharded_train_step_matches_single_device(ranks, tag):
         np.testing.assert_allclose(got[k], v, **TOL_PARAMS, err_msg=k)
     # the flash route on local shards: each layer once forward, once recomputed
     n_layers = jax_get_config("gemma2-2b", smoke=True).num_layers
-    assert int(got[f"{tag}/flash_calls"]) == (2 * n_layers if tag == "gm" else 0)
+    assert int(got[f"{tag}/flash_calls"]) == (2 * n_layers if tag in ("gm", "gd") else 0)
 
 
 def test_sharded_serve_step_matches_unsharded(ranks):

@@ -324,6 +324,21 @@ def test_einsum_dispatch_on_the_mesh_matches_the_reference(ranks, tag):
     np.testing.assert_allclose(float(got[f"{tag}/aux"]), want[tag]["aux"], rtol=1e-6)
 
 
+@pytest.mark.parametrize("tag", list(EINSUM))
+def test_einsum_dispatch_gradients_on_the_mesh_match_unsharded(ranks, tag):
+    """The einsum dispatch's backward on DTensors (the tokens' gather split
+    over "data", the experts over the ``expert`` axes): the gradients of
+    ``sum(y * r) + aux`` with respect to the tokens and every parameter
+    against the same dispatch unsharded, within the reference's MoE
+    limit."""
+    _, got = ranks
+    n = sum(k.startswith(f"{tag}/grad1/") for k in got)
+    assert n > 4
+    for i in range(n):
+        np.testing.assert_allclose(got[f"{tag}/grad/{i}"], got[f"{tag}/grad1/{i}"], rtol=0, atol=MOE_ATOL,
+                                   err_msg=str(i))
+
+
 @pytest.mark.parametrize("tag", list(SERVE))
 def test_sharded_serve_steps_match_unsharded(ranks, tag):
     """Greedy tokens identical to JAX's unsharded serve steps, the KV caches

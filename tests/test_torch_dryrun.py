@@ -25,11 +25,22 @@
   (:func:`repro_torch.launch.hlo_analysis.run_trips`) count what the full
   loops count: unsharded against real tensors run step by step under the
   counter, and on the (2, 4) fake mesh against the same trace with the
-  trip count turned off.
+  trip count turned off;
+* ``remat="dots"``: the losses and gradients of four families' SMOKE
+  models against the reference's under the same policy, the outputs the policy keeps against
+  ``jax.ad_checkpoint``'s saved residuals of one layer group (in the
+  reference's subprocess), and the unsharded FLOPs under ``"full"`` and
+  ``"dots"`` against ``analyze_hlo``;
+* the hill-climb (``repro_torch.launch.hillclimb``): its ``VARIANTS``
+  equal ``scripts/hillclimb.py``'s (read with ``ast``: importing the
+  script sets ``XLA_FLAGS``), each variant of the (2, 4) combos within 10%
+  of the reference's per-device FLOPs, and its command line (a fourth
+  subprocess).
 """
 
 from __future__ import annotations
 
+import ast
 import json
 import os
 import subprocess
@@ -55,6 +66,7 @@ if _XLA_FLAGS is None:
     os.environ.pop("XLA_FLAGS", None)
 else:
     os.environ["XLA_FLAGS"] = _XLA_FLAGS
+import jax.numpy as jnp  # noqa: E402
 from repro import configs as ref_configs  # noqa: E402
 from repro.launch import roofline as ref_roofline  # noqa: E402
 from repro.launch.hlo_analysis import HloCost as RefHloCost  # noqa: E402
@@ -74,12 +86,37 @@ from repro_torch.models.convert import cache_from_jax, params_from_jax  # noqa: 
 
 ARCHS = list_archs()
 SHAPES = list(INPUT_SHAPES)
-# the (2, 4) combos (arch, shape, config replacements): one per step kind,
-# a2a on the MoE prefill; the MoE decode with the einsum dispatch at a
-# capacity of 91 slots (B = 128, top 2 of 4 experts), which neither mesh
-# axis divides
-MESH_COMBOS = (("deepseek-7b", "train_4k", {}), ("olmoe-1b-7b", "prefill_32k", {}), ("gemma2-2b", "decode_32k", {}),
-               ("olmoe-1b-7b", "decode_32k", {"capacity_factor": 1.3}))
+
+
+def _reference_variants() -> dict:
+    """``VARIANTS`` of ``scripts/hillclimb.py``, read from its source."""
+    with open(os.path.join(REPO, "scripts", "hillclimb.py")) as f:
+        tree = ast.parse(f.read())
+    return next(ast.literal_eval(n.value) for n in tree.body
+                if isinstance(n, ast.Assign) and getattr(n.targets[0], "id", None) == "VARIANTS")
+
+
+REF_VARIANTS = _reference_variants()
+# the (2, 4) combos (arch, shape, config replacements, hill-climb variant):
+# one per step kind, a2a on the MoE prefill; the MoE decode with the einsum
+# dispatch at a capacity of 91 slots (B = 128, top 2 of 4 experts), which
+# neither mesh axis divides; the hill-climb's variants on the train combos
+# whose heads divide the model axis
+MESH_COMBOS = (("deepseek-7b", "train_4k", {}, None), ("olmoe-1b-7b", "prefill_32k", {}, None),
+               ("gemma2-2b", "decode_32k", {}, None), ("olmoe-1b-7b", "decode_32k", {"capacity_factor": 1.3}, None),
+               *(("deepseek-7b", "train_4k", {}, v)
+                 for v in ("fsdp_only", "no_actseq", "fsdp_tp_noseq", "remat_dots", "blockq_1024")),
+               *(("olmoe-1b-7b", "train_4k", {}, v) for v in ("moe_einsum", "cap_1_0", "fsdp_cap10")),
+               ("deepseek-v3-671b", "train_4k", {}, "ep_model"))
+# remat="dots": the models whose losses and gradients are held to the
+# reference's (B = 2, S = 64), and the layer groups whose saved outputs are
+DOTS_ARCHS = ("gemma2-2b", "olmoe-1b-7b", "xlstm-1.3b", "zamba2-2.7b")
+RESIDUAL_ARCHS = ("gemma2-2b", "olmoe-1b-7b", "deepseek-7b")
+DOTS_B, DOTS_S = 2, 64
+# test_torch_train.py's gradient limits; the loss within the SSM models' rtol
+# (test_torch_ssm_models.py)
+TOL_GRAD = dict(rtol=2e-3, atol=2e-5)
+LOSS_RTOL = 1e-5
 # the trip-counted loops: xlstm-1.3b SMOKE cut to one group (an mLSTM and
 # an sLSTM block) with chunks of 4 and the group checkpointed as at full
 # size: 16 steps of the sLSTM scan and 4 mLSTM chunks
@@ -134,11 +171,15 @@ out["all_reduce"] = counted(lambda: (xk @ wk).redistribute(mesh, [Replicate(), R
 out["all_to_all"] = counted(lambda: funcol.all_to_all_single(t, None, None, group=(mesh, 1)))
 out["c10d_all_reduce"] = counted(lambda: dist.all_reduce(t, group=mesh.get_group(1)))
 out["lower_one"] = {}
-for arch, shape, over in %r:
-    r = D.lower_one(arch, shape, verbose=False, device="cpu", smoke=True, cfg_overrides=over)
-    out["lower_one"][f"{arch}.{shape}"] = {"keys": sorted(r), "status": r["status"], "n_chips": r["n_chips"],
-                                           "flops": r["roofline"]["hlo_flops_per_device"],
-                                           "coll_total": r["collectives"]["total"]}
+from repro_torch.launch.hillclimb import run_variant
+for arch, shape, over, variant in %r:
+    if variant is None:
+        r = D.lower_one(arch, shape, verbose=False, device="cpu", smoke=True, cfg_overrides=over)
+    else:
+        r = run_variant(arch, shape, variant, device="cpu", smoke=True)
+    out["lower_one"][f"{arch}.{shape}.{variant}"] = {"keys": sorted(r), "status": r["status"], "n_chips": r["n_chips"],
+                                                     "flops": r["roofline"]["hlo_flops_per_device"],
+                                                     "coll_total": r["collectives"]["total"]}
 # the trip-counted sLSTM and mLSTM loops against the full loops, on the mesh
 from repro_torch.configs import get_config
 from repro_torch.configs.base import InputShape
@@ -187,23 +228,56 @@ from repro.models.model import _batch_struct
 D.get_config = lambda arch: get_config(arch, smoke=True)
 D.make_production_mesh = lambda multi_pod=False: jax.make_mesh((2, 4), ("data", "model"),
                                                                axis_types=(AxisType.Auto,) * 2)
-out = {"lower_one": {}, "unsharded": {}}
-for arch, shape, over in %r:
-    r = D.lower_one(arch, shape, False, verbose=False, cfg_overrides=over)
-    out["lower_one"][f"{arch}.{shape}"] = {"keys": sorted(r), "flops": r["roofline"]["hlo_flops_per_device"]}
+out = {"lower_one": {}, "unsharded": {}, "residuals": {}}
+VARIANTS = %r
+for arch, shape, over, variant in %r:
+    rules = {}
+    if variant is not None:
+        over, rules = VARIANTS[variant]
+    r = D.lower_one(arch, shape, False, verbose=False, cfg_overrides=dict(over), rules_overrides=dict(rules))
+    out["lower_one"][f"{arch}.{shape}.{variant}"] = {"keys": sorted(r), "flops": r["roofline"]["hlo_flops_per_device"]}
 shd.set_mesh(None)  # lower_one leaves its mesh active
-cfg = get_config("deepseek-7b", smoke=True)
-p = abstract_params(cfg)
-for mode in ("train", "prefill"):
+for mode, remat in (("train", "none"), ("prefill", "none"), ("train", "full"), ("train", "dots")):
+    cfg = get_config("deepseek-7b", smoke=True).replace(remat=remat)
+    p = abstract_params(cfg)
     b = _batch_struct(cfg, 8, 64, mode)
     if mode == "train":
         step, _ = build_train_step(cfg)
         lowered = jax.jit(step).lower(p, abstract_opt_state(cfg, p), b)
     else:
         lowered = jax.jit(build_prefill_step(cfg)).lower(p, b)
-    out["unsharded"][mode] = analyze_hlo(lowered.compile().as_text()).flops
+    out["unsharded"][f"{mode}.{remat}"] = analyze_hlo(lowered.compile().as_text()).flops
+
+# remat="dots": the residuals that one layer group keeps under
+# checkpoint_dots_with_no_batch_dims
+import numpy as np
+import jax.numpy as jnp
+from jax._src.ad_checkpoint import saved_residuals
+from repro.models import init_params
+from repro.models import dense as RD, moe as RM
+from repro.models.layers import make_rope
+
+for arch in %r:
+    cfg = get_config(arch, smoke=True).replace(remat="dots")
+    p = init_params(cfg, jax.random.PRNGKey(0))
+    h = jnp.ones((%d, %d, cfg.d_model), cfg.cdtype())
+    pos = jnp.arange(h.shape[1])
+    rope = make_rope(pos, cfg.hd, cfg.rope_base)
+    if cfg.num_experts:
+        gp = jax.tree.map(lambda x: x[0], p["moe_layers"])
+        body = lambda h, lp: RM.moe_layer_apply(cfg, lp, h, q_pos=pos, kv_pos=pos, rope=rope)[0]
+    else:
+        gp = jax.tree.map(lambda x: x[0], p["layers"])
+
+        def body(h, gp):
+            for sub, kind in enumerate(RD.attn_pattern(cfg)):
+                h, _ = RD.layer_apply(cfg, jax.tree.map(lambda x: x[sub], gp), h, kind, rope, q_pos=pos, kv_pos=pos)
+            return h
+    res = saved_residuals(RD._maybe_remat(cfg, body), h, gp)
+    out["residuals"][arch] = [int(np.prod(a.shape)) for a, src in res
+                              if not src.startswith(("from the argument", "from a constant"))]
 print("RESULT" + json.dumps(out))
-""" % (MESH_COMBOS,)
+""" % (REF_VARIANTS, MESH_COMBOS, RESIDUAL_ARCHS, DOTS_B, DOTS_S)
 
 
 def _start(code=None, argv=None):
@@ -221,12 +295,16 @@ def _result(proc, timeout=300):
 
 @pytest.fixture(scope="module", autouse=True)
 def procs(tmp_path_factory):
-    """The three subprocesses, started before the module's first test."""
-    cli_out = tmp_path_factory.mktemp("dryrun") / "gemma2-2b.decode_32k.pod.json"
+    """The four subprocesses, started before the module's first test."""
+    tmp = tmp_path_factory.mktemp("dryrun")
+    cli_out, climb_out = tmp / "gemma2-2b.decode_32k.pod.json", tmp / "deepseek-7b.train_4k.remat_dots.json"
     ps = {"port": _start(PORT_RANKS), "ref": _start(REF_RANKS),
           "cli": _start(argv=["-m", "repro_torch.launch.dryrun", "--arch", "gemma2-2b", "--shape", "decode_32k",
                               "--mesh", "pod", "--device", "cpu", "--smoke", "--out", str(cli_out)]),
-          "cli_out": cli_out}
+          "climb": _start(argv=["-m", "repro_torch.launch.hillclimb", "--arch", "deepseek-7b", "--shape", "train_4k",
+                                "--variant", "remat_dots", "--mesh", "pod", "--device", "cpu", "--smoke",
+                                "--out", str(climb_out)]),
+          "cli_out": cli_out, "climb_out": climb_out}
     yield ps
     for p in ps.values():
         if isinstance(p, subprocess.Popen) and p.poll() is None:
@@ -463,20 +541,81 @@ def test_flash_configs_are_refused():
 
 
 # ---------------------------------------------------------------------------
+# remat="dots" against the reference's checkpoint_dots_with_no_batch_dims
+# (in this process, while the subprocesses run)
+# ---------------------------------------------------------------------------
+
+
+def _reference_dots(arch):
+    """``(cfg, params, batch, loss, grads)``: normal weights (standard
+    deviation 0.05, drawn with numpy into the reference's tree, whose shapes
+    ``jax.eval_shape`` gives without running its init) and tokens, carried
+    over by ``params_from_jax``, and the reference's loss and gradients
+    under ``remat="dots"``."""
+    from repro.models import init_params as ref_init_params
+    from repro.models import loss_fn as ref_loss_fn
+    from repro_torch.models.convert import params_from_jax
+
+    cfg_j = ref_configs.get_config(arch, smoke=True).replace(remat="dots")
+    rng = np.random.default_rng(0)
+    tree = jax.tree.map(lambda x: (rng.normal(size=x.shape) * 0.05).astype(x.dtype),
+                        jax.eval_shape(lambda: ref_init_params(cfg_j, jax.random.PRNGKey(0))))
+    tokens = np.random.default_rng(1).integers(0, cfg_j.vocab_size, (DOTS_B, DOTS_S + 1)).astype(np.int32)
+    args = (jax.tree.map(jnp.asarray, tree), cfg_j, {"tokens": jnp.asarray(tokens)})
+    # LLVM's optimisation level changes how fast the program runs, not what
+    # it computes; level 0 halves the compile
+    step = jax.jit(jax.value_and_grad(ref_loss_fn), static_argnums=1).lower(*args).compile(
+        compiler_options={"xla_backend_optimization_level": "0"})
+    loss, grads = step(args[0], args[2])
+    cfg = config_from_jax(cfg_j)
+    return (cfg, params_from_jax(cfg, tree, device="cpu"), {"tokens": torch.from_numpy(tokens).long()}, float(loss),
+            params_from_jax(cfg, jax.tree.map(np.asarray, grads), device="cpu"))
+
+
+@pytest.mark.parametrize("arch", DOTS_ARCHS)
+def test_remat_dots_matches_the_reference(arch):
+    """SMOKE models at B = 2, S = 64, float32, the same weights and tokens:
+    the port's loss and gradients under ``remat="dots"`` against the
+    reference's under ``checkpoint_dots_with_no_batch_dims`` (loss within
+    rtol 1e-5, gradients within ``test_torch_train.py``'s limits)."""
+    from repro_torch.launch import value_and_grad
+    from repro_torch.optim import tree_leaves
+
+    cfg, params, batch, want_loss, want = _reference_dots(arch)
+    assert cfg.remat == "dots"
+    loss, grads = value_and_grad(params, cfg, batch)
+    np.testing.assert_allclose(loss.item(), want_loss, rtol=LOSS_RTOL)
+    got_l, want_l = tree_leaves(grads), tree_leaves(want)
+    assert len(got_l) == len(want_l) == len(tree_leaves(params))
+    for g, w in zip(got_l, want_l):
+        torch.testing.assert_close(g, w, **TOL_GRAD)
+
+
+# ---------------------------------------------------------------------------
 # FLOPs against the reference's HLO count; the (2, 4) fake mesh
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("mode", ["train", "prefill"])
-def test_unsharded_flops_match_the_reference_hlo(mode, ref_ranks):
-    """SMOKE deepseek-7b, B = 8, S = 64, no mesh: the counter's FLOPs
-    against ``analyze_hlo`` of the reference's compiled step."""
+def _unsharded_flops(mode, remat="none") -> float:
     cfg, _ = dryrun.configure("deepseek-7b", SMALL[mode], smoke=True)
-    counter, _, _ = dryrun.count_step(cfg, SMALL[mode], device="cpu")
-    want = ref_ranks["unsharded"][mode]
-    print(f"deepseek-7b SMOKE {mode}: port {counter.cost.flops:.6e} reference {want:.6e} "
-          f"({counter.cost.flops / want - 1:+.4%})")
-    assert abs(counter.cost.flops / want - 1) <= HLO_FLOPS_RTOL
+    counter, _, _ = dryrun.count_step(cfg.replace(remat=remat), SMALL[mode], device="cpu")
+    return counter.cost.flops
+
+
+@pytest.mark.parametrize("mode,remat", [("train", "none"), ("prefill", "none"), ("train", "full"), ("train", "dots")],
+                         ids=["train", "prefill", "train-full", "train-dots"])
+def test_unsharded_flops_match_the_reference_hlo(mode, remat, ref_ranks):
+    """SMOKE deepseek-7b, B = 8, S = 64, no mesh: the counter's FLOPs
+    against ``analyze_hlo`` of the reference's compiled step, without remat
+    and under ``remat="full"`` and ``"dots"`` (the recomputed products
+    counted as the reference's HLO counts them); ``"dots"`` counts fewer
+    than ``"full"``: it recomputes no product without batch dims."""
+    got = _unsharded_flops(mode, remat)
+    want = ref_ranks["unsharded"][f"{mode}.{remat}"]
+    print(f"deepseek-7b SMOKE {mode} remat={remat}: port {got:.6e} reference {want:.6e} ({got / want - 1:+.4%})")
+    assert abs(got / want - 1) <= HLO_FLOPS_RTOL
+    if remat == "dots":
+        assert _unsharded_flops(mode) < got < _unsharded_flops(mode, "full")
 
 
 def test_counter_counts_per_device_products_exactly(port_ranks):
@@ -500,14 +639,21 @@ def test_counter_counts_ring_bytes_of_collectives(port_ranks):
     assert c10d["records"] == [["all-reduce", 64 * 32 * 4, 4]]
 
 
-@pytest.mark.parametrize("arch,shape,over", MESH_COMBOS, ids=[f"{a}-{s}" for a, s, _ in MESH_COMBOS])
-def test_lower_one_on_the_2x4_mesh_matches_the_reference(arch, shape, over, port_ranks, ref_ranks):
-    got, want = port_ranks["lower_one"][f"{arch}.{shape}"], ref_ranks["lower_one"][f"{arch}.{shape}"]
+@pytest.mark.parametrize("arch,shape,over,variant", MESH_COMBOS,
+                         ids=[f"{a}-{s}" + (f"-{v}" if v else "") for a, s, _, v in MESH_COMBOS])
+def test_lower_one_on_the_2x4_mesh_matches_the_reference(arch, shape, over, variant, port_ranks, ref_ranks):
+    """Per-device FLOPs within 10% of the reference's; a hill-climb variant
+    through ``run_variant`` on the port's side and the reference's own
+    ``VARIANTS`` entry on its side (the einsum MoE dispatch when training:
+    each rank gathers and scatters its own tokens, 1.997x the reference's
+    before it did)."""
+    key = f"{arch}.{shape}.{variant}"
+    got, want = port_ranks["lower_one"][key], ref_ranks["lower_one"][key]
     assert got["status"] == "ok" and got["n_chips"] == 8
-    assert got["keys"] == want["keys"]
+    assert got["keys"] == want["keys"] + (["variant"] if variant else [])
     assert got["coll_total"] > 0
-    print(f"{arch} {shape} SMOKE on (2, 4): per-device FLOPs port {got['flops']:.6e} reference {want['flops']:.6e} "
-          f"(ratio {got['flops'] / want['flops']:.4f})")
+    print(f"{arch} {shape} {variant or ''} SMOKE on (2, 4): per-device FLOPs port {got['flops']:.6e} "
+          f"reference {want['flops']:.6e} (ratio {got['flops'] / want['flops']:.4f})")
     assert abs(got["flops"] / want["flops"] - 1) <= MESH_FLOPS_RTOL
 
 
@@ -582,3 +728,81 @@ def test_the_command_line_runs_on_the_production_mesh(procs):
     assert r["status"] == "ok" and r["n_chips"] == 256 and r["mesh"] == "16x16"
     assert r["compile_s"] == 0.0 and r["memory"]["temp_bytes"] is None and r["memory"]["peak_bytes"] is None
     assert r["roofline"]["hlo_flops_per_device"] == r["roofline_static"]["hlo_flops_per_device"] > 0
+
+
+def test_the_hillclimb_variants_equal_the_reference():
+    from repro_torch.launch.hillclimb import VARIANTS
+
+    assert VARIANTS == REF_VARIANTS and list(VARIANTS) == list(REF_VARIANTS)
+
+
+def test_the_hillclimb_command_line_writes_the_reference_keys(procs, ref_ranks):
+    out, err = procs["climb"].communicate(timeout=300)
+    assert procs["climb"].returncode == 0, err[-3000:]
+    r = json.loads(procs["climb_out"].read_text())
+    assert r["status"] == "ok" and r["variant"] == "remat_dots" and r["mesh"] == "16x16"
+    assert sorted(r) == sorted(ref_ranks["lower_one"]["deepseek-7b.train_4k.None"]["keys"] + ["variant"])
+    last = out.strip().splitlines()[-1]
+    assert last.startswith("deepseek-7b train_4k [remat_dots]: compute=") and "dominant=" in last
+
+
+# ---------------------------------------------------------------------------
+# remat="dots" against the reference's checkpoint_dots_with_no_batch_dims
+# ---------------------------------------------------------------------------
+
+
+def _saved_by_dots(arch) -> list:
+    """The element counts of the outputs that ``remat="dots"`` keeps in one
+    layer group of ``arch`` SMOKE (B = 2, S = 64): the products its policy
+    marks ``MUST_SAVE`` in the checkpoint's forward pass."""
+    from repro_torch.models import dense, init_params, moe
+
+    cfg = get_config(arch, smoke=True).replace(remat="dots")
+    params = init_params(cfg, 0, device="cpu")
+    h = torch.ones(DOTS_B, DOTS_S, cfg.d_model, requires_grad=True)
+    pos = torch.arange(DOTS_S)
+    rope = dense.make_rope(pos, cfg.hd, cfg.rope_base)
+    shapes, policy = [], dense._save_dots
+
+    def recording(ctx, func, *args, **kwargs):
+        verdict = policy(ctx, func, *args, **kwargs)
+        if verdict == dense.CheckpointPolicy.MUST_SAVE:
+            a, b = args[-2:]  # mm(a, b), addmm(bias, a, b), bmm(a, b)
+            shapes.append(int(np.prod(a.shape[:-1])) * b.shape[-1])
+        return verdict
+
+    dense._save_dots = recording
+    try:
+        if cfg.num_experts:
+            body = dense._maybe_remat(cfg, lambda hh, lp: moe.moe_layer_apply(cfg, lp, hh, q_pos=pos, kv_pos=pos,
+                                                                              rope=rope)[0])
+            out = body(h, params["moe_layers"][0])
+        else:
+            out, _ = dense.stack_forward(cfg, params["layers"][:len(dense.attn_pattern(cfg))], h)
+        out.sum().backward()
+    finally:
+        dense._save_dots = policy
+    return shapes
+
+
+@pytest.mark.parametrize("arch", RESIDUAL_ARCHS)
+def test_remat_dots_saves_the_reference_dot_residuals(arch, ref_ranks):
+    """The outputs kept by ``remat="dots"`` in one layer group, as a
+    multiset of element counts, against the residuals that
+    ``jax.ad_checkpoint``'s ``saved_residuals`` reports for the reference's
+    group under ``checkpoint_dots_with_no_batch_dims`` (its arguments and
+    constants left out): gemma2-2b's 14 products (q, k, v, the output
+    projection and the MLP's three, two layers), olmoe-1b-7b's 7 (attention's
+    four, the router, the dense dispatch's two products of the tokens with
+    the stacked experts; the experts' down projection and the combine are
+    batched over the experts and the tokens). deepseek-7b keeps one more
+    than the reference: its layer's last product, the MLP's down projection,
+    whose output only joins the residual, so the backward pass never reads
+    it and JAX's partial evaluation drops it; torch's selective checkpoint
+    keeps every output its policy saves (ROADMAP.md, Queue 3, known
+    divergences)."""
+    got, want = sorted(_saved_by_dots(arch)), list(ref_ranks["residuals"][arch])
+    if arch == "deepseek-7b":
+        want.append(DOTS_B * DOTS_S * get_config(arch, smoke=True).d_model)
+    print(f"{arch}: port keeps {got}")
+    assert got == sorted(want) and len(got) >= 7

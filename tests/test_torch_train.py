@@ -218,13 +218,44 @@ def test_remat_full_matches_none(arch):
 
 
 def test_remat_dots_is_not_ported():
+    """``remat="dots"`` was refused before it was ported; it runs now (the
+    same loss as without remat, with and without grad mode), and a remat
+    the reference does not know is refused."""
     cfg = get_config("gemma2-2b", smoke=True).replace(remat="dots")
     params = init_params(cfg, 0, device="cpu")
     batch = make_dummy_batch(cfg, 1, 8, "train", np.random.default_rng(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        loss_fn(params, cfg, batch)
+    want = loss_fn(params, cfg.replace(remat="none"), batch)
+    assert torch.equal(loss_fn(params, cfg, batch), want)
+    assert torch.equal(value_and_grad(params, cfg, batch)[0], want)
     with pytest.raises(ValueError):
         cfg.replace(remat="everything")
+
+
+DOTS_ARCHS = ["gemma2-2b", "olmoe-1b-7b", "xlstm-1.3b", "zamba2-2.7b"]
+
+
+@pytest.mark.parametrize("arch", DOTS_ARCHS)
+def test_remat_dots_matches_none(arch):
+    """``remat="dots"`` (each layer group checkpointed, the outputs of its
+    products without batch dims saved, the rest recomputed from them) gives
+    the loss and gradients of no remat bit for bit: the recompute runs the
+    same ops on the same inputs. On one CPU thread: with several, the
+    embedding's gradient (a scatter-add) may sum a repeated token's rows in
+    another order from one run to the next, with or without remat."""
+    cfg = get_config(arch, smoke=True)
+    params = init_params(cfg, 0, device="cpu")
+    batch = make_dummy_batch(cfg, 2, 64, "train", np.random.default_rng(0), device="cpu")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        l0, g0 = value_and_grad(params, cfg.replace(remat="none"), batch)
+        l1, g1 = value_and_grad(params, cfg.replace(remat="dots"), batch)
+    finally:
+        torch.set_num_threads(threads)
+    assert torch.equal(l0, l1)
+    assert len(tree_leaves(g0)) == len(tree_leaves(g1)) == len(tree_leaves(params))
+    for a, b in zip(tree_leaves(g0), tree_leaves(g1)):
+        assert torch.equal(a, b)
 
 
 def test_training_config_fields_and_config_from_jax():
