@@ -329,6 +329,25 @@ Phases, in order; any failure ends the run with a non-zero exit code:
                 the phase's start, each within REMAT_CLIMB_TIMEOUT s: the
                 three terms of each, ``remat_dots``'s FLOPs below
                 ``baseline``'s; the phase's wall time.
+22. examples  — the port's ``examples_torch/``: (a) ``python
+                examples_torch/quickstart.py`` as a user starts it (a
+                subprocess, no arguments): exit 0 and its result lines;
+                (b) quickstart, heterogeneous_cluster and carbon_aware in
+                process on the card, cold (the engines reset) and warm, then
+                with ``--device cpu``: every printed line identical to the
+                CPU's, the quickstart's k-means labels, allocations and
+                schedule identical; min-plus row and backtrack launches
+                equal to the engine dispatches' buckets (n_b rows and one
+                backtrack each), the same warm as cold; plan builds and
+                wall times; (c) fl_energy_training at its docstring's
+                scaled size (EXAMPLE_FL_ARGV; 40 rounds, not 300, with
+                ``--compare``), then with ``--frontier-mode knee`` for 10
+                rounds: every round's schedule and energy identical to the
+                same campaigns planned on the CPU (training stubbed), losses
+                finite and the last below round 0's, the optimised
+                campaign's energy below the uniform one's, min-plus launches
+                on every knee round and on no "auto" or uniform round;
+                client tokens/s, round wall time, peak memory.
 
 The line before the last is a JSON object of every kernel with its launch
 count and times; the last line is ``{"ok": true, "device": {...}}``.
@@ -713,6 +732,14 @@ DRYRUN_TRIP_ARCH, DRYRUN_TRIP_LAYERS, DRYRUN_TRIP = "xlstm-1.3b", 8, (1, 1024)
 REMAT_STEPS = 4
 REMAT_CLIMB = ("deepseek-7b", "train_4k", ("baseline", "remat_dots"))
 REMAT_CLIMB_TIMEOUT = 120
+# Phase 22: the port's examples (the header). (c)'s size: the FL example's
+# docstring's scaled model (8 layers, d_model 320, vocab 8,192) over 8
+# clients, 40 rounds with the uniform baseline, then 10 in frontier mode.
+EXAMPLE_SCHEDULERS = ("quickstart", "heterogeneous_cluster", "carbon_aware")
+EXAMPLE_FL_ARGV = ("--layers", "8", "--d-model", "320", "--vocab", "8192", "--clients", "8", "--batch", "4", "--seq",
+                   "64")
+EXAMPLE_FL_RUNS = {"compare": ("--rounds", "40", "--compare"), "knee": ("--rounds", "10", "--frontier-mode", "knee")}
+EXAMPLE_TIMEOUT = 300
 
 
 def check(cond, msg):
@@ -5861,6 +5888,214 @@ def remat_phase(fa, dev, card):
     return runs["dots"][1]
 
 
+# -- phase 22: the port's examples ----------------------------------------------
+
+
+def load_example(name):
+    """``examples_torch/<name>.py`` as a module (the directory is not a package)."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "examples_torch" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"examples_torch_{name}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def captured(fn, *args):
+    """``fn(*args)``'s standard output and result."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        result = fn(*args)
+    return out.getvalue(), result
+
+
+def example_launch_part(card):
+    """Phase 22 (a): the quickstart as a user starts it."""
+    root = Path(__file__).resolve().parent
+    env = {**os.environ, "PYTHONPATH": str(root / "src")}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "examples_torch/quickstart.py"], capture_output=True, text=True, cwd=root,
+                          env=env, timeout=EXAMPLE_TIMEOUT)
+    wall_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"examples_torch/quickstart.py exited {proc.returncode}: {proc.stderr[-2000:]}")
+    check("energy saved vs uniform split:" in proc.stdout and "fleet scale: n=256 clients ->" in proc.stdout,
+          f"examples_torch/quickstart.py printed {proc.stdout!r}")
+    for line in proc.stdout.splitlines():
+        log(f"[examples] (a) | {line}")
+    log(f"[examples] (a) {card}; `python examples_torch/quickstart.py` (no arguments: the card) exit 0 in "
+        f"{wall_s:.2f} s, the process's start and imports included")
+
+
+def example_scheduler_part(mp, card):
+    """Phase 22 (b): the three scheduler examples on the card against
+    ``--device cpu``. Returns ``{name: {"row": .., "backtrack": ..}}``
+    of each cold run, counted from 0."""
+    from repro_torch.core.sweep import SweepEngine, reset_default_engines
+
+    keys = []  # the bucket of every engine dispatch
+
+    def recording(inner):
+        def entry(self, key):
+            keys.append(key)
+            return inner(self, key)
+
+        return entry
+
+    launches = {}
+    for name in EXAMPLE_SCHEDULERS:
+        module = load_example(name)
+        runs = []
+        reset_default_engines()
+        for _ in ("cold", "warm"):
+            keys.clear()
+            mp.launches = mp.launches_scan = mp.launches_backtrack = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with patched(SweepEngine, "_entry", recording):
+                out, res = captured(module.main, ["--device", "cuda"])
+            torch.cuda.synchronize()
+            dp = [k for k in keys if k[0] == "dp"]
+            runs.append(dict(out=out, res=res, s=time.perf_counter() - t0, keys=list(keys),
+                             launches={"row": mp.launches, "backtrack": mp.launches_backtrack},
+                             expect={"row": sum(k[2] for k in dp), "backtrack": len(dp)},
+                             stats=res["solver"].engine.cache_stats()))
+        cold, warm = runs
+        check(cold["res"]["solver"].engine.device.type == "cuda", f"{name}: the engine is not on the card")
+        t0 = time.perf_counter()
+        cpu_out, cpu_res = captured(module.main, ["--device", "cpu"])
+        cpu_s = time.perf_counter() - t0
+        check(cold["out"].splitlines() == cpu_out.splitlines() == warm["out"].splitlines(),
+              f"{name}: the card printed {cold['out']!r}, the CPU {cpu_out!r}")
+        if name == "quickstart":
+            for f in ("labels", "allocations", "schedule"):
+                check(np.array_equal(getattr(cold["res"]["fleet"], f), getattr(cpu_res["fleet"], f)),
+                      f"quickstart: the card's fleet {f} differ from the CPU's")
+        for run in runs:
+            check(run["launches"] == run["expect"], f"{name}: launches {run['launches']}; the engine's dp dispatches "
+                  f"{run['keys']} hold {run['expect']}")
+        check(warm["launches"] == cold["launches"] and warm["stats"]["compiles"] == cold["stats"]["compiles"]
+              == len(set(cold["keys"])), f"{name}: warm {warm['launches']} against cold {cold['launches']}, "
+              f"plan builds {cold['stats']['compiles']} of {len(set(cold['keys']))} buckets")
+        launches[name] = cold["launches"]
+        for line in cold["out"].splitlines():
+            log(f"[examples] (b) {name} | {line}")
+        labels = sorted({SweepEngine._bucket_label(k) for k in cold["keys"]})
+        log(f"[examples] (b) {name}: every line identical to --device cpu (and warm to cold)"
+            + ("; k-means labels, allocations and schedule identical to the CPU's" if name == "quickstart" else "")
+            + f"; min-plus launches {cold['launches']} (the engine's {len(cold['keys'])} dispatches over buckets "
+            f"{labels}: n_b rows and one backtrack each dp dispatch), the same warm; plan builds "
+            f"{cold['stats']['compiles']}; wall {cold['s']:.3f} s cold (engines reset), {warm['s']:.3f} s warm, "
+            f"{cpu_s:.3f} s with --device cpu")
+    log(f"[examples] (b) {card}")
+    return launches
+
+
+def example_fl_part(mp, card):
+    """Phase 22 (c): the FL example at its scaled size on the card, planning
+    held against the same campaigns planned on the CPU. Returns ``{run:
+    {"row": .., "backtrack": ..}}``, each counted from 0 over the run."""
+    import gc
+
+    from repro_torch.core.sweep import reset_default_engines
+
+    module = load_example("fl_energy_training")
+    servers = []
+
+    class Counted(module.FederatedServer):
+        """The example's server, counting the min-plus launches of each
+        round's plan (round r + 1 is planned while round r trains)."""
+
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.plan_launches = []
+            servers.append(self)
+
+        def plan_round(self, *args, **kw):
+            before = np.array([mp.launches, mp.launches_backtrack])
+            out = super().plan_round(*args, **kw)
+            self.plan_launches.append(np.array([mp.launches, mp.launches_backtrack]) - before)
+            return out
+
+    class PlanOnly(module.FederatedServer):
+        def train_round(self, plan, batches):
+            return torch.zeros(())
+
+    opt = dict(zip(EXAMPLE_FL_ARGV[::2], EXAMPLE_FL_ARGV[1::2]))
+    batch, seq = int(opt["--batch"]), int(opt["--seq"])
+    launches = {}
+    for key, run_argv in EXAMPLE_FL_RUNS.items():
+        argv = [*EXAMPLE_FL_ARGV, *run_argv]
+        reset_default_engines()
+        servers.clear()
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        mp.launches = mp.launches_scan = mp.launches_backtrack = 0
+        t0 = time.perf_counter()
+        with patched(module, "FederatedServer", lambda _: Counted):
+            out, hists = captured(module.main, [*argv, "--device", "cuda"])
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+        launches[key] = {"row": mp.launches, "backtrack": mp.launches_backtrack}
+        for line in out.splitlines():
+            log(f"[examples] (c) {key} | {line}")
+        # the same campaigns planned on the CPU: planning sees the estimator,
+        # the time tables and the rng, never the model, so training is stubbed
+        with patched(module, "FederatedServer", lambda _: PlanOnly), \
+                patched(module, "init_params", lambda _: lambda cfg, seed, device: {}):
+            cpu_out, cpu_hists = captured(module.main, [*argv, "--device", "cpu"])
+        check(list(hists) == list(cpu_hists) == (["auto", "uniform"] if key == "compare" else ["auto"])
+              and len(servers) == len(hists), f"{key}: campaigns {list(hists)} on the card, {list(cpu_hists)} on the CPU")
+        if key == "knee":
+            front = [line for line in out.splitlines() if "round-0 frontier" in line]
+            check(len(front) == 1 and front == [line for line in cpu_out.splitlines() if "round-0 frontier" in line],
+                  f"knee: the round-0 frontier line {front} differs from the CPU's")
+        for (name, hist), server in zip(hists.items(), servers):
+            what = f"{key}: the {name} campaign on the card against the CPU-planned one"
+            same_rounds(hist, cpu_hists[name], what, losses=False)
+            losses = hist.losses
+            check(np.isfinite(losses).all() and losses[-1] < losses[0], f"{what}: losses {losses}")
+            per_plan = np.array(server.plan_launches).reshape(-1, 2)
+            check(len(per_plan) == len(hist.rounds), f"{what}: {len(per_plan)} plans for {len(hist.rounds)} rounds")
+            rows = per_plan[:, 0]
+            if key == "knee":
+                check(bool((rows > 0).all()), f"knee: a round's plan launched no min-plus row kernel: {rows.tolist()}")
+            else:
+                check(not per_plan.any(), f"{name}: min-plus launches by round's plan {per_plan.tolist()}")
+            tokens = np.array([int(r.assignments.sum()) * batch * seq for r in hist.rounds])
+            walls = np.asarray(hist.pipeline_stats.round_wall_s)
+            log(f"[examples] (c) {key} {name}: {len(hist.rounds)} rounds, schedules, estimated and true energies and "
+                f"makespans identical to the CPU-planned campaign; total {hist.total_energy:.6f} J; loss "
+                f"{losses[0]:.4f} -> {losses[-1]:.4f}; min-plus row launches by round's plan "
+                f"{rows.tolist() if rows.any() else 'none'}, backtracks "
+                f"{per_plan[:, 1].tolist() if per_plan[:, 1].any() else 'none'}; round wall {1e3 * walls[0]:.3f} ms "
+                f"first, {1e3 * walls[1:].mean():.3f} ms mean of the rest (host clock, each round's loss read on the "
+                f"host); client tokens/s {tokens[1:].sum() / walls[1:].sum():.1f} over rounds 2-{len(walls)} "
+                f"({tokens[0] / walls[0]:.1f} in round 1)")
+        if key == "compare":
+            check(hists["auto"].total_energy < hists["uniform"].total_energy,
+                  f"optimised {hists['auto'].total_energy} J, uniform {hists['uniform'].total_energy} J")
+        log(f"[examples] (c) {key}: argv {argv}; {wall_s:.2f} s in all; peak device memory {peak_gb:.3f} GB above the "
+            f"{base / 1e9:.3f} GB held before; min-plus launches {launches[key]}; {card}")
+    return launches
+
+
+def examples_phase(mp, card):
+    """Phase 22: the port's examples (the header). Returns the min-plus
+    launches of (b)'s and (c)'s runs by example."""
+    t_phase = time.perf_counter()
+    example_launch_part(card)
+    launches = example_scheduler_part(mp, card)
+    fl = example_fl_part(mp, card)
+    launches.update({f"fl_energy_training {k}": v for k, v in fl.items()})
+    log(f"[examples] phase 22 wall time {time.perf_counter() - t_phase:.1f} s; min-plus launches {launches}")
+    return launches
+
+
 def main() -> int:
     # -- phase 1: device ---------------------------------------------------
     if not torch.cuda.is_available():
@@ -5991,6 +6226,9 @@ def main() -> int:
     # -- phase 21: remat="dots" and the hill-climb ------------------------------------
     dots_launches = remat_phase(fa, dev, card)
 
+    # -- phase 22: the port's examples --------------------------------------------------
+    ex_launches = examples_phase(mp, card)
+
     kernels = [{
         "name": "minplus_cuda",
         "route": "cuda",
@@ -6006,6 +6244,7 @@ def main() -> int:
         "ring_launches": md["ring"]["row"],
         "ring_flat_launches": md["ring_flat"]["row"],
         "mesh_launches": md["mesh"]["row"],
+        "examples_launches_by_part": {k: v["row"] for k, v in ex_launches.items()},
         "profiler_sessions_rerun": PROFILER_RERUNS["minplus_row_kernel"],
         "max_abs_err": max_abs_err,
         **st["row"],
@@ -6024,6 +6263,7 @@ def main() -> int:
         "ring_launches": md["ring"]["backtrack"],
         "ring_flat_launches": md["ring_flat"]["backtrack"],
         "mesh_launches": md["mesh"]["backtrack"],
+        "examples_launches_by_part": {k: v["backtrack"] for k, v in ex_launches.items()},
         "ring_max_abs_err": md["bt_err"],
         "ring_slab": md["bt_ring"],
         "profiler_sessions_rerun": PROFILER_RERUNS["minplus_backtrack_kernel"],

@@ -8,6 +8,9 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+import torch
+
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 FORBIDDEN = ("jax", "jaxlib", "repro")
@@ -81,10 +84,22 @@ def _imports(node, in_function=False):
 
 
 def test_no_source_imports_jax_or_the_jax_package():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) >= 12
+    examples = sorted((ROOT / "examples_torch").glob("*.py"))
+    assert [f.name for f in examples] == sorted(f.name for f in (ROOT / "examples").glob("*.py"))
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + examples
+    assert len(files) >= 16
     for f in files:
         for name, top_level in _imports(ast.parse(f.read_text(), str(f))):
             root = name.split(".")[0]
             assert root not in FORBIDDEN, f"{f.relative_to(ROOT)} imports {name}"
             assert not (root == "triton" and top_level), f"{f.relative_to(ROOT)} imports triton at top level"
+
+
+@pytest.mark.skipif(torch.cuda.is_available(), reason="a CUDA card is present: the example's default device is there")
+def test_an_example_without_a_card_raises_rather_than_running_on_the_cpu():
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out = subprocess.run([sys.executable, "examples_torch/heterogeneous_cluster.py"], capture_output=True, text=True,
+                         env=env, cwd=str(ROOT), timeout=300)
+    assert out.returncode != 0
+    assert "device='cuda' requested but torch.cuda.is_available() is False" in out.stderr
+    assert "global batch" not in out.stdout
