@@ -29,6 +29,7 @@ from ..configs.base import ModelConfig
 from ..fl.client import loss_and_grads
 from ..models.model import decode_fn, fake_mode, init_params, layer_stacks, loss_fn, prefill_fn
 from ..optim.optimizers import AdafactorState, AdamState, apply_updates, get_optimizer
+from ..spans import span
 from . import sharding as shd
 
 __all__ = [
@@ -61,18 +62,27 @@ def value_and_grad(params, cfg: ModelConfig, batch):
     return loss_and_grads(lambda p, b: loss_fn(p, cfg, b), params, batch)
 
 
+def _tokens_predicted(batch):
+    """``B * (T - 1)`` of ``batch["tokens"] (B, T)``; ``None`` for a batch
+    without tokens (the encoder's)."""
+    tokens = batch.get("tokens")
+    return None if tokens is None else tokens.shape[0] * (tokens.shape[1] - 1)
+
+
 def build_train_step(cfg: ModelConfig):
     """``(train_step, opt)``: ``train_step(params, opt_state, batch) ->
     (params, opt_state, loss)`` with ``opt = get_optimizer(cfg.optimizer,
     cfg.learning_rate)`` and ``opt_state = opt.init(params)``. The parameters
     and the optimizer state are updated in place and returned. Adafactor
-    factors the reference's stacked leaves (``stacks=layer_stacks(cfg)``)."""
+    factors the reference's stacked leaves (``stacks=layer_stacks(cfg)``).
+    The step runs in the span ``train.step`` (:mod:`repro_torch.spans`)."""
     opt = _optimizer(cfg)
 
     def train_step(params, opt_state, batch):
-        loss, grads = value_and_grad(params, cfg, batch)
-        updates, opt_state = opt.update(grads, opt_state, params)
-        return apply_updates(params, updates), opt_state, loss
+        with span("train.step", items=lambda: _tokens_predicted(batch)):
+            loss, grads = value_and_grad(params, cfg, batch)
+            updates, opt_state = opt.update(grads, opt_state, params)
+            return apply_updates(params, updates), opt_state, loss
 
     return train_step, opt
 

@@ -35,6 +35,7 @@ from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selectiv
 from ..configs.base import ModelConfig
 from ..core.torch_dp import resolve_device
 from ..launch.sharding import axis_size, in_no_batch_product, like, linear, shard, whole_groups
+from ..spans import mark_backward, span
 from .layers import (_local_extent, apply_rope, attention, dense_init, gelu, make_rope, mlp_act, mlp_gated, rms_norm,
                      softcap, squared_relu)
 
@@ -441,12 +442,25 @@ def _logits(cfg: ModelConfig, params, h):
     return logits.float().div_(cfg.logit_softcap).tanh_().mul_(cfg.logit_softcap)
 
 
+def _hidden(params, cfg: ModelConfig, tokens, *, prefix_len=None, collect_cache=False):
+    """The embedding and the stack over tokens ``(B, S)``: ``(h, caches)``
+    (:func:`stack_forward`), in the spans ``model.embed`` and
+    ``model.stack`` and their backward spans (:mod:`repro_torch.spans`)."""
+    n = tokens.numel()
+    with span("model.embed", items=n):
+        table = mark_backward(params["emb"], "model.embed.bwd", end=True)
+        h = mark_backward(_embed(cfg, {**params, "emb": table}, tokens), "model.embed.bwd", end=False, items=n)
+    with span("model.stack", items=n):
+        h = mark_backward(h, "model.stack.bwd", end=True)
+        h, caches = stack_forward(cfg, params["layers"], h, prefix_len=prefix_len, collect_cache=collect_cache)
+        return mark_backward(h, "model.stack.bwd", end=False, items=n), caches
+
+
 def dense_forward(params, cfg: ModelConfig, tokens, *, prefix_len=None, collect_cache=False):
     """tokens ``(B, S)`` -> ``(logits, caches)``: float32 logits ``(B, S,
     V)`` and, with ``collect_cache``, every layer's ``(k, v)``
     (:func:`stack_forward`), else ``None``."""
-    h = _embed(cfg, params, tokens)
-    h, caches = stack_forward(cfg, params["layers"], h, prefix_len=prefix_len, collect_cache=collect_cache)
+    h, caches = _hidden(params, cfg, tokens, prefix_len=prefix_len, collect_cache=collect_cache)
     return _logits(cfg, params, h), caches
 
 
@@ -524,5 +538,9 @@ def dense_loss(params, cfg: ModelConfig, batch):
     """``batch["tokens"] (B, S + 1)``: the mean loss of predicting
     ``tokens[:, 1:]`` from ``tokens[:, :-1]``."""
     tokens = batch["tokens"]
-    logits, _ = dense_forward(params, cfg, tokens[:, :-1])
-    return cross_entropy(logits, tokens[:, 1:])
+    h, _ = _hidden(params, cfg, tokens[:, :-1])
+    n = tokens[:, 1:].numel()
+    with span("model.loss_head", items=n):
+        h = mark_backward(h, "model.loss_head.bwd", end=True)
+        loss = cross_entropy(_logits(cfg, params, h), tokens[:, 1:])
+        return mark_backward(loss, "model.loss_head.bwd", end=False, items=n)

@@ -32,6 +32,7 @@ layer.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Callable, NamedTuple, Optional
 
@@ -39,6 +40,8 @@ import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.distributed.tensor import zeros as dtensor_zeros
+
+from ..spans import span
 
 __all__ = [
     "AdafactorState", "AdamState", "Optimizer", "adafactor", "adamw", "apply_updates", "get_optimizer", "momentum",
@@ -69,11 +72,27 @@ class Optimizer:
     update: Callable[[Any, Any, Any], tuple]
 
 
+def _numel(tree) -> int:
+    return sum(x.numel() for x in tree_leaves(tree))
+
+
+def _spanned(update):
+    """An optimizer's ``update`` inside the span ``optim.update``
+    (:mod:`repro_torch.spans`), counting the gradients' elements."""
+
+    @functools.wraps(update)
+    def spanned(grads, *rest):
+        with span("optim.update", items=lambda: _numel(grads)):
+            return update(grads, *rest)
+
+    return spanned
+
+
 def apply_updates(params, updates):
     """``p + u`` in ``p``'s dtype for every leaf, written into ``params``
-    (the reference returns a new tree with the same values). Returns
-    ``params``."""
-    with torch.no_grad():
+    (the reference returns a new tree with the same values), inside the
+    span ``optim.apply``. Returns ``params``."""
+    with span("optim.apply", items=lambda: _numel(updates)), torch.no_grad():
         tree_map(lambda p, u: _local(p).add_(_local(u, p)), params, updates)
     return params
 
@@ -113,7 +132,7 @@ def sgd(lr: float) -> Optimizer:
         with torch.no_grad():
             return tree_map(lambda g: _as(-lr, g.dtype) * g, grads), state
 
-    return Optimizer(init, update)
+    return Optimizer(init, _spanned(update))
 
 
 def momentum(lr: float, beta: float = 0.9, nesterov: bool = False) -> Optimizer:
@@ -133,7 +152,7 @@ def momentum(lr: float, beta: float = 0.9, nesterov: bool = False) -> Optimizer:
 
             return tree_map(upd, state, grads), state
 
-    return Optimizer(init, update)
+    return Optimizer(init, _spanned(update))
 
 
 class AdamState(NamedTuple):
@@ -173,7 +192,7 @@ def adamw(
             updates = tree_map(upd, grads, state.mu, state.nu, params)
         return updates, AdamState(step=step, mu=state.mu, nu=state.nu)
 
-    return Optimizer(init, update)
+    return Optimizer(init, _spanned(update))
 
 
 class AdafactorState(NamedTuple):
@@ -326,7 +345,7 @@ def adafactor(
             updates = tree_map(lambda u, p: _like(u.to(p.dtype), p), _unstack_tree(u_stacked, local_params), params)
         return updates, AdafactorState(step=step, vr=state.vr, vc=state.vc)
 
-    return Optimizer(init, update)
+    return Optimizer(init, _spanned(update))
 
 
 def get_optimizer(name: str, lr: float, **kw) -> Optimizer:
