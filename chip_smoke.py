@@ -83,7 +83,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
                 seed 0) takes one cold and three warm steps on one batch of
                 B = 1, S = 8,192 tokens through ``build_train_step``: per step
                 exactly 52 forward, 26 dQ and 26 dK/dV launches (all on the
-                tensor-core route), finite losses
+                tensor-core route) and one AdamW kernel launch a leaf over
+                every parameter (the counters from 0), finite losses
                 that fall, the peak device memory; then 2 layers in float32 at
                 full width, kernel route against plain route (loss within
                 2e-5, gradients within rtol 2e-3, atol 2e-5).
@@ -348,6 +349,15 @@ Phases, in order; any failure ends the run with a non-zero exit code:
                 campaign's energy below the uniform one's, min-plus launches
                 on every knee round and on no "auto" or uniform round;
                 client tokens/s, round wall time, peak memory.
+23. adamw     — AdamW's leaf kernel (``kernels/csrc/adamw.cu``) against its
+                plain version on the card, bit for bit (the update, mu, nu
+                and the parameters after it), at deepseek-7b's head (102,400
+                x 4,096; bf16 parameters and mu, float32 nu) and at a
+                layer's w1 (4,096 x 11,008; bf16 or float32 parameters, mu
+                bf16 or float32), steps 1, 2, 3 and 10,000, weight decay
+                0.1; then its ms a launch at both beside its bound (the
+                bytes it moves: 18 an element), the plain version and
+                ``torch._fused_adamw_``.
 
 The line before the last is a JSON object of every kernel with its launch
 count and times; the last line is ``{"ok": true, "device": {...}}``.
@@ -740,6 +750,18 @@ EXAMPLE_FL_ARGV = ("--layers", "8", "--d-model", "320", "--vocab", "8192", "--cl
                    "64")
 EXAMPLE_FL_RUNS = {"compare": ("--rounds", "40", "--compare"), "knee": ("--rounds", "10", "--frontier-mode", "knee")}
 EXAMPLE_TIMEOUT = 300
+# Phase 23: AdamW's leaf kernel at the two largest leaf shapes of a
+# deepseek-7b train step (its head, and a layer's gated-SiLU w1), held bit
+# for bit against its plain version over ADAMW_STEPS (the bias corrections
+# near 1 at the last) with the weight decay ADAMW_WD, in each dtype pair
+# (parameters and gradients, first moment; the second is float32) of
+# ADAMW_PAIRS at w1 and in the first at the head, where it is then timed.
+# Its bound: the bytes it reads and writes (18 an element in the first
+# pair) over PEAK_BYTES_PER_S.
+ADAMW_LEAVES = {"head": (102_400, 4_096), "w1": (4_096, 11_008)}
+ADAMW_PAIRS = ((torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32), (torch.float32, torch.float32))
+ADAMW_STEPS = (1, 2, 3, 10_000)
+ADAMW_B1, ADAMW_B2, ADAMW_EPS, ADAMW_LR, ADAMW_WD = 0.9, 0.999, 1e-8, 3e-4, 0.1
 
 
 def check(cond, msg):
@@ -1428,8 +1450,10 @@ def train_phase(fa, mp, dev, card):
     through the kernel route, then one profiled step. Frees the model and
     returns (cfg, tokens, launches over the run, step figures)."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels import adamw as aw
     from repro_torch.launch import build_train_step
     from repro_torch.models import init_params, make_dummy_batch, param_count
+    from repro_torch.optim import tree_leaves
 
     cfg = get_config(ARCH).replace(attn_impl="flash")
     check(cfg.remat == "full" and cfg.optimizer == "adamw", f"{ARCH} FULL trains with {cfg.remat}, {cfg.optimizer}")
@@ -1445,12 +1469,15 @@ def train_phase(fa, mp, dev, card):
         f"{tuple(batch['tokens'].shape)}")
 
     L = cfg.num_layers
+    leaves, n_params = sum(1 for p in tree_leaves(params) if p.numel()), param_count(params)
     torch.cuda.reset_peak_memory_stats()
     mp.launches = fa.launches = fa.launches_dq = fa.launches_dkv = 0
     fa.launches_fwd_tc = fa.launches_dq_tc = fa.launches_dkv_tc = 0
+    aw.launches = aw.elements = 0
     losses, secs = [], []
     for i in range(TRAIN_STEPS):
         n0 = (fa.launches, fa.launches_dq, fa.launches_dkv, fa.launches_fwd_tc, fa.launches_dq_tc, fa.launches_dkv_tc)
+        a0 = (aw.launches, aw.elements)
         t0 = time.perf_counter()
         params, state, loss = step(params, state, batch)
         torch.cuda.synchronize()
@@ -1460,15 +1487,20 @@ def train_phase(fa, mp, dev, card):
         per_tc = (fa.launches_fwd_tc - n0[3], fa.launches_dq_tc - n0[4], fa.launches_dkv_tc - n0[5])
         check(per_tc == (2 * L, L, L),
               f"step {i + 1}: tensor-core (forward, dQ, dK/dV) launches {per_tc}, expected {(2 * L, L, L)}")
+        per_aw = (aw.launches - a0[0], aw.elements - a0[1])
+        check(per_aw == (leaves, n_params), f"step {i + 1}: AdamW kernel launches and elements {per_aw}, expected "
+              f"{(leaves, n_params)} (one a leaf, every parameter)")
         losses.append(float(loss))
         check(math.isfinite(losses[-1]), f"step {i + 1}: loss {losses[-1]}")
-    launches = {"flash_attention": fa.launches, "flash_dq": fa.launches_dq, "flash_dkv": fa.launches_dkv}
+    launches = {"flash_attention": fa.launches, "flash_dq": fa.launches_dq, "flash_dkv": fa.launches_dkv,
+                "adamw": aw.launches, "adamw_elements": aw.elements}
     check(mp.launches == 0, f"training launched the min-plus kernel {mp.launches} times")
     check(losses[-1] < losses[0], f"the loss did not fall over {TRAIN_STEPS} steps on one batch: {losses}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     warm_ms = 1e3 * statistics.median(secs[1:])
     log(f"[train] {TRAIN_STEPS} steps, per step exactly {2 * L} forward (with the remat recompute), {L} dQ and {L} "
-        f"dK/dV launches, all on the tensor cores, min-plus 0; losses "
+        f"dK/dV launches, all on the tensor cores, {leaves} AdamW kernel launches over {n_params} elements, min-plus "
+        f"0; losses "
         f"{', '.join(f'{x:.5f}' for x in losses)}; peak device memory {peak_gb:.2f} GB; first step {secs[0]:.3f} s")
 
     total, rows, kinds, _ = device_time_table(lambda p, b: step(p, state, b), params, batch, top=12)
@@ -6096,6 +6128,88 @@ def examples_phase(mp, card):
     return launches
 
 
+def adamw_phase(aw, dev, card):
+    """Phase 23: AdamW's leaf kernel (``aw``, :mod:`repro_torch.kernels.adamw`)
+    on the card against its plain version on the same card (the constants'
+    comment), then its device time per launch at the head and w1 leaves
+    beside its bound, the plain version and ``torch._fused_adamw_``, the
+    nearest library call (it takes one dtype for every state, so its second
+    moment is bfloat16 here, and rounds elsewhere: the port never calls it).
+    Returns the kernels line's figures."""
+    from repro_torch.optim.optimizers import _as
+
+    f32 = torch.float32
+    t_phase = time.perf_counter()
+
+    def bits(x):
+        return x.view(torch.int16 if x.element_size() == 2 else torch.int32)
+
+    def corrections(t):
+        t = torch.full((), float(t), device=dev)
+        return (1 - torch.full((), ADAMW_B1, device=dev) ** t, 1 - torch.full((), ADAMW_B2, device=dev) ** t)
+
+    def leaf(shape, dt, mdt):
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        g = torch.randn(shape, generator=gen, device=dev).mul_(1e-2).to(dt)
+        p = torch.randn(shape, generator=gen, device=dev).mul_(0.05).to(dt)
+        m = torch.randn(shape, generator=gen, device=dev).mul_(1e-3).to(mdt)
+        v = torch.randn(shape, generator=gen, device=dev).mul_(1e-2).square_()
+        kw = dict(b1=_as(ADAMW_B1, mdt), c1=_as(1 - ADAMW_B1, dt), b2=_as(ADAMW_B2, f32), c2=_as(1 - ADAMW_B2, f32),
+                  eps=ADAMW_EPS, wd=_as(ADAMW_WD, dt), lr=ADAMW_LR)
+        return g, p, m, v, kw
+
+    cases = [("head", *ADAMW_PAIRS[0])] + [("w1", dt, mdt) for dt, mdt in ADAMW_PAIRS]
+    for name, dt, mdt in cases:
+        g, p, m, v, kw = leaf(ADAMW_LEAVES[name], dt, mdt)
+        p2, m2, v2 = p.clone(), m.clone(), v.clone()
+        for t in ADAMW_STEPS:
+            bc1, bc2 = corrections(t)
+            n0 = aw.launches
+            u = aw.adamw_leaf(g, m, v, p, bc1, bc2, **kw)
+            check(aw.launches == n0 + 1, f"adamw_leaf on the card launched {aw.launches - n0} kernels, not 1")
+            u2 = aw.adamw_leaf_ref(g, m2, v2, p2, bc1, bc2, **kw)
+            p.add_(u)
+            p2.add_(u2)
+            differ = [k for k, a, b in (("update", u, u2), ("mu", m, m2), ("nu", v, v2), ("p", p, p2))
+                      if not torch.equal(bits(a), bits(b))]
+            check(not differ, f"adamw {name} {tuple(p.shape)} p {dt} mu {mdt}, step {t}: {differ} differ bitwise "
+                  "from the plain version")
+        del g, p, m, v, p2, m2, v2, u, u2
+        torch.cuda.empty_cache()
+    log(f"[adamw] adamw_leaf against adamw_leaf_ref on the card, steps {', '.join(map(str, ADAMW_STEPS))}, weight "
+        f"decay {ADAMW_WD}: update, mu, nu and p after it bit-identical at the head {ADAMW_LEAVES['head']} (p bf16, "
+        f"mu bf16) and at w1 {ADAMW_LEAVES['w1']} (p and mu "
+        + "; ".join(f"{str(dt)[6:]} and {str(mdt)[6:]}" for dt, mdt in ADAMW_PAIRS) + ")")
+
+    log(f"[times] {card}")
+    out = {}
+    for name, shape in ADAMW_LEAVES.items():
+        g, p, m, v, kw = leaf(shape, *ADAMW_PAIRS[0])
+        bc1, bc2 = corrections(7)
+        n = p.numel()
+        moved = sum(x.nbytes for x in (g, p, m, v, m, v, p))  # reads g, p, m, v; writes m, v and u (p's dtype)
+        n0 = aw.launches
+        ms = median_event_ms(lambda: aw.adamw_leaf(g, m, v, p, bc1, bc2, **kw), reps=10, per_rep=5)
+        check(aw.launches - n0 == 3 + 10 * 5, f"adamw {name}: {aw.launches - n0} launches counted, expected 53")
+        plain_ms = median_event_ms(lambda: aw.adamw_leaf_ref(g, m, v, p, bc1, bc2, **kw), reps=5, warmup=1)
+        v16, steps = v.to(p.dtype), [torch.full((), 7.0, device=dev)]
+        lib_ms = median_event_ms(lambda: torch._fused_adamw_(
+            [p], [g], [m], [v16], [], steps, lr=ADAMW_LR, beta1=ADAMW_B1, beta2=ADAMW_B2, weight_decay=ADAMW_WD,
+            eps=ADAMW_EPS, amsgrad=False, maximize=False), reps=10, per_rep=5)
+        b_ms = moved / PEAK_BYTES_PER_S * 1e3
+        out[name] = dict(leaf_shape=list(shape), leaf_elements=n, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=f"bytes: {moved / n:.0f} an element over {PEAK_BYTES_PER_S:.3g} B/s",
+                         library_ms=lib_ms)
+        log(f"[times] adamw_kernel at the {name} leaf {shape} ({n} elements, p and g bf16, mu bf16, nu float32): "
+            f"{ms:.4f} ms a launch (CUDA events, median of 10 x 5), bound {b_ms:.4f} ms ({moved / n:.0f} bytes an "
+            f"element over {PEAK_BYTES_PER_S:.3g} B/s), kernel at {ms / b_ms:.3f}x the bound; plain version "
+            f"{plain_ms:.4f} ms; torch._fused_adamw_ (nu bf16) {lib_ms:.4f} ms")
+        del g, p, m, v, v16
+        torch.cuda.empty_cache()
+    log(f"[adamw] phase wall time {time.perf_counter() - t_phase:.1f} s")
+    return {**out["head"], "w1": out["w1"], "max_abs_err": 0.0}
+
+
 def main() -> int:
     # -- phase 1: device ---------------------------------------------------
     if not torch.cuda.is_available():
@@ -6119,6 +6233,7 @@ def main() -> int:
         total_cost,
         validate_schedule_batch,
     )
+    from repro_torch.kernels import adamw as aw
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import minplus as mp
@@ -6135,9 +6250,10 @@ def main() -> int:
     mp._launch_fns()  # the first load builds every source, all together
     fa._launch_fn()
     fa._bwd_launch_fns()
-    log(f"[build] minplus.cu, flash_fwd.cu, flash_bwd.cu built and loaded in {time.perf_counter() - t0:.2f} s "
-        f"({build.build_dir()})")
-    tc_names = {"minplus": (), "flash_fwd": ("flash_fwd_tc_kernel",),
+    aw._launch_fn()
+    log(f"[build] minplus.cu, flash_fwd.cu, flash_bwd.cu, adamw.cu built and loaded in {time.perf_counter() - t0:.2f} "
+        f"s ({build.build_dir()})")
+    tc_names = {"minplus": (), "adamw": (), "flash_fwd": ("flash_fwd_tc_kernel",),
                 "flash_bwd": ("flash_dq_tc_kernel", "flash_dkv_tc_kernel")}
     for name, kernels in tc_names.items():
         usage = ptxas_usage((build.build_dir() / f"{name}.log").read_text())
@@ -6228,6 +6344,10 @@ def main() -> int:
 
     # -- phase 22: the port's examples --------------------------------------------------
     ex_launches = examples_phase(mp, card)
+    adamw_run_launches = aw.launches  # every AdamW step since phase 10 reset the counter
+
+    # -- phase 23: AdamW's leaf kernel ------------------------------------------------------
+    aw_t = adamw_phase(aw, dev, card)
 
     kernels = [{
         "name": "minplus_cuda",
@@ -6320,6 +6440,15 @@ def main() -> int:
         "remat_dots_launches": dots_launches[2],
         "max_abs_err": dkv_err,
         **dkv_t,
+    }, {
+        "name": "adamw",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/adamw.cu",
+        "replaces": "none: the reference's AdamW (src/repro/optim/optimizers.py:64) is jnp under jit, fused by XLA",
+        "launches": launches_train["adamw"],
+        "elements": launches_train["adamw_elements"],  # phase 10's steps; the timed leaves' are leaf_elements
+        "launches_phases_10_to_22": adamw_run_launches,
+        **aw_t,
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)

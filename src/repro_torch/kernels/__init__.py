@@ -18,6 +18,11 @@ and the dQ and dK/dV backward (``csrc/flash_bwd.cu``) behind
 their plain versions ``flash_attention_ref`` and ``flash_attention_bwd_ref``.
 Import it as a module; it is not re-exported here, so
 ``kernels.flash_attention`` stays the module.
+
+``adamw``: AdamW's update of one leaf in one pass (``csrc/adamw.cu``)
+behind ``adamw.adamw_leaf``, with its plain version ``adamw_leaf_ref``;
+``optim.adamw`` runs every leaf through it. Imported as a module, like
+``flash_attention``.
 """
 
 from .blocked import auto_block_sizes, minplus_blocked, minplus_blocked_batch

@@ -34,7 +34,11 @@ times; the count equals the full loop's. On real tensors every trip runs.
     view or an allocation: a read-plus-write proxy for HBM traffic. It is
     not comparable to the reference's count: XLA fuses elementwise chains
     and counts a fusion's result once, while eager PyTorch writes every
-    intermediate, so this count is larger for the same step;
+    intermediate, so this count is larger for the same step. A
+    hand-written kernel launched through ctypes reaches no dispatcher: its
+    wrapper counts it with :func:`count_kernel`, by the bytes it reads and
+    writes (AdamW's leaf kernel, :mod:`repro_torch.kernels.adamw`, on real
+    tensors and on fake CUDA stand-ins alike);
   * coll_bytes -- the collectives that reach the dispatcher: the
     ``_c10d_functional`` ops (DTensor's redistributions: all-gather,
     all-reduce, reduce-scatter, all-to-all) and the ``c10d`` ops that
@@ -65,7 +69,7 @@ from torch.utils.flop_counter import flop_registry
 from .roofline import COLLECTIVES as _COLLECTIVES
 from .roofline import ring_bytes
 
-__all__ = ["CostCounter", "HloCost", "run_trips", "trip_counters"]
+__all__ = ["CostCounter", "HloCost", "count_kernel", "run_trips", "trip_counters"]
 
 
 @dataclass
@@ -235,6 +239,20 @@ class CostCounter(TorchDispatchMode):
         entry[1] += flops
         entry[2] += mem
         return out
+
+
+def count_kernel(name: str, mem_bytes: float, flops: float = 0.0) -> None:
+    """Counts one launch of the hand-written kernel ``name``, which moves
+    ``mem_bytes`` and computes ``flops``, into every active
+    :class:`CostCounter` (in ``cost`` and ``by_op``, times its trips)."""
+    for c in _get_current_dispatch_mode_stack():
+        if isinstance(c, CostCounter):
+            c.cost.flops += flops * c.trips
+            c.cost.mem_bytes += mem_bytes * c.trips
+            entry = c.by_op.setdefault(name, [0, 0.0, 0.0])
+            entry[0] += c.trips
+            entry[1] += flops * c.trips
+            entry[2] += mem_bytes * c.trips
 
 
 def trip_counters(*tensors) -> list:

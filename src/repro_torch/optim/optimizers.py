@@ -14,7 +14,10 @@ the parameters' dtype and rounds elsewhere.
 
 Unlike the reference, ``update`` writes the new moments into the state's
 tensors and ``apply_updates`` adds into the parameters, in place (no
-gradient is recorded), so a step holds one extra tree, the updates.
+gradient is recorded), so a step holds one extra tree, the updates. AdamW
+updates each leaf with :func:`repro_torch.kernels.adamw.adamw_leaf`: on the
+card one hand-written CUDA pass a leaf, bit for bit the ATen ops of its
+plain version, which runs on the CPU.
 
 Adafactor works on the reference's *stacked* leaves: the reference stacks a
 model's layers on leading axes (``(n_groups, period)`` for the dense stack,
@@ -41,6 +44,7 @@ import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.distributed.tensor import zeros as dtensor_zeros
 
+from ..kernels.adamw import adamw_leaf
 from ..spans import span
 
 __all__ = [
@@ -175,19 +179,27 @@ def adamw(
         device = tree_leaves(params)[0].device
         return AdamState(step=torch.zeros((), dtype=torch.int32, device=device), mu=mu, nu=nu)
 
+    f32 = torch.float32
+    # (b1, 1 - b1, weight_decay) as a weakly typed JAX scalar rounds against
+    # each dtype, and b2, 1 - b2 against nu's float32
+    rounded = {dt: (_as(b1, dt), _as(1 - b1, dt), _as(weight_decay, dt))
+               for dt in (torch.bfloat16, torch.float16, torch.float32, torch.float64)}
+    b2_f32, c2_f32 = _as(b2, f32), _as(1 - b2, f32)
+
     def update(grads, state, params):
         with torch.no_grad():
             step = state.step + 1
             t = step.float()
-            bc1 = 1 - torch.tensor(b1, dtype=torch.float32, device=t.device) ** t
-            bc2 = 1 - torch.tensor(b2, dtype=torch.float32, device=t.device) ** t
+            # fills, not host-to-device copies: the step never waits on the host
+            bc1 = 1 - torch.full((), b1, dtype=f32, device=t.device) ** t
+            bc2 = 1 - torch.full((), b2, dtype=f32, device=t.device) ** t
 
             def upd(g, m, v, p):
                 gl, ml, vl, pl = _local(g, p), _local(m), _local(v), _local(p)
-                ml.mul_(_as(b1, ml.dtype)).add_(_as(1 - b1, gl.dtype) * gl)
-                vl.mul_(_as(b2, vl.dtype)).add_(_as(1 - b2, vl.dtype) * gl.float().square())
-                u = (ml.float() / bc1) / ((vl / bc2).sqrt() + eps) + _as(weight_decay, pl.dtype) * pl
-                return _like((-lr * u).to(pl.dtype), p)
+                # contiguous: some gradients arrive strided (olmoe's experts, xlstm's blocks)
+                u = adamw_leaf(gl.contiguous(), ml, vl, pl, bc1, bc2, b1=rounded[ml.dtype][0],
+                               c1=rounded[gl.dtype][1], b2=b2_f32, c2=c2_f32, eps=eps, wd=rounded[pl.dtype][2], lr=lr)
+                return _like(u, p)
 
             updates = tree_map(upd, grads, state.mu, state.nu, params)
         return updates, AdamState(step=step, mu=state.mu, nu=state.nu)

@@ -534,6 +534,22 @@ def test_hlo_cost_adds_as_the_reference_does():
         ra.flops, ra.mem_bytes, ra.coll_bytes, ra.coll_counts, ra.coll_total)
 
 
+def test_count_kernel_counts_into_every_active_counter():
+    """A ctypes launch reaches no dispatcher: ``count_kernel`` adds its
+    bytes and FLOPs to each active counter (nested ones too), times the
+    trips being counted, under its own name in ``by_op``; with no counter
+    active it does nothing."""
+    from repro_torch.launch.hlo_analysis import CostCounter, count_kernel
+
+    count_kernel("k", 18.0)
+    with CostCounter() as outer:
+        count_kernel("k", 18.0, 4.0)
+        with CostCounter() as inner, inner.repeated(3):
+            count_kernel("k", 10.0)
+    assert (outer.cost.mem_bytes, outer.cost.flops, outer.by_op["k"]) == (28.0, 4.0, [2, 4.0, 28.0])
+    assert (inner.cost.mem_bytes, inner.cost.flops, inner.by_op["k"]) == (30.0, 0.0, [3, 0.0, 30.0])
+
+
 def test_flash_configs_are_refused():
     cfg, _ = dryrun.configure("gemma2-2b", SMALL["prefill"], smoke=True)
     with pytest.raises(ValueError, match="attn_impl='plain'"):

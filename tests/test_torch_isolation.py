@@ -56,8 +56,9 @@ def test_importing_every_port_module_pulls_in_no_jax():
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'triton'))\n"
-        "from repro_torch.kernels import build, minplus, flash_attention\n"
+        "from repro_torch.kernels import adamw, build, minplus, flash_attention\n"
         "assert not build._loaded and minplus._launch is None, 'import built or loaded a kernel'\n"
+        "assert adamw._launch is None, 'import loaded the adamw kernel'\n"
         "assert flash_attention._launch is None, 'import loaded the flash kernel'\n"
         "assert flash_attention._bwd_fns is None, 'import loaded the flash backward kernels'\n"
         "print(','.join(bad))\n"

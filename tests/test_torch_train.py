@@ -123,6 +123,55 @@ def test_adamw_matches_jax_over_three_steps(dtype):
     assert ts.nu["a"].dtype == torch.float32 and ts.mu["a"].dtype == tp["a"].dtype
 
 
+@pytest.mark.parametrize("dtype,mu_dtype", [(torch.float32, None), (torch.bfloat16, None),
+                                            (torch.bfloat16, torch.float32)])
+def test_adamw_on_cpu_runs_the_plain_version(dtype, mu_dtype):
+    """On a CPU tree ``adamw`` launches no kernel (``kernels/adamw.py``'s
+    counters stay at 0) and gives, bit for bit, the values of the ATen ops
+    it ran before its leaves went through ``adamw_leaf``, written out here
+    as they stood: three steps, weight decay 0.1, moments and parameters."""
+    from repro_torch.kernels import adamw as kernel
+
+    def old_adamw_steps(params, grads_seq, lr=3e-4, b1=0.9, b2=0.999, eps=1e-8, wd=0.1):
+        def as_(x, dt):
+            return torch.tensor(x, dtype=dt).item()
+
+        mu = {k: torch.zeros_like(p, dtype=mu_dtype or p.dtype) for k, p in params.items()}
+        nu = {k: torch.zeros_like(p, dtype=torch.float32) for k, p in params.items()}
+        for i, grads in enumerate(grads_seq):
+            t = torch.tensor(i + 1, dtype=torch.int32).float()
+            bc1 = 1 - torch.tensor(b1, dtype=torch.float32) ** t
+            bc2 = 1 - torch.tensor(b2, dtype=torch.float32) ** t
+            for k, p in params.items():
+                g, m, v = grads[k], mu[k], nu[k]
+                m.mul_(as_(b1, m.dtype)).add_(as_(1 - b1, g.dtype) * g)
+                v.mul_(as_(b2, v.dtype)).add_(as_(1 - b2, v.dtype) * g.float().square())
+                u = (m.float() / bc1) / ((v / bc2).sqrt() + eps) + as_(wd, p.dtype) * p
+                p.add_((-lr * u).to(p.dtype))
+        return params, mu, nu
+
+    rng = np.random.default_rng(11)
+    shapes = {"w": (33, 17), "b": (5,), "one": (1,)}
+    p0 = {k: torch.from_numpy(rng.normal(size=s).astype(np.float32) * 0.05).to(dtype) for k, s in shapes.items()}
+    grads_seq = [{k: torch.from_numpy(rng.normal(size=s).astype(np.float32) * 10 ** -i).to(dtype)
+                  for k, s in shapes.items()} for i in range(3)]
+    want = old_adamw_steps({k: p.clone() for k, p in p0.items()}, grads_seq)
+
+    before = (kernel.launches, kernel.elements)
+    opt = adamw(3e-4, weight_decay=0.1, mu_dtype=mu_dtype)
+    params = {k: p.clone() for k, p in p0.items()}
+    state = opt.init(params)
+    for grads in grads_seq:
+        updates, state = opt.update(grads, state, params)
+        params = apply_updates(params, updates)
+    assert (kernel.launches, kernel.elements) == before == (0, 0)
+    for got, exp in zip((params, state.mu, state.nu), want):
+        for k in shapes:
+            assert got[k].dtype == exp[k].dtype
+            assert torch.equal(got[k].view(torch.int16 if got[k].element_size() == 2 else torch.int32),
+                               exp[k].view(torch.int16 if exp[k].element_size() == 2 else torch.int32)), k
+
+
 def test_get_optimizer_names_what_is_not_ported():
     """Every optimizer of the reference is ported: ``get_optimizer`` makes
     each, and refuses a name the reference does not know. Adafactor (ported
