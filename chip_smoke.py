@@ -197,7 +197,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
                 and prefill, the decode against a prefill routed to the
                 decode's experts, a 2-layer float32 cut; (d)
                 deepseek-v3-671b at full width cut to 2 layers (1 dense
-                prefix): a prefill of 1,024 tokens (MLA on the plain route),
+                prefix): a prefill of 1,024 tokens (MLA on the kernels, v
+                zero-padded to q's head dim 192, both run at 256),
                 16 absorbed-decode steps at the last positions against it;
                 (e) granite-20b and minitron-8b FULL: a kernel prefill of
                 8,192 tokens (52 and 32 launches; G = 48 and 4) and 16
@@ -358,12 +359,33 @@ Phases, in order; any failure ends the run with a non-zero exit code:
                 0.1; then its ms a launch at both beside its bound (the
                 bytes it moves: 18 an element), the plain version and
                 ``torch._fused_adamw_``.
+24. deepseek-v3 — the benchmark cell ``deepseek-v3.train-4k``
+                (``perfbench/``): (a) its attention launch, B = 1, H =
+                128, S = 4,096, q/k head dim 192 and v 128, bf16, through
+                ``models/layers.py::attention`` (the flash route pads all
+                three to the 256 instance): one forward, one dQ and one
+                dK/dV launch on the tensor cores; the launch's output and
+                lse against the plain version on its own padded inputs
+                (phase 6's limits), the padded output columns zero, the
+                gradients against the plain backward on those inputs (phase
+                9's limits), and the output and gradients against the plain
+                route at the true head dims in float32 within 2e-2; (b)
+                two train steps of the cell's configuration from its seed
+                (``perfbench/modes/train_v3.py::build``: 5 layers at the
+                published widths, 8 of 256 experts held, bf16, remat
+                "full", AdamW), the launch counters set to 0 before each:
+                10 forward, 5 dQ and 5 dK/dV launches a step, all on the
+                tensor cores, no attention on the plain route, finite
+                losses, the held route's pairs a MoE layer and pass with
+                none dropped, the router biases bit for bit, the step's
+                wall time and peak memory.
 
 The line before the last is a JSON object of every kernel with its launch
 count and times; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 import contextlib
+import gc
 import io
 import json
 import math
@@ -400,13 +422,15 @@ SERVE_HEAD_CASES = ((1, 48, 1, 1024, "causal"), (2, 48, 1, 200, "bidirectional")
 # softcap 50; its global layers pass the window too, which "causal" ignores)
 # at (a)'s 4 x 48 tokens and (b)'s cache-filling 4 x 8,192 and check 4 x
 # 8,320; olmoe-1b-7b (c) at 2 x 4,096 and 4 x 48; deepseek-v3's dense prefix
-# layer (d), H = Hkv = 128 at 1 x 1,024; granite-20b (G = 48) and
+# layer (d), H = Hkv = 128 at 1 x 1,024, and its MLA layer, whose q/k head dim
+# 192 and v head dim 128 run zero-padded at 256; granite-20b (G = 48) and
 # minitron-8b (G = 4) (e) at 1 x 8,192. Phase 6 holds the kernel at each, in
 # bfloat16 and float32; phase 15 fails on a launch at a shape not listed.
 SERVE_FLASH_CASES = tuple(
     (B, 8, 4, S, 256, kind, 4096, 50.0) for B, S in ((4, 48), (4, 8192), (4, 8320)) for kind in ("sliding", "causal")
 ) + ((2, 16, 16, 4096, 128, "causal", 0, 0.0), (4, 16, 16, 48, 128, "causal", 0, 0.0),
-     (1, 128, 128, 1024, 128, "causal", 4096, 0.0), (1, 48, 1, 8192, 128, "causal", 4096, 0.0),
+     (1, 128, 128, 1024, 128, "causal", 4096, 0.0), (1, 128, 128, 1024, 256, "causal", 0, 0.0),
+     (1, 48, 1, 8192, 128, "causal", 4096, 0.0),
      (1, 32, 8, 8192, 128, "causal", 4096, 0.0))
 # Phase 16's flash launches: zamba2-2.7b's shared block, H = Hkv = 32 and D =
 # 2560 / 32 = 80, which runs on the D = 128 instances on zero-padded inputs;
@@ -696,9 +720,11 @@ DIST_TRAIN_FLASH_BWD_CASES = ((B_TRAIN, 8, 4, S_TRAIN, 256, "causal", 0, 50.0),
 # widened on the card from a host copy, the dense dispatch). At random
 # init the router sends about half of the 1,024 tokens to one of the 256
 # experts, so a2a's per-expert buffers need that capacity to drop nothing
-# (checked against the largest load). A deepseek-v3 train step at full
-# width fits no card (one MoE layer's experts are 11.3 B parameters); it
-# runs at 8 CPU ranks in tests/test_torch_distribution_zoo.py.
+# (checked against the largest load). A deepseek-v3 train step holding
+# every expert fits no card (one MoE layer's 256 experts are 11.3 B
+# parameters); phase 24 trains the benchmark cell's share (8 experts a MoE
+# layer, moe_impl "held"), and the sharded step runs at 8 CPU ranks in
+# tests/test_torch_distribution_zoo.py.
 DIST_XLSTM_LAYERS, DIST_XLSTM_PREFILL, DIST_XLSTM_TRAIN = 8, (1, 1024), (1, 512)
 DIST_ZAMBA_LAYERS = 12
 DIST_GRANITE_LAYERS = 4
@@ -762,6 +788,14 @@ ADAMW_LEAVES = {"head": (102_400, 4_096), "w1": (4_096, 11_008)}
 ADAMW_PAIRS = ((torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32), (torch.float32, torch.float32))
 ADAMW_STEPS = (1, 2, 3, 10_000)
 ADAMW_B1, ADAMW_B2, ADAMW_EPS, ADAMW_LR, ADAMW_WD = 0.9, 0.999, 1e-8, 3e-4, 0.1
+# Phase 24: the benchmark cell deepseek-v3.train-4k (perfbench/). Its
+# attention launch, (B, H, S, q/k head dim, v head dim), which the flash
+# route runs at the 256 instance on q, k and v zero-padded; and its train
+# step: V3_LAYERS layers, each one forward, one recompute (remat "full"), one
+# dQ and one dK/dV launch, none on the plain route.
+V3_CELL = "deepseek-v3.train-4k"
+V3_ATTN = (1, 128, 4096, 192, 128)
+V3_LAYERS = 5
 
 
 def check(cond, msg):
@@ -3387,8 +3421,8 @@ def routed_decode_and_prefill(params, scfg, cfg, tokens):
     by_layer = iter(torch.stack(dec_idx).reshape(n, L, B, -1).permute(1, 2, 0, 3).reshape(L, B * n, -1))
 
     def make(inner):
-        def routed_as_decoded(cfg_, x2d, router_w):
-            _, _, aux = inner(cfg_, x2d, router_w)
+        def routed_as_decoded(cfg_, x2d, router_w, *rest):
+            _, _, aux = inner(cfg_, x2d, router_w, *rest)
             idx = next(by_layer)
             w = torch.softmax(x2d.float() @ router_w.float(), dim=-1).gather(1, idx)
             return w / w.sum(-1, keepdim=True).clamp_min(1e-9), idx, aux
@@ -3474,9 +3508,9 @@ def serve_moe_part(fa, dev):
 
 def serve_mla_part(fa, dev):
     """Phase 15 (d): deepseek-v3-671b at full width, depth cut: a prefill
-    (MLA on the plain route, the dense prefix layer on the kernel), then
-    absorbed decode against the non-absorbed prefill. Returns flash
-    launches."""
+    (every layer on the kernel: the dense prefix layer's MHA, and MLA on v
+    zero-padded to q's head dim), then absorbed decode against the
+    non-absorbed prefill. Returns flash launches."""
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
     from repro_torch.models import decode_fn, init_cache, init_params, param_count
@@ -3497,12 +3531,12 @@ def serve_mla_part(fa, dev):
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     launches = fa.launches
-    check(launches == cfg.dense_prefix_layers, f"deepseek-v3 prefill: {launches} flash launches (the MLA layers "
-                                               f"take the plain route, the dense prefix layer the kernel)")
+    check(launches == cfg.num_layers, f"deepseek-v3 prefill: {launches} flash launches (one a layer: the MLA "
+                                      f"layers and the dense prefix layer)")
     check(bool(torch.isfinite(want).all()), "deepseek-v3 prefill: non-finite logits")
     log(f"[lm] (d) {MLA_ARCH} at full width, cut to {MLA_CUT} ({param_count(params)} parameters, "
         f"{cfg.param_dtype}, MTP head included) initialised in {init_s:.2f} s; prefill B=1 S={S} (MLA: q/k head dim {cfg.hd + cfg.rope_head_dim} "
-        f"!= v's {cfg.v_head_dim}, plain route; dense prefix layer: {launches} flash launch; moe_impl dense): first "
+        f"and v's {cfg.v_head_dim} zero-padded to the kernels' 256; {launches} flash launches; moe_impl dense): first "
         f"call {prefill_s:.3f} s")
 
     scfg = serve.serve_config(cfg)
@@ -6210,6 +6244,133 @@ def adamw_phase(aw, dev, card):
     return {**out["head"], "w1": out["w1"], "max_abs_err": 0.0}
 
 
+def deepseek_v3_phase(fa, dev, card):
+    """Phase 24: the benchmark cell ``V3_CELL``'s attention launch and
+    train step (the header). Returns its figures."""
+    from perfbench import registry, weights
+    from perfbench.modes import train_v3
+    from repro_torch.models import layers, moe_dispatch
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    tc = ("launches_fwd_tc", "launches_dq_tc", "launches_dkv_tc")
+
+    def counts():
+        return tuple(getattr(fa, name) for name in tc)
+
+    # (a) the attention launch through layers.attention
+    B, H, S, D, Dv = V3_ATTN
+    scale = D ** -0.5
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    q, k = ((torch.randn((B, S, H, D), generator=gen, device=dev) * 0.5).bfloat16() for _ in range(2))
+    v = (torch.randn((B, S, H, Dv), generator=gen, device=dev) * 0.5).bfloat16()
+    do = torch.randn((B, S, H, Dv), generator=gen, device=dev).bfloat16()
+    pos = torch.arange(S, device=dev)
+    seen = []
+    n0 = counts()
+    xs = [t.clone().requires_grad_() for t in (q, k, v)]
+    with spying(layers, "flash_attention", lambda out, *a, **kw: seen.append(
+            [t.detach().clone() for t in (*a[:3], *out)])):
+        o = layers.attention(*xs, q_pos=pos, kv_pos=pos, kind="causal", scale=scale, impl="flash")
+        o.backward(do)
+    got_n = tuple(b - a for a, b in zip(n0, counts()))
+    check(got_n == (1, 1, 1), f"deepseek-v3 attention {V3_ATTN}: tensor-core launches (fwd, dQ, dK/dV) {got_n}, "
+                              f"not one each")
+    check(len(seen) == 1, f"deepseek-v3 attention: {len(seen)} flash_attention calls, not 1")
+    qp, kp, vp, op, lse = seen.pop()
+    Dk = fa.kernel_head_dim(D)
+    check(qp.shape == (B, H, S, Dk) and vp.shape == (B, H, S, Dk),
+          f"deepseek-v3 attention: the launch took q {tuple(qp.shape)}, v {tuple(vp.shape)}, not {Dk} wide")
+    check(bool((op[..., Dv:] == 0).all()), "deepseek-v3 attention: v's zero columns gave non-zero output columns")
+    got = [o.detach()] + [t.grad for t in xs]
+    del xs, o
+    with torch.inference_mode():
+        ok, *errs = flash_err(fa, (op, lse), qp, kp, vp, "causal", 0, 0.0, scale)
+        check(ok, f"deepseek-v3 attention: the launch at {tuple(qp.shape)} != plain on its padded inputs "
+                  f"(max |do|, |do32|, |dlse| {errs})")
+        torch.cuda.empty_cache()
+        dop = torch.nn.functional.pad(do.transpose(1, 2), (0, Dk - Dv))
+        want = fa.flash_attention_bwd_ref(qp.float(), kp.float(), vp.float(), op.float(), lse, dop.float(),
+                                          "causal", 0, 0.0, scale)
+        bwd = {}
+        for name, g, w, dim in (("dq", got[1], want[0], D), ("dk", got[2], want[1], D), ("dv", got[3], want[2], Dv)):
+            w = w[..., :dim].transpose(1, 2)
+            rtol, atol = bwd_limits(w, torch.bfloat16)
+            d = (g.float() - w).abs()
+            check(g.dtype == torch.bfloat16 and bool((d <= atol + rtol * w.abs()).all()),
+                  f"deepseek-v3 attention: {name} != the plain backward on the padded inputs (max {float(d.max()):.3e},"
+                  f" limit {atol:.3e} + {rtol:.3e} |want|)")
+            bwd[name] = float(d.max())
+        del want, dop, qp, kp, vp, op, lse
+        torch.cuda.empty_cache()
+    rs = [t.float().requires_grad_() for t in (q, k, v)]
+    o = layers.attention(*rs, q_pos=pos, kv_pos=pos, kind="causal", scale=scale, impl="plain", block_q=1024)
+    o.backward(do.float())
+    plain = {}
+    for name, a, b in zip(("o", "dq", "dk", "dv"), got, [o.detach()] + [t.grad for t in rs]):
+        plain[name] = float((a.float() - b).abs().max()) / float(b.abs().max())
+        check(plain[name] <= BF16_GRID_TOL, f"deepseek-v3 attention: {name} against the plain route at head dims "
+                                            f"{D}/{Dv} in float32: relative {plain[name]:.3e} > {BF16_GRID_TOL}")
+    del rs, o, got, q, k, v, do
+    torch.cuda.empty_cache()
+    log(f"[v3] (a) attention {V3_ATTN} (B, H, S, q/k and v head dims), bf16, through layers.attention: one forward, "
+        f"dQ and dK/dV launch at the {Dk} instance on zero-padded q, k, v; the launch within phase 6's limits of the "
+        f"plain version on its inputs (max |do| {errs[0]:.3e}, |do32| {errs[1]:.3e}, |dlse| {errs[2]:.3e}), the "
+        f"padded output columns zero; gradients within phase 9's limits of the plain backward (max "
+        + ", ".join(f"{n} {e:.3e}" for n, e in bwd.items()) + "); against the plain route in float32, relative "
+        + ", ".join(f"{n} {e:.3e}" for n, e in plain.items()))
+
+    # (b) the cell's train step
+    root = Path(__file__).resolve().parent
+    if str(root) not in sys.path:
+        sys.path.insert(0, str(root))
+    plan = registry.plan(V3_CELL, root)
+    config, cell = plan["config"], plan["cell"]
+    model = config["model"]
+    check(model["num_layers"] == V3_LAYERS, f"{V3_CELL}: {model['num_layers']} layers, not {V3_LAYERS}")
+    torch.cuda.reset_peak_memory_stats()
+    obj = train_v3.build(config, model, SEED, dev)
+    params, state, step = obj["params"], obj["state"], obj["step"]
+    biases = [b.clone() for b in obj["biases"]]
+    pool = weights.batch_pool(SEED, 2, cell["batch"], cell["seq_len"], model["vocab_size"], dev)
+    n_moe = model["num_layers"] - model["dense_prefix_layers"]
+    plain_calls, out = [], []
+    for i in range(2):
+        for name in tc:
+            setattr(fa, name, 0)
+        held0 = (moe_dispatch.pairs_held, moe_dispatch.dropped)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with spying(layers, "_build_mask", lambda *a, **kw: plain_calls.append(1)):
+            params, state, loss = step(params, state, {"tokens": pool[i]})
+            loss = float(loss)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        got_n = counts()
+        want_n = (2 * V3_LAYERS, V3_LAYERS, V3_LAYERS)
+        check(got_n == want_n, f"{V3_CELL} step {i}: tensor-core launches (fwd, dQ, dK/dV) {got_n}, not {want_n}")
+        check(not plain_calls, f"{V3_CELL} step {i}: {len(plain_calls)} attention calls on the plain route")
+        check(math.isfinite(loss), f"{V3_CELL} step {i}: loss {loss}")
+        pairs = (moe_dispatch.pairs_held - held0[0]) / (2 * n_moe)
+        check(moe_dispatch.dropped == held0[1] and pairs > 0, f"{V3_CELL} step {i}: held pairs {pairs} a MoE layer "
+                                                              f"and pass, dropped {moe_dispatch.dropped - held0[1]}")
+        out.append({"loss": loss, "wall_ms": wall_ms, "pairs_held_per_layer_pass": pairs})
+    same = all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(obj["biases"], biases))
+    check(same, f"{V3_CELL}: a router bias changed in a train step")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[v3] (b) {V3_CELL}: {weights.numel(obj['lay'])} parameters and biases, built from seed {SEED}; two steps of "
+        f"{cell['batch']} x {cell['seq_len']} tokens, each {2 * V3_LAYERS} forward, {V3_LAYERS} dQ and {V3_LAYERS} "
+        f"dK/dV launches, all tensor-core, none on the plain route; losses "
+        + ", ".join(f"{x['loss']:.4f}" for x in out) + "; held pairs a MoE layer and pass "
+        + ", ".join(f"{x['pairs_held_per_layer_pass']:.1f}" for x in out) + ", none dropped; the router biases bit "
+        f"for bit; wall " + ", ".join(f"{x['wall_ms']:.1f}" for x in out) + f" ms (the first cold); peak "
+        f"{peak / 2 ** 30:.3f} GiB; {card}")
+    del obj, params, state, step, biases, pool
+    torch.cuda.empty_cache()
+    log(f"[v3] phase wall time {time.perf_counter() - t_phase:.1f} s")
+    return {"attention": {"fwd_err": errs, "bwd_err": bwd, "plain_rel": plain}, "steps": out, "peak_bytes": peak}
+
+
 def main() -> int:
     # -- phase 1: device ---------------------------------------------------
     if not torch.cuda.is_available():
@@ -6349,6 +6510,9 @@ def main() -> int:
     # -- phase 23: AdamW's leaf kernel ------------------------------------------------------
     aw_t = adamw_phase(aw, dev, card)
 
+    # -- phase 24: the deepseek-v3 cell's attention launch and train step ----------------
+    v3 = deepseek_v3_phase(fa, dev, card)
+
     kernels = [{
         "name": "minplus_cuda",
         "route": "cuda",
@@ -6408,6 +6572,8 @@ def main() -> int:
                                          dist_launches["moe_prefill"],
                                          **{k: v[0] for k, v in dist_launches["zoo"].items()}},
         "remat_dots_launches": dots_launches[0],
+        "v3_cell_launches_per_step": 2 * V3_LAYERS,  # checked in phase 24
+        "v3_attention": v3["attention"],
         "max_abs_err": flash_err_max,
         **ft,
     }, {
@@ -6423,6 +6589,7 @@ def main() -> int:
         "hubert_d80": hubert_d80[f"dq_S{HUBERT_TRAIN[1]}"],
         "distributed_launches": dist_train[1] + sum(v[1] for v in dist_launches["zoo"].values()),
         "remat_dots_launches": dots_launches[1],
+        "v3_cell_launches_per_step": V3_LAYERS,  # checked in phase 24
         "max_abs_err": dq_err,
         **dq_t,
     }, {
@@ -6438,6 +6605,7 @@ def main() -> int:
         "hubert_d80": hubert_d80[f"dkv_S{HUBERT_TRAIN[1]}"],
         "distributed_launches": dist_train[2] + sum(v[2] for v in dist_launches["zoo"].values()),
         "remat_dots_launches": dots_launches[2],
+        "v3_cell_launches_per_step": V3_LAYERS,  # checked in phase 24
         "max_abs_err": dkv_err,
         **dkv_t,
     }, {

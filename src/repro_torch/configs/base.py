@@ -13,6 +13,14 @@ dtypes. One field takes port names:
   ``"flash"`` (its ``"pallas"``: the hand-written flash-attention kernel,
   ``kernels/csrc/flash_fwd.cu``). :data:`ATTN_IMPL_FROM_JAX` is the mapping;
   :func:`repro_torch.models.convert.config_from_jax` applies it.
+
+Fields the JAX package lacks, whose defaults keep every registered arch as
+the reference runs it: DeepSeek-V3's published router and the chip's share
+of its experts (``router_score`` ... ``first_expert_held``, read by
+:mod:`repro_torch.models.moe_dispatch`), MLA in the dense prefix layers
+(``dense_prefix_mla``, :mod:`repro_torch.models.moe`), and AdamW's second
+moment decay and weight decay (``adam_b2``, ``weight_decay``,
+:func:`repro_torch.launch.build_train_step`).
 """
 
 from __future__ import annotations
@@ -70,7 +78,7 @@ class ModelConfig:
     long_context: bool = False  # serving mode: global attn layers fall back to sliding window
     attn_block_q: int = 0  # 0 = full attention matrix; >0 = query-blocked loop (plain route)
     attn_impl: str = "plain"  # plain | flash (see the module docstring)
-    moe_impl: str = "dense"  # dense | einsum | a2a (set per shape by the launcher)
+    moe_impl: str = "dense"  # dense | einsum | a2a (set per shape by the launcher) | held
 
     # MoE
     num_experts: int = 0
@@ -81,6 +89,17 @@ class ModelConfig:
     dense_prefix_layers: int = 0
     capacity_factor: float = 1.25
     router_aux_weight: float = 0.01
+    # DeepSeek-V3 (arXiv:2412.19437 §2.1.2): sigmoid affinities, selection
+    # limited to the router_groups_kept of router_groups expert groups, gates
+    # normalised over the chosen experts and scaled by routed_scale
+    router_score: str = "softmax"  # softmax | sigmoid
+    router_groups: int = 0  # 0: no group limit
+    router_groups_kept: int = 0
+    routed_scale: float = 1.0
+    # moe_impl="held": this layer holds the weights of the routed experts
+    # [first_expert_held, first_expert_held + num_experts_held) of num_experts
+    num_experts_held: int = 0  # 0: all of them
+    first_expert_held: int = 0
 
     # MLA (deepseek-v3)
     use_mla: bool = False
@@ -88,6 +107,7 @@ class ModelConfig:
     kv_lora_rank: int = 0
     rope_head_dim: int = 0
     v_head_dim: int = 0
+    dense_prefix_mla: bool = False  # MLA in the dense prefix layers too (DeepSeek-V3), else MHA
     use_mtp: bool = False
     mtp_weight: float = 0.3
 
@@ -112,6 +132,8 @@ class ModelConfig:
     remat: str = "none"  # none | full | dots
     optimizer: str = "adamw"
     learning_rate: float = 3e-4
+    adam_b2: float = 0.999
+    weight_decay: float = 0.0  # AdamW's decoupled weight decay
 
     # serving
     max_cache_len: int = 0
@@ -124,6 +146,16 @@ class ModelConfig:
             )
         if self.remat not in ("none", "full", "dots"):
             raise ValueError(f"remat must be 'none', 'full' or 'dots', got {self.remat!r}")
+        if self.router_score not in ("softmax", "sigmoid"):
+            raise ValueError(f"router_score must be 'softmax' or 'sigmoid', got {self.router_score!r}")
+        if self.router_score == "softmax" and (self.router_groups or self.routed_scale != 1.0):
+            raise ValueError("router_groups and routed_scale belong to the sigmoid router")
+        if self.dense_prefix_mla and not self.use_mla:
+            raise ValueError("dense_prefix_mla needs use_mla")
+        held = self.experts_held
+        if not 0 <= self.first_expert_held <= self.num_experts - held:
+            raise ValueError(f"experts [{self.first_expert_held}, {self.first_expert_held + held}) are not among "
+                             f"the {self.num_experts} experts")
 
     def pdtype(self) -> torch.dtype:
         return torch_dtype(self.param_dtype)
@@ -134,6 +166,11 @@ class ModelConfig:
     @property
     def hd(self) -> int:
         return self.head_dim or self.d_model // self.num_heads
+
+    @property
+    def experts_held(self) -> int:
+        """The routed experts whose weights a MoE layer holds."""
+        return self.num_experts_held or self.num_experts
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)

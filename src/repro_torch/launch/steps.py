@@ -50,8 +50,13 @@ __all__ = [
 
 def _optimizer(cfg: ModelConfig):
     """The train step's optimizer: Adafactor factors the reference's stacked
-    leaves (``stacks=layer_stacks(cfg)``)."""
-    kw = {"stacks": layer_stacks(cfg)} if cfg.optimizer == "adafactor" else {}
+    leaves (``stacks=layer_stacks(cfg)``); AdamW takes ``cfg.adam_b2`` and
+    ``cfg.weight_decay``."""
+    kw = {}
+    if cfg.optimizer == "adafactor":
+        kw = {"stacks": layer_stacks(cfg)}
+    elif cfg.optimizer == "adamw":
+        kw = {"b2": cfg.adam_b2, "weight_decay": cfg.weight_decay}
     return get_optimizer(cfg.optimizer, cfg.learning_rate, **kw)
 
 

@@ -21,8 +21,9 @@ def config_from_jax(jcfg) -> ModelConfig:
     """The port's :class:`ModelConfig` with the fields of a JAX package
     config (any dataclass with the same field names); ``attn_impl`` is
     translated by :data:`repro_torch.configs.ATTN_IMPL_FROM_JAX`
-    (``"xla"`` -> ``"plain"``, ``"pallas"`` -> ``"flash"``)."""
-    fields = {f.name: getattr(jcfg, f.name) for f in dataclasses.fields(ModelConfig)}
+    (``"xla"`` -> ``"plain"``, ``"pallas"`` -> ``"flash"``). The port's own
+    fields, which the JAX package lacks, keep their defaults."""
+    fields = {f.name: getattr(jcfg, f.name) for f in dataclasses.fields(ModelConfig) if hasattr(jcfg, f.name)}
     fields["attn_impl"] = ATTN_IMPL_FROM_JAX[fields["attn_impl"]]
     return ModelConfig(**fields)
 

@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor
 
-from ..kernels.flash_attention import flash_attention
+from ..kernels.flash_attention import flash_attention, kernel_head_dim
 from ..launch.sharding import like, linear
 
 __all__ = [
@@ -111,9 +111,11 @@ def _build_mask(q_pos, kv_pos, kind: str, window: int = 0, prefix_len=None):
 def _flash_route(q, k, v, kind, prefix_len, kv_valid) -> bool:
     """The reference's conditions for the kernel route
     (``models/layers.py::attention``) that name features the kernel lacks: a
-    prefix mask, a cache mask, ``Sq != Sk``, ``D != Dv``. A head dim the
-    kernels are not built for (D = 80) takes the kernel route too, as in the
-    reference: the wrapper runs it on zero-padded inputs. The reference's
+    prefix mask, a cache mask, ``Sq != Sk``. A head dim the kernels are not
+    built for (D = 80) takes the kernel route too, as in the reference: the
+    wrapper runs it on zero-padded inputs. The reference also refuses
+    ``D != Dv``; here a v head dim below q's (MLA's 128 against 192) takes
+    the kernel route on v zero-padded to q's (:func:`_flash_bshd`). The reference's
     length conditions (``Sq >= 128``, ``Sq % 128 == 0``) are dropped with its
     fault: there the kernel gets 512-row blocks and a grid of ``Sq // 512``,
     so for ``Sq % 512 != 0`` the rows past the last whole block are never
@@ -123,12 +125,23 @@ def _flash_route(q, k, v, kind, prefix_len, kv_valid) -> bool:
         kind in ("causal", "sliding", "bidirectional")
         and prefix_len is None and kv_valid is None
         and q.shape[1] == k.shape[1]
-        and q.shape[-1] == v.shape[-1]
+        and v.shape[-1] <= q.shape[-1]
     )
 
 
 def _flash_bshd(q, k, v, kind, window, softcap, scale):
-    """:func:`flash_attention` on ``(B, S, H, D)`` layouts."""
+    """:func:`flash_attention` on ``(B, S, H, D)`` layouts. A v head dim
+    ``Dv`` below q's ``D`` is zero-padded: zero columns of v give zero
+    output columns, which are cut off, and their gradient is cut off in
+    turn. On the card q, k and v are padded at once to the kernel instance's
+    head dim (:func:`kernel_head_dim`: MLA's 192 runs at 256), so v is
+    copied once; the softmax scale stays ``D ** -0.5`` of the true D unless
+    given."""
+    D, Dv = q.shape[-1], v.shape[-1]
+    if Dv < D:
+        Dk = kernel_head_dim(D) if q.device.type == "cuda" else D
+        padded = (x if x.shape[-1] == Dk else F.pad(x, (0, Dk - x.shape[-1])) for x in (q, k, v))
+        return _flash_bshd(*padded, kind, window, softcap, D ** -0.5 if scale is None else scale)[..., :Dv]
     o, _ = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), kind, window, softcap, scale)
     return o.transpose(1, 2)
 
@@ -268,7 +281,7 @@ def attention(
 
     ``impl="flash"`` routes full self-attention (causal / sliding /
     bidirectional, no prefix, no cache mask, ``Sq == Sk`` of any length,
-    ``D == Dv``) through the flash-attention kernel
+    ``Dv <= D``) through the flash-attention kernel
     (:func:`repro_torch.kernels.flash_attention.flash_attention`), whose
     output carries a gradient through the backward kernels; everything else
     takes the plain route. ``block_q`` does not apply to the kernel, whose q

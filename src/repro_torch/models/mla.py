@@ -6,7 +6,11 @@ the compressed latent). Decode uses the *absorbed* form: the queries are
 projected into the latent space and attend directly against the cached
 ``c_kv``, so the cache is ``(B, S, kv_lora_rank + rope_head_dim)`` instead
 of ``(B, S, H, ...)``. The q/k head dim (``hd + rope_head_dim``) differs
-from v's, so attention takes the plain route in both packages.
+from v's: the JAX package takes the plain route for it, the port's
+``attn_impl="flash"`` the flash kernels on v zero-padded to q's head dim
+(:func:`repro_torch.models.layers.attention`). Train/prefill attention runs
+in the span ``attn.mla`` and its backward span (:mod:`repro_torch.spans`;
+items tokens).
 
 As in :mod:`repro_torch.models.dense`, a decode step writes into the
 cache's storage and returns the same tensors.
@@ -18,6 +22,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..launch.sharding import like, linear, shard
+from ..spans import mark_backward, span
 from .dense import _out_proj, _proj, dense_init, write_cache
 from .layers import apply_rope, attention, make_rope, rms_norm
 
@@ -56,6 +61,13 @@ def mla_forward(cfg: ModelConfig, p, x, *, q_pos, collect_cache=False):
     """Non-absorbed attention over the full sequence. Returns ``(y,
     cache)`` with ``cache = (c_kv, k_rope)`` (the latents before the rope,
     as the reference collects them) under ``collect_cache``, else ``None``."""
+    n = x.shape[0] * x.shape[1]
+    with span("attn.mla", items=n):
+        y, cache = _mla_full(cfg, p, mark_backward(x, "attn.mla.bwd", end=True), q_pos, collect_cache)
+        return mark_backward(y, "attn.mla.bwd", end=False, items=n), cache
+
+
+def _mla_full(cfg: ModelConfig, p, x, q_pos, collect_cache):
     nd, rd = cfg.hd, cfg.rope_head_dim
     cq, ckv, kr = _latents(cfg, p, x)
     q = _proj(cq, p["w_uq"])  # (B, S, H, nd + rd)

@@ -11,11 +11,22 @@ dicts (the reference stacks them on a leading ``(n,)`` axis). The router aux
 losses of the MoE layers are averaged and added to the LM loss with
 ``cfg.router_aux_weight``.
 
+The published DeepSeek-V3, beyond the reference (config fields the JAX
+package lacks): ``dense_prefix_mla`` runs MLA in the dense prefix layers
+too (``{"ln1", "ln2", "attn_mla", "mlp"}``); ``router_score="sigmoid"``
+selects on the affinities plus a per-layer bias, which is state outside the
+parameters: ``batch["router_bias"]``, one ``(num_experts,)`` tensor a MoE
+layer, read and never written, so no gradient or optimizer step reaches it
+(the published bias update speed 0, §4.2); ``moe_impl="held"`` holds
+``num_experts_held`` of the experts
+(:mod:`repro_torch.models.moe_dispatch`).
+
 The decode cache is ``{"moe": (k, v)[, "dense": (k, v)]}`` with a leading
 layer axis, as the reference lays it out: ``(n, B, S_max, Hkv, hd)``, or,
 with MLA, ``(c_kv (n_moe, B, S_max, kv_lora_rank), k_rope (n_moe, B, S_max,
-rope_head_dim))``. A decode step writes into the cache's storage and returns
-the same tensors (:mod:`repro_torch.models.dense`).
+rope_head_dim))`` (the dense layers' too under ``dense_prefix_mla``). A
+decode step writes into the cache's storage and returns the same tensors
+(:mod:`repro_torch.models.dense`).
 """
 
 from __future__ import annotations
@@ -25,11 +36,13 @@ import torch
 from ..configs.base import ModelConfig
 from ..core.torch_dp import resolve_device
 from ..launch.sharding import axis_size, like, linear, shard
+from ..spans import mark_backward, span
 from .dense import (
     _embed,
     _init_layer,
     _logits,
     _maybe_remat,
+    _mlp,
     _out_proj,
     _proj,
     cross_entropy,
@@ -42,7 +55,8 @@ from .layers import apply_rope, attention, make_rope, rms_norm
 from .mla import init_mla, init_mla_cache, mla_decode_step, mla_forward
 from .moe_dispatch import moe_ffn
 
-__all__ = ["init_moe_cache", "init_moe_model", "moe_decode_step", "moe_forward", "moe_layer_apply", "moe_loss"]
+__all__ = ["dense_mla_layer_apply", "init_moe_cache", "init_moe_model", "moe_decode_step", "moe_forward",
+           "moe_layer_apply", "moe_loss"]
 
 
 # ---------------------------------------------------------------------------
@@ -51,10 +65,10 @@ __all__ = ["init_moe_cache", "init_moe_model", "moe_decode_step", "moe_forward",
 
 
 def _init_moe_ffn(cfg: ModelConfig, gen: torch.Generator):
-    d, E, fe = cfg.d_model, cfg.num_experts, cfg.d_ff_expert
+    d, E, fe = cfg.d_model, cfg.experts_held, cfg.d_ff_expert
     pd = cfg.pdtype()
     p = {
-        "router": dense_init(gen, (d, E), dtype=pd),
+        "router": dense_init(gen, (d, cfg.num_experts), dtype=pd),
         "experts": {
             "w_gate": dense_init(gen, (E, d, fe), fan_in=d, dtype=pd),
             "w_in": dense_init(gen, (E, d, fe), fan_in=d, dtype=pd),
@@ -88,13 +102,30 @@ def _init_moe_layer(cfg: ModelConfig, gen: torch.Generator):
     return p
 
 
+def _init_dense_mla_layer(cfg: ModelConfig, gen: torch.Generator):
+    """A dense prefix layer under ``dense_prefix_mla``: MLA and the gated-SiLU
+    MLP of width ``d_ff``."""
+    d, f, pd, dev = cfg.d_model, cfg.d_ff, cfg.pdtype(), gen.device
+    return {
+        "ln1": torch.zeros((d,), dtype=pd, device=dev),
+        "ln2": torch.zeros((d,), dtype=pd, device=dev),
+        "attn_mla": init_mla(cfg, gen),
+        "mlp": {
+            "w_gate": dense_init(gen, (d, f), dtype=pd),
+            "w_in": dense_init(gen, (d, f), dtype=pd),
+            "w_out": dense_init(gen, (f, d), fan_in=f, dtype=pd),
+        },
+    }
+
+
 def init_moe_model(cfg: ModelConfig, gen: torch.Generator):
     """Random parameters on the generator's device, drawn in a fixed order
     (embedding, dense prefix layers, MoE layers, head, MTP)."""
     pd, dev, d = cfg.pdtype(), gen.device, cfg.d_model
     params = {"emb": dense_init(gen, (cfg.vocab_size, d), fan_in=d, dtype=pd)}
     if cfg.dense_prefix_layers:  # same dims; the plain gated-SiLU FFN of width d_ff
-        params["dense_layers"] = [_init_layer(cfg, gen) for _ in range(cfg.dense_prefix_layers)]
+        init_dense = _init_dense_mla_layer if cfg.dense_prefix_mla else _init_layer
+        params["dense_layers"] = [init_dense(cfg, gen) for _ in range(cfg.dense_prefix_layers)]
     params["moe_layers"] = [_init_moe_layer(cfg, gen) for _ in range(cfg.num_layers - cfg.dense_prefix_layers)]
     params["ln_f"] = torch.zeros((d,), dtype=pd, device=dev)
     params["lm_head"] = dense_init(gen, (d, cfg.vocab_size), dtype=pd)
@@ -140,14 +171,26 @@ def _moe_attention(cfg: ModelConfig, p, h, *, q_pos, kv_pos, rope, cache=None, w
     return _out_proj(out, p["attn"]["wo"]), new_cache
 
 
-def moe_layer_apply(cfg: ModelConfig, p, h, *, q_pos, kv_pos, rope, cache=None, write_pos=None):
-    """One MoE block. Returns ``(h, new_cache, aux)``."""
+def moe_layer_apply(cfg: ModelConfig, p, h, *, q_pos, kv_pos, rope, cache=None, write_pos=None, router_bias=None):
+    """One MoE block. Returns ``(h, new_cache, aux)``; ``router_bias`` is the
+    layer's selection bias (module docstring)."""
     attn_out, new_cache = _moe_attention(
         cfg, p, rms_norm(h, p["ln1"]), q_pos=q_pos, kv_pos=kv_pos, rope=rope, cache=cache, write_pos=write_pos,
     )
     h = h + attn_out
-    y, aux = moe_ffn(cfg, p["moe"], rms_norm(h, p["ln2"]))
+    y, aux = moe_ffn(cfg, p["moe"], rms_norm(h, p["ln2"]), router_bias)
     return shard(h + y, "batch", "act_seq", None), new_cache, aux
+
+
+def dense_mla_layer_apply(cfg: ModelConfig, p, h, *, q_pos, kv_pos, rope, cache=None, write_pos=None):
+    """One dense prefix block under ``dense_prefix_mla``: MLA
+    (:func:`_moe_attention`, its cache as a MoE block's) and the gated-SiLU
+    MLP. Returns ``(h, new_cache)``."""
+    attn_out, new_cache = _moe_attention(
+        cfg, p, rms_norm(h, p["ln1"]), q_pos=q_pos, kv_pos=kv_pos, rope=rope, cache=cache, write_pos=write_pos,
+    )
+    h = h + attn_out
+    return shard(h + _mlp(cfg, p["mlp"], rms_norm(h, p["ln2"])), "batch", "act_seq", None), new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -159,12 +202,19 @@ def _stacked(pairs):
     return tuple(torch.stack(xs) for xs in zip(*pairs))
 
 
-def moe_forward(params, cfg: ModelConfig, tokens, *, collect_cache=False):
+def moe_forward(params, cfg: ModelConfig, tokens, *, collect_cache=False, router_bias=None):
     """Returns ``(logits, aux_mean, caches, h_final)``; ``caches`` is
     ``{"moe"[, "dense"]}`` with each layer's keys and values (MLA: its
     latents ``(c_kv, k_r)``, ``k_r`` before the rope, as the reference
     collects them) stacked on a leading layer axis under ``collect_cache``,
-    else ``None``."""
+    else ``None``. ``router_bias``: one selection bias a MoE layer, or
+    ``None`` (module docstring)."""
+    h, aux, caches = _moe_hidden(params, cfg, tokens, collect_cache=collect_cache, router_bias=router_bias)
+    return _logits(cfg, params, h), aux, caches, h
+
+
+def _moe_hidden(params, cfg: ModelConfig, tokens, *, collect_cache=False, router_bias=None):
+    """:func:`moe_forward` up to the head: ``(h_final, aux_mean, caches)``."""
     h = _embed(cfg, params, tokens)
     pos = like(h, torch.arange(h.shape[1], device=h.device))
     rope = make_rope(pos, cfg.hd, cfg.rope_base)
@@ -172,6 +222,9 @@ def moe_forward(params, cfg: ModelConfig, tokens, *, collect_cache=False):
 
     if cfg.dense_prefix_layers:
         def dense_body(hh, lp):
+            if cfg.dense_prefix_mla:
+                return dense_mla_layer_apply(cfg, lp, hh, q_pos=pos, kv_pos=pos, rope=rope,
+                                             cache="collect" if collect_cache else None)
             return layer_apply(cfg, lp, hh, "causal", rope, q_pos=pos, kv_pos=pos)
 
         body, kvs = _maybe_remat(cfg, dense_body), []
@@ -181,30 +234,39 @@ def moe_forward(params, cfg: ModelConfig, tokens, *, collect_cache=False):
         if collect_cache:
             caches["dense"] = _stacked(kvs)
 
-    def moe_body(hh, lp):
+    def moe_body(hh, lp, bias):
         return moe_layer_apply(cfg, lp, hh, q_pos=pos, kv_pos=pos, rope=rope,
-                               cache="collect" if collect_cache else None)
+                               cache="collect" if collect_cache else None, router_bias=bias)
 
     body, kvs, auxes = _maybe_remat(cfg, moe_body), [], []
-    for lp in params["moe_layers"]:
-        h, c, aux = body(h, lp)
+    biases = router_bias if router_bias is not None else [None] * len(params["moe_layers"])
+    for lp, bias in zip(params["moe_layers"], biases, strict=True):
+        h, c, aux = body(h, lp, bias)
         kvs.append(c)
         auxes.append(aux)
     if collect_cache:
         caches["moe"] = _stacked(kvs)
-    return _logits(cfg, params, h), torch.stack(auxes).mean(), caches if collect_cache else None, h
+    return h, torch.stack(auxes).mean(), caches if collect_cache else None
 
 
 def moe_loss(params, cfg: ModelConfig, batch):
     """``batch["tokens"] (B, S + 1)``, or ``(B, S + 2)`` with MTP: the LM
     loss plus ``router_aux_weight`` times the mean router aux loss, plus
-    ``mtp_weight`` times the MTP depth-1 head's loss on ``tokens[:, 2:]``."""
+    ``mtp_weight`` times the MTP depth-1 head's loss on ``tokens[:, 2:]``.
+    ``batch["router_bias"]``, where given, holds the MoE layers' selection
+    biases (module docstring). The LM head and its cross-entropy run in the
+    span ``model.loss_head`` and its backward span (:mod:`repro_torch.spans`,
+    as ``models/dense.py::dense_loss``; items tokens)."""
     tokens = batch["tokens"]
     inp, tgt = tokens[:, :-1], tokens[:, 1:]
     if cfg.use_mtp:
         inp, tgt = tokens[:, :-2], tokens[:, 1:-1]
-    logits, aux, _, h = moe_forward(params, cfg, inp)
-    loss = cross_entropy(logits, tgt) + cfg.router_aux_weight * aux
+    h, aux, _ = _moe_hidden(params, cfg, inp, router_bias=batch.get("router_bias"))
+    n = tgt.numel()
+    with span("model.loss_head", items=n):
+        lm = cross_entropy(_logits(cfg, params, mark_backward(h, "model.loss_head.bwd", end=True)), tgt)
+        lm = mark_backward(lm, "model.loss_head.bwd", end=False, items=n)
+    loss = lm + cfg.router_aux_weight * aux
     if cfg.use_mtp:
         # MTP depth-1 (DeepSeek-V3 §2.2): the final hidden state with the
         # embedding of the NEXT token, one extra layer, predict t + 2
@@ -229,7 +291,8 @@ def init_moe_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
         return (torch.zeros(shape, dtype=cfg.cdtype(), device=dev), torch.zeros(shape, dtype=cfg.cdtype(), device=dev))
 
     if cfg.dense_prefix_layers:
-        caches["dense"] = kv(cfg.dense_prefix_layers)
+        n = cfg.dense_prefix_layers
+        caches["dense"] = init_mla_cache(cfg, batch, max_len, (n,), dev) if cfg.dense_prefix_mla else kv(n)
     caches["moe"] = init_mla_cache(cfg, batch, max_len, (n_moe,), dev) if cfg.use_mla else kv(n_moe)
     return caches
 
@@ -246,8 +309,12 @@ def moe_decode_step(params, cfg: ModelConfig, cache, tokens, pos):
     if cfg.dense_prefix_layers:
         k_all, v_all = cache["dense"]
         for i, lp in enumerate(params["dense_layers"]):
-            h, _ = layer_apply(cfg, lp, h, "causal", rope, q_pos=q_pos, kv_pos=kv_pos,
-                               cache_kv=(k_all[i], v_all[i]), write_pos=pos)
+            if cfg.dense_prefix_mla:
+                h, _ = dense_mla_layer_apply(cfg, lp, h, q_pos=q_pos, kv_pos=kv_pos, rope=rope,
+                                             cache=(k_all[i], v_all[i]), write_pos=pos)
+            else:
+                h, _ = layer_apply(cfg, lp, h, "causal", rope, q_pos=q_pos, kv_pos=kv_pos,
+                                   cache_kv=(k_all[i], v_all[i]), write_pos=pos)
     a_all, b_all = cache["moe"]
     for i, lp in enumerate(params["moe_layers"]):
         h, _, _ = moe_layer_apply(cfg, lp, h, q_pos=q_pos, kv_pos=kv_pos, rope=rope, cache=(a_all[i], b_all[i]),

@@ -12,20 +12,47 @@
                  runs on each rank's shards under ``local_map`` (the
                  reference's ``shard_map``). Without an active mesh it runs
                  ``dense``, as the reference does.
+  * ``held``   — one chip's share of expert parallelism, without the
+                 exchange: the layer holds the weights of the experts
+                 ``[first_expert_held, first_expert_held + num_experts_held)``
+                 and routes over all ``num_experts``; the (token, choice)
+                 pairs routed to its experts are sorted by expert and run
+                 through one grouped gated-SiLU product
+                 (``torch._grouped_mm``, each expert on exactly its rows,
+                 the group offsets on the device), so no pair drops; pairs
+                 routed to other experts add nothing here (their chips'
+                 part). The number of held pairs, which sizes the rows, is
+                 read on the host, one sync a forward pass: the counts' copy
+                 starts right after the router and the host waits for it
+                 only after queueing the shared expert, so the card keeps
+                 working through the wait; remat's recompute takes the
+                 forward pass's counts and checks them on the card. Not in
+                 the JAX package.
 
-All share the router: softmax, top-k, renormalise, and the switch-style
-load-balance auxiliary loss. The top k come from a stable descending sort,
-so among equal probabilities the lower expert index comes first, as
-``jax.lax.top_k`` orders them: ``torch.topk`` promises no order for ties,
-and the order decides the einsum dispatch's slot positions and with them
-which tokens the capacity drops.
+All share the router: by default softmax, top-k, renormalise, and the
+switch-style load-balance auxiliary loss. The top k come from a stable
+descending sort, so among equal probabilities the lower expert index comes
+first, as ``jax.lax.top_k`` orders them: ``torch.topk`` promises no order
+for ties, and the order decides the einsum dispatch's slot positions and
+with them which tokens the capacity drops. ``router_score="sigmoid"`` is
+DeepSeek-V3's router instead (:func:`route`; not in the JAX package).
+
+Counters of the ``held`` route, raised on every call (so a remat'd
+layer's recompute counts as a forward pass), with the pattern of
+:mod:`repro_torch.kernels.adamw`'s: ``pairs_held`` (pairs computed here),
+``max_load`` (the most pairs one held expert got in a call) and
+``dropped`` (held pairs left out: none, by construction, since the rows
+are sized by the count). :func:`record_routing` keeps
+each call's chosen experts while it is open; off, it costs nothing.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
-from typing import Tuple
+import weakref
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -34,17 +61,61 @@ from torch.distributed.tensor.experimental import local_map
 
 from ..configs.base import ModelConfig
 from ..launch.sharding import current_mesh, linear, mesh_shape, no_batch_product, rules, whole_rows, whole_rows_grad
+from ..spans import mark_backward, span
 
-__all__ = ["einsum_capacity", "moe_ffn", "route"]
+__all__ = ["dropped", "einsum_capacity", "max_load", "moe_ffn", "pairs_held", "record_routing", "route"]
+
+pairs_held = 0  # (token, choice) pairs the held route computed, since import (or since a caller reset it)
+max_load = 0  # the most pairs one held expert got in one call
+dropped = 0  # held pairs the held route left out
+
+# the held route's counts of a layer's forward pass under remat, by id of its
+# router weight (held weakly: a step's aliases of the weights go with the step,
+# and an entry counts only while its weight lives), until the backward pass's
+# recompute of the layer takes them
+_held_memo: dict = {}
+
+# the chosen experts of each route call while record_routing() is open
+_recorded: Optional[list] = None
 
 
-def route(cfg: ModelConfig, x2d: torch.Tensor, router_w: torch.Tensor):
+@contextlib.contextmanager
+def record_routing():
+    """While open, every :func:`route` call of a forward pass appends its
+    chosen experts ``gate_idx (T, k)`` (int64, on the router's device) to
+    the list it yields, in call order; remat's recompute, which runs inside
+    the backward pass, is not recorded again. Closed (the default), routing
+    keeps nothing."""
+    global _recorded
+    saved, _recorded = _recorded, []
+    try:
+        yield _recorded
+    finally:
+        _recorded = saved
+
+
+def route(cfg: ModelConfig, x2d: torch.Tensor, router_w: torch.Tensor, bias: Optional[torch.Tensor] = None,
+          batch: int = 1):
     """x2d ``(T, d)`` -> ``(gate_w (T, k) float32, gate_idx (T, k) int64,
     aux)``, the router in float32. On DTensors the top k are taken on each
     rank's rows under ``local_map``, the experts whole (the sort is an
     index-style op: torch 2.11's DTensor cannot run its backward, whose
-    scatter meets a plain tensor)."""
-    probs = torch.softmax(linear(x2d.float(), router_w.float()), dim=-1)
+    scatter meets a plain tensor). ``bias`` and ``batch`` serve the sigmoid
+    router (:func:`_route_sigmoid`) only."""
+    logits = linear(x2d.float(), router_w.float())
+    if cfg.router_score == "sigmoid":
+        gate_w, gate_idx, aux = _route_sigmoid(cfg, logits, bias, batch)
+    else:
+        gate_w, gate_idx, aux = _route_softmax(cfg, logits)
+    if _recorded is not None and torch._C._current_graph_task_id() == -1:  # not in a backward pass
+        _recorded.append(gate_idx.detach())
+    return gate_w, gate_idx, aux
+
+
+def _route_softmax(cfg: ModelConfig, logits):
+    """The reference's router: softmax, top k, renormalised; the aux
+    ``E * sum_e f_e * P_e`` over the whole batch."""
+    probs = torch.softmax(logits, dim=-1)
     top_k = functools.partial(_top_k, k=cfg.top_k)
     if isinstance(probs, DTensor):
         pl = [Replicate() if p.is_partial() or p == Shard(1) else p for p in probs.placements]
@@ -57,6 +128,47 @@ def route(cfg: ModelConfig, x2d: torch.Tensor, router_w: torch.Tensor):
     f_e = F.one_hot(gate_idx, E).float().mean(dim=(0, 1))  # fraction routed, slot-averaged
     aux = E * torch.sum(f_e * probs.mean(dim=0))
     return gate_w, gate_idx, aux
+
+
+def _route_sigmoid(cfg: ModelConfig, logits, bias, batch: int):
+    """DeepSeek-V3's router (arXiv:2412.19437 §2.1.2-2.1.3), in float32:
+    affinities ``s = sigmoid(x W_r)`` over all ``num_experts``; the experts
+    chosen on ``s + bias`` (``bias (E,)``, a selection-only bias that no
+    gradient reaches; none where ``None``) among the ``router_groups_kept``
+    groups whose two largest biased scores sum highest (:func:`_select`);
+    the gates the unbiased ``s`` of the chosen experts over their sum, times
+    ``routed_scale``. The balance term is sequence-wise: for each of the
+    ``batch`` sequences of the ``T`` rows, ``E * sum_e f_e * P_e`` with
+    ``f_e`` the share of its (token, choice) pairs routed to ``e`` and
+    ``P_e`` the mean of ``s_e / sum_j s_j`` over its tokens; the mean over
+    the sequences."""
+    if isinstance(logits, DTensor):
+        raise ValueError("the sigmoid router runs on one device's tokens: no DTensor route")
+    s = torch.sigmoid(logits)
+    with torch.no_grad():
+        gate_idx = _select(cfg, s if bias is None else s + bias.float())
+    gate_w = s.gather(1, gate_idx)
+    gate_w = gate_w / gate_w.sum(-1, keepdim=True) * cfg.routed_scale
+    T, E = s.shape
+    f_e = F.one_hot(gate_idx, E).float().reshape(batch, T // batch, -1, E).mean(dim=(1, 2))
+    p_e = (s / s.sum(-1, keepdim=True)).reshape(batch, T // batch, E).mean(dim=1)
+    aux = (E * (f_e * p_e).sum(-1)).mean()
+    return gate_w, gate_idx, aux
+
+
+def _select(cfg: ModelConfig, scores):
+    """The ``top_k`` experts of each row of ``scores (T, E)`` (:func:`_top_k`'s
+    order), among the ``router_groups_kept`` of ``router_groups`` groups of
+    consecutive experts whose two largest scores sum highest (ties to the
+    lower group), or among all experts where ``router_groups`` is 0."""
+    G = cfg.router_groups
+    if G:
+        T, E = scores.shape
+        top2 = scores.reshape(T, G, E // G).topk(2, dim=-1).values.sum(-1)  # (T, G)
+        kept = _top_k(top2, cfg.router_groups_kept)[1]
+        keep = torch.zeros((T, G), dtype=torch.bool, device=scores.device).scatter_(1, kept, True)
+        scores = scores.masked_fill(~keep.repeat_interleave(E // G, dim=1), float("-inf"))
+    return _top_k(scores, cfg.top_k)[1]
 
 
 def _top_k(probs, k):
@@ -359,14 +471,106 @@ def _moe_a2a(cfg: ModelConfig, x2d, experts, gate_w, gate_idx):
     return y.redistribute(mesh, [Replicate() if p.is_partial() else p for p in x2d.placements])
 
 
-def moe_ffn(cfg: ModelConfig, p, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def _held_counts(cfg: ModelConfig, gate_idx, router_w):
+    """The ``held`` route's bookkeeping, started before the shared expert:
+    ``(ids, counts, host, ready)``, each (token, choice) pair's held expert
+    (``num_experts_held`` for another chip's expert), the pairs each held
+    expert got (and, last, the others) on the device, and those counts
+    copied to the host without waiting (``ready``: the CUDA event after the
+    copy, or ``None`` where the counts are on the host already). A scatter
+    counts them: ``torch.bincount`` would read the largest id on the host
+    first, before the shared expert is queued. A forward pass under remat
+    keeps its host counts, by the router weight, for the backward pass's
+    recompute of the layer, which then copies nothing and checks its own
+    counts against them on the device."""
+    held = cfg.experts_held
+    local = gate_idx.reshape(-1) - cfg.first_expert_held
+    ids = torch.where((local >= 0) & (local < held), local, held)
+    counts = torch.zeros(held + 1, dtype=ids.dtype, device=ids.device).scatter_add_(0, ids, torch.ones_like(ids))
+    recompute = torch._C._current_graph_task_id() != -1
+    if recompute:
+        ref, host, kept = _held_memo.pop(id(router_w), (None, None, None))
+        if ref is not None and ref() is router_w:
+            torch._assert_async((counts == kept).all())
+            return ids, counts, host, None
+    if counts.is_cuda:
+        host = torch.empty(counts.shape, dtype=counts.dtype, pin_memory=True)
+        host.copy_(counts, non_blocking=True)
+        ready = torch.cuda.Event()
+        ready.record()
+    else:
+        host, ready = counts, None
+    if not recompute and cfg.remat != "none" and torch.is_grad_enabled():
+        for key in [k for k, (r, _, _) in _held_memo.items() if r() is None]:
+            del _held_memo[key]
+        _held_memo[id(router_w)] = (weakref.ref(router_w), host, counts)
+    return ids, counts, host, ready
+
+
+def _held_experts(cfg: ModelConfig, x2d, experts, gate_w, pending):
+    """The ``held`` route (module docstring): ``(T, d)`` in x2d's dtype, the
+    held experts' gated-SiLU outputs of the pairs routed to them, each times
+    its float32 gate, summed at its token in float32. ``pending`` is
+    :func:`_held_counts`'s; the host waits for the counts' copy alone, where
+    there is one (a forward pass's one sync; the card goes on with what was
+    queued after it), to learn the number ``n`` of held pairs. The pairs are
+    sorted by held expert, each expert's followed by one row of zeros (so
+    no group of the grouped products is empty, and every expert's weight
+    gradient is written), and cut to those ``n + num_experts_held`` rows;
+    one grouped product a weight runs each held expert on its own rows. The
+    zero rows stand at index ``T * k`` of the pairs, one past the last: they
+    read a zero row of x and a zero gate, and add into a row past the
+    tokens that is cut off."""
+    global pairs_held, max_load
+    ids, counts, host, ready = pending
+    if ready is not None:
+        ready.synchronize()
+    held = cfg.experts_held
+    per_expert = host.tolist()[:held]
+    n = sum(per_expert)
+    # counted before the products: remat's recompute stops at the layer's last saved tensor, in the combine
+    pairs_held += n
+    max_load = max(max_load, max(per_expert))
+    T, k = gate_w.shape
+    order = torch.argsort(torch.cat([ids, torch.arange(held, device=ids.device)]), stable=True)
+    pairs = order[:n + held].clamp_max(T * k)  # the zero rows' index: T * k
+    offs = (counts[:held] + 1).cumsum(0).to(torch.int32)
+    xs = F.pad(x2d, (0, 0, 0, 1))[pairs // k]
+    h = F.silu(torch._grouped_mm(xs, experts["w_gate"], offs=offs)) * torch._grouped_mm(xs, experts["w_in"], offs=offs)
+    ys = torch._grouped_mm(h, experts["w_out"], offs=offs)
+    gates = F.pad(gate_w.reshape(-1), (0, 1))[pairs]
+    y = torch.zeros((T + 1, ys.shape[1]), dtype=torch.float32, device=ys.device)
+    return y.index_add(0, pairs // k, ys.float() * gates[:, None])[:T].to(x2d.dtype)
+
+
+def moe_ffn(cfg: ModelConfig, p, x: torch.Tensor, bias: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """p: ``{router (d, E), experts {w_gate, w_in, w_out} (E, ...)[, shared
-    {...}]}``. x ``(B, S, d)`` -> ``(y (B, S, d), aux)``."""
+    {...}]}`` (``(num_experts_held, ...)`` experts under ``held``). x
+    ``(B, S, d)`` -> ``(y (B, S, d), aux)``; ``bias`` is the sigmoid
+    router's selection bias (:func:`route`). The router, the held route and
+    the shared expert run in the spans ``moe.route``, ``moe.held`` and
+    ``moe.shared`` and their backward spans (:mod:`repro_torch.spans`;
+    items tokens)."""
     B, S, d = x.shape
     x2d = whole_rows(x).reshape(B * S, d)
-    gate_w, gate_idx, aux = route(cfg, x2d, p["router"])
-
+    n = B * S
     impl = cfg.moe_impl
+    if cfg.experts_held != cfg.num_experts and impl != "held":
+        raise ValueError(f"a layer holding {cfg.experts_held} of {cfg.num_experts} experts runs moe_impl='held', "
+                         f"not {impl!r}")
+    with span("moe.route", items=n):
+        gate_w, gate_idx, aux = route(cfg, mark_backward(x2d, "moe.route.bwd", end=True), p["router"], bias, B)
+        gate_w = mark_backward(gate_w, "moe.route.bwd", end=False, items=n)
+        pending = _held_counts(cfg, gate_idx, p["router"]) if impl == "held" else None
+    shared = None
+    if "shared" in p:  # deepseek-style always-on shared expert(s)
+        sh = p["shared"]
+        with span("moe.shared", items=n):
+            xs = mark_backward(x2d, "moe.shared.bwd", end=True)
+            shared = linear(F.silu(linear(xs, sh["w_gate"])) * linear(xs, sh["w_in"]), sh["w_out"])
+            shared = mark_backward(shared, "moe.shared.bwd", end=False, items=n)
+
     if impl == "a2a" and current_mesh() is None:
         impl = "dense"
     if impl == "dense":
@@ -375,11 +579,13 @@ def moe_ffn(cfg: ModelConfig, p, x: torch.Tensor) -> Tuple[torch.Tensor, torch.T
         y = _moe_einsum(cfg, x2d, p["experts"], gate_w, gate_idx, einsum_capacity(cfg, B * S))
     elif impl == "a2a":
         y = _moe_a2a(cfg, x2d, p["experts"], gate_w, gate_idx)
+    elif impl == "held":
+        with span("moe.held", items=n):
+            y = _held_experts(cfg, mark_backward(x2d, "moe.held.bwd", end=True), p["experts"], gate_w, pending)
+            y = mark_backward(y, "moe.held.bwd", end=False, items=n)
     else:
         raise ValueError(cfg.moe_impl)
-
-    if "shared" in p:  # deepseek-style always-on shared expert(s)
-        sh = p["shared"]
-        y = y + linear(F.silu(linear(x2d, sh["w_gate"])) * linear(x2d, sh["w_in"]), sh["w_out"])
+    if shared is not None:
+        y = y + shared
     y = y.reshape(B, S, d)
     return (whole_rows_grad(y) if isinstance(y, DTensor) else y), aux

@@ -17,11 +17,15 @@ autograd graph. On, a span
 
 A backward span opens in the backward of an identity at its region's
 output and closes in the backward of one at the region's input, both
-applied by :func:`mark_backward`. Records stay in memory until
+applied by :func:`mark_backward`. The opening identity saves its input and
+reads it back before the span opens: inside a region that
+``torch.utils.checkpoint`` recomputes, the backward pass's first read of a
+saved tensor starts the recompute, which so runs before any backward span
+of the region opens. Records stay in memory until
 :func:`reset`; :func:`summary` reads them. Nothing is written out.
 
-The training step's spans, each once a step (none inside a region that
-``torch.utils.checkpoint`` recomputes):
+The training step's spans outside the layers, each once a step (none
+inside a region that ``torch.utils.checkpoint`` recomputes):
 
 * ``train.step``: ``launch/steps.py::build_train_step``'s step; items
   the tokens predicted;
@@ -37,6 +41,24 @@ The training step's spans, each once a step (none inside a region that
 * ``optim.update``: the body of every optimizer's ``update``;
   ``optim.apply``: ``optim/optimizers.py::apply_updates``; items the
   elements updated.
+
+Spans inside a layer, items the layer's tokens. A layer under remat runs
+its forward twice a step, once in the forward pass and once as the
+backward pass's recompute, so each forward span fires twice a layer and
+step (a recompute that ``torch.utils.checkpoint`` stops early closes the
+open ones at the stop); each backward span, from the first forward's
+graph, fires once, after the recompute, and the backward spans of one
+layer do not overlap (the autograd engine runs the later region's backward
+first):
+
+* ``attn.mla``, ``attn.mla.bwd``: ``models/mla.py::mla_forward``, MLA's
+  train/prefill attention from its input to its output projection;
+* ``moe.route``, ``moe.route.bwd``: ``models/moe_dispatch.py::route``
+  (backward: from the gates' gradient to the router input's);
+* ``moe.held``, ``moe.shared`` and their ``.bwd``: the held route
+  (``_held_experts``: the grouped products, the gates applied and the
+  pairs summed at their tokens) and the shared expert, in
+  ``models/moe_dispatch.py::moe_ffn``.
 """
 
 from __future__ import annotations
@@ -103,6 +125,8 @@ class _Mark(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, name, end, items):
         ctx.name, ctx.end, ctx.items = name, end, items
+        if not end:
+            ctx.save_for_backward(x)
         return x.view_as(x)
 
     @staticmethod
@@ -112,6 +136,7 @@ class _Mark(torch.autograd.Function):
             if record is not None:
                 record.__exit__(None, None, None)
         else:
+            ctx.saved_tensors  # under remat, the first read of a saved tensor starts the recompute: before the span
             _open[ctx.name] = _Record(ctx.name, ctx.items).__enter__()
         return g, None, None, None
 

@@ -3,8 +3,8 @@ loss) and Adafactor against the JAX package, on the CPU.
 
 olmoe-1b-7b and deepseek-v3-671b SMOKE models (JAX-initialised weights with
 noise on the norm gains, float32). The port's prefill runs its ``"flash"``
-route (on CPU tensors the kernel's plain version; MLA's q/k head dim differs
-from v's, so its layers take the plain route) against JAX's XLA route:
+route (on CPU tensors the kernel's plain version; MLA's v, whose head dim
+is below q/k's, zero-padded to theirs) against JAX's XLA route:
 logits within 1e-4 (``test_torch_models.py``'s prefill tolerance). Loss
 within rtol 1e-5 and gradients within rtol 2e-3, atol 2e-5
 (``test_torch_train.py``'s tolerances), deepseek-v3's MTP term included.
